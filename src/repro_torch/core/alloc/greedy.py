@@ -1,0 +1,316 @@
+"""Greedy latency-proportional replica allocation (Section III-B).
+
+The paper's loop grants a replica to the unit with the highest expected
+latency until the slowest unit can no longer be afforded.  Copied from the
+reference ``core/alloc/greedy.py``:
+
+  * ``greedy_allocate`` — the heapq loop, on the host, verbatim;
+  * ``proportional_allocate`` / ``proportional_allocate_batch`` — the
+    prior-work policies, numpy on the host (their unstable ``argsort`` tie
+    order must be numpy's to match);
+  * ``greedy_batch_kernel`` / ``greedy_allocate_batch`` — the lock-step
+    batched greedy over C configs, in torch float64 on the device.
+
+Not yet ported: the placement-aware, release, event-schedule and queueing
+allocators (their callers are in later slices).
+"""
+
+from __future__ import annotations
+
+import heapq
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ... import resolve_device
+
+__all__ = [
+    "AllocationResult",
+    "BatchAllocationResult",
+    "greedy_allocate",
+    "greedy_allocate_batch",
+    "greedy_batch_kernel",
+    "proportional_allocate",
+    "proportional_allocate_batch",
+]
+
+
+@dataclass(frozen=True)
+class AllocationResult:
+    """Replica counts chosen by the allocator.
+
+    Attributes:
+      replicas:    int array, replicas granted per unit (>= 1 each).
+      latency:     float array, resulting expected latency per unit
+                   (base_latency / replicas).
+      spent:       total cost consumed.
+      leftover:    budget remaining when the loop stopped.
+    """
+
+    replicas: np.ndarray
+    latency: np.ndarray
+    spent: float
+    leftover: float
+
+    @property
+    def makespan(self) -> float:
+        return float(self.latency.max()) if self.latency.size else 0.0
+
+
+def greedy_allocate(
+    base_latency: np.ndarray,
+    unit_cost: np.ndarray,
+    budget: float,
+    *,
+    initial_replicas: np.ndarray | None = None,
+) -> AllocationResult:
+    """Grant replicas to the unit with the highest expected latency.
+
+    ``base_latency``: expected latency of each unit with a single replica;
+    ``unit_cost``: cost of one more replica of each unit; ``budget``: total
+    cost available for *additional* replicas; ``initial_replicas``:
+    optionally start from an existing allocation.  Stops when the current
+    slowest unit can no longer be afforded, the paper's stopping rule.
+    """
+    base_latency = np.asarray(base_latency, dtype=np.float64)
+    unit_cost = np.asarray(unit_cost, dtype=np.float64)
+    if base_latency.shape != unit_cost.shape:
+        raise ValueError(
+            f"base_latency {base_latency.shape} vs unit_cost {unit_cost.shape}"
+        )
+    n = base_latency.size
+    replicas = (
+        np.ones(n, dtype=np.int64)
+        if initial_replicas is None
+        else np.asarray(initial_replicas, dtype=np.int64).copy()
+    )
+    if n == 0:
+        return AllocationResult(replicas, base_latency.copy(), 0.0, float(budget))
+    if np.any(replicas < 1):
+        raise ValueError("every unit needs at least one replica")
+
+    # Max-heap keyed by current expected latency.
+    heap = [(-base_latency[i] / replicas[i], i) for i in range(n)]
+    heapq.heapify(heap)
+    spent = 0.0
+    remaining = float(budget)
+    while heap:
+        neg_lat, i = heapq.heappop(heap)
+        if unit_cost[i] > remaining:
+            # the slowest unit cannot be afforded: the allocation is final
+            # (cheaper, faster units would not reduce the makespan)
+            heapq.heappush(heap, (neg_lat, i))
+            break
+        remaining -= unit_cost[i]
+        spent += unit_cost[i]
+        replicas[i] += 1
+        new_lat = base_latency[i] / replicas[i]
+        heapq.heappush(heap, (-new_lat, i))
+
+    latency = base_latency / replicas
+    return AllocationResult(replicas, latency, spent, remaining)
+
+
+@dataclass(frozen=True)
+class BatchAllocationResult:
+    """Structure-of-arrays ``AllocationResult`` for C configs, as tensors on
+    the device the batch ran on."""
+
+    replicas: torch.Tensor  # (C, N) int64
+    latency: torch.Tensor  # (C, N) float64
+    spent: torch.Tensor  # (C,) float64
+    leftover: torch.Tensor  # (C,) float64
+
+    @property
+    def makespan(self) -> torch.Tensor:  # (C,)
+        if self.latency.shape[1] == 0:
+            return self.latency.new_zeros(len(self))
+        return self.latency.amax(dim=1)
+
+    def __len__(self) -> int:
+        return self.replicas.shape[0]
+
+
+def greedy_batch_kernel(base, cost, budget, r0):
+    """The lock-step batched greedy: (C, N) float64 ``base`` latencies and
+    ``cost`` per replica, (C,) ``budget``, (C, N) ``r0`` initial replicas ->
+    (replicas (C, N) float64, leftover (C,)).
+
+    1.  *Bulk water-fill by bisection.*  For a makespan target ``lam`` the
+        state ``r_i = max(r0_i, ceil(base_i / lam))`` is one the scalar
+        greedy passes through if its cost fits the budget.  80 bisection
+        steps find the tightest affordable one, then back off by 1e-9
+        relative so grants within roundoff of the boundary go to phase 2.
+    2.  *Lock-step residual loop.*  Grant the argmax-latency unit of every
+        config one replica per step; a config stops the moment its argmax
+        is unaffordable.  ``torch.argmax`` returns the first maximum, the
+        scalar heap's tie order.  The loop ends when every config is done.
+
+    Each line is one elementwise or reduction op in float64 (no fused
+    multiply-add), the arithmetic of the reference, so the bisection sees
+    the same values.
+    """
+    C, N = base.shape
+
+    def r_of(lam):
+        return torch.maximum(r0, torch.ceil(base / lam[:, None]))
+
+    def spend_of(r):
+        return ((r - r0) * cost).sum(dim=1)
+
+    lat0 = base / r0
+    hi = torch.clamp(lat0.amax(dim=1), min=1e-300)  # degenerate all-zero rows
+    min_cost = cost.amin(dim=1)
+    # strictly below the final greedy makespan -> provably infeasible
+    lo = hi / (2.0 * (2.0 + torch.clamp(budget, min=0.0) / min_cost))
+    for _ in range(80):
+        mid = 0.5 * (lo + hi)
+        feasible = spend_of(r_of(mid)) <= budget
+        lo, hi = torch.where(feasible, lo, mid), torch.where(feasible, mid, hi)
+    r = r_of(hi * (1.0 + 1e-9))
+    rem = budget - spend_of(r)
+
+    idx = torch.arange(N, device=base.device)
+    done = torch.zeros(C, dtype=torch.bool, device=base.device)
+    while not bool(done.all()):
+        lat = base / r
+        i = lat.argmax(dim=1)
+        ci = torch.gather(cost, 1, i[:, None])[:, 0]
+        ok = (ci <= rem) & ~done
+        r = r + ((idx[None, :] == i[:, None]) & ok[:, None])
+        rem = rem - torch.where(ok, ci, 0.0)
+        done = done | ~ok
+    return r, rem
+
+
+def greedy_allocate_batch(
+    base_latency,
+    unit_cost,
+    budgets,
+    *,
+    initial_replicas=None,
+    device: str | torch.device = "cuda",
+) -> BatchAllocationResult:
+    """Vectorized ``greedy_allocate`` over C configs on ``device``.
+
+    ``base_latency`` / ``unit_cost`` / ``initial_replicas`` broadcast from
+    (N,) to (C, N); ``budgets`` is (C,).  Replica counts are element-wise
+    those of the scalar allocator; ``spent`` / ``leftover`` agree to float
+    roundoff.  Runs in float64.
+    """
+    dev = resolve_device(device)
+    budgets = np.atleast_1d(np.asarray(budgets, dtype=np.float64))
+    C = budgets.shape[0]
+    base = np.atleast_1d(np.asarray(base_latency, dtype=np.float64))
+    cost = np.atleast_1d(np.asarray(unit_cost, dtype=np.float64))
+    if base.shape[-1] != cost.shape[-1]:
+        raise ValueError(f"base_latency {base.shape} vs unit_cost {cost.shape}")
+    N = base.shape[-1]
+    base = np.broadcast_to(base, (C, N))
+    cost = np.broadcast_to(cost, (C, N))
+    if np.any(cost <= 0):
+        raise ValueError("unit_cost must be strictly positive")
+    if initial_replicas is None:
+        r0 = np.ones((C, N))
+    else:
+        r0 = np.broadcast_to(np.asarray(initial_replicas, dtype=np.float64), (C, N))
+        if np.any(r0 < 1):
+            raise ValueError("every unit needs at least one replica")
+
+    def on_dev(a):
+        return torch.tensor(np.ascontiguousarray(a), dtype=torch.float64, device=dev)
+
+    base_t, cost_t, budget_t, r0_t = on_dev(base), on_dev(cost), on_dev(budgets), on_dev(r0)
+    if N == 0:
+        return BatchAllocationResult(
+            torch.ones((C, 0), dtype=torch.int64, device=dev),
+            base_t, torch.zeros(C, dtype=torch.float64, device=dev), budget_t,
+        )
+    r, rem = greedy_batch_kernel(base_t, cost_t, budget_t, r0_t)
+    spent = ((r - r0_t) * cost_t).sum(dim=1)
+    return BatchAllocationResult(r.to(torch.int64), base_t / r, spent, rem)
+
+
+def proportional_allocate(
+    weight: np.ndarray,
+    unit_cost: np.ndarray,
+    budget: float,
+) -> AllocationResult:
+    """Allocate replicas proportional to ``weight`` (the prior-work policy):
+    "weight-based" when ``weight`` = MACs per layer, "performance-based
+    layer-wise" when it is expected cycles per layer.  Replica counts are
+    the floor of the proportional share (>= 1), with any leftover budget
+    distributed by largest fractional remainder."""
+    weight = np.asarray(weight, dtype=np.float64)
+    unit_cost = np.asarray(unit_cost, dtype=np.float64)
+    n = weight.size
+    replicas = np.ones(n, dtype=np.int64)
+    if n == 0 or budget <= 0:
+        return AllocationResult(replicas, weight / replicas, 0.0, float(budget))
+
+    total_w = weight.sum()
+    share = weight / total_w * float(budget)
+    extra = np.floor(share / unit_cost).astype(np.int64)
+    replicas = replicas + np.maximum(extra, 0)
+    spent = float((extra * unit_cost).sum())
+    remaining = float(budget) - spent
+    # Largest-remainder top-up.
+    frac = share / unit_cost - extra
+    for i in np.argsort(-frac):
+        if unit_cost[i] <= remaining:
+            replicas[i] += 1
+            remaining -= unit_cost[i]
+            spent += unit_cost[i]
+    latency = weight / replicas
+    return AllocationResult(replicas, latency, spent, remaining)
+
+
+def proportional_allocate_batch(
+    weight: np.ndarray,
+    unit_cost: np.ndarray,
+    budgets: np.ndarray,
+) -> BatchAllocationResult:
+    """``proportional_allocate`` over C budgets, vectorized in numpy on the
+    host; the result holds CPU tensors.
+
+    Element-wise identical to looping the scalar routine: ``np.argsort(-frac,
+    axis=1)`` applies the same introsort per row as the scalar's per-config
+    call, so even unstable tie orders agree.  The largest-remainder top-up
+    walks the N sorted positions lock-step across configs.
+    """
+    budgets = np.atleast_1d(np.asarray(budgets, dtype=np.float64))
+    weight = np.atleast_1d(np.asarray(weight, dtype=np.float64))
+    cost = np.atleast_1d(np.asarray(unit_cost, dtype=np.float64))
+    C = budgets.shape[0]
+    N = weight.shape[-1]
+    weight = np.broadcast_to(weight, (C, N))
+    cost = np.broadcast_to(cost, (C, N))
+    replicas = np.ones((C, N), dtype=np.int64)
+    if N == 0 or C == 0:
+        return _host_result(replicas, weight / replicas, np.zeros(C), budgets.copy())
+
+    act = budgets > 0  # scalar early-returns all-ones below/at zero budget
+    total_w = weight.sum(axis=1)
+    share = weight / total_w[:, None] * budgets[:, None]
+    extra = np.where(act[:, None], np.floor(share / cost).astype(np.int64), 0)
+    replicas = replicas + np.maximum(extra, 0)
+    spent = (extra * cost).sum(axis=1)
+    remaining = budgets - spent
+    frac = share / cost - extra
+    order = np.argsort(-frac, axis=1)
+    rows = np.arange(C)
+    for k in range(N):
+        i = order[:, k]
+        ci = cost[rows, i]
+        ok = act & (ci <= remaining)
+        replicas[rows[ok], i[ok]] += 1
+        remaining = np.where(ok, remaining - ci, remaining)
+        spent = np.where(ok, spent + ci, spent)
+    return _host_result(replicas, weight / replicas, spent, remaining)
+
+
+def _host_result(replicas, latency, spent, leftover) -> BatchAllocationResult:
+    return BatchAllocationResult(
+        *(torch.from_numpy(np.ascontiguousarray(a)) for a in (replicas, latency, spent, leftover))
+    )

@@ -1,0 +1,152 @@
+"""DNN -> crossbar mapping (Section III / Figure 5 of the paper).
+
+A copy of the reference's ``core/cim/network.py``.  Every conv layer is
+lowered to a matrix of shape (rows = k*k*Cin, logical_cols = Cout) and tiled
+over 128x128 binary arrays: 8 cells per 8-bit weight means an array holds a
+128-row x 16-weight tile.  One tile-row — the arrays that share word lines
+and therefore input data — is the paper's *block*.
+
+ResNet18 (ImageNet) lowers to 20 conv layers = 5472 arrays in 247 blocks,
+the counts quoted in the paper.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+
+import numpy as np
+
+from .cost import ArrayConfig, DEFAULT_ARRAY
+
+__all__ = [
+    "LayerSpec",
+    "NetworkSpec",
+    "resnet18_imagenet",
+    "vgg11_cifar10",
+    "with_array",
+]
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    """One conv layer lowered to a crossbar matrix."""
+
+    name: str
+    kernel: int
+    cin: int
+    cout: int
+    out_hw: int  # output spatial size (H == W)
+    stride: int = 1
+    array: ArrayConfig = field(default=DEFAULT_ARRAY)
+
+    @property
+    def rows(self) -> int:
+        return self.kernel * self.kernel * self.cin
+
+    @property
+    def n_blocks(self) -> int:
+        """Tile-rows: ceil(rows / array rows)."""
+        return -(-self.rows // self.array.rows)
+
+    @property
+    def arrays_per_block(self) -> int:
+        """Tile width: ceil(cout / logical weights per array)."""
+        return -(-self.cout // self.array.logical_cols)
+
+    @property
+    def n_arrays(self) -> int:
+        return self.n_blocks * self.arrays_per_block
+
+    @property
+    def patches_per_image(self) -> int:
+        return self.out_hw * self.out_hw
+
+    @property
+    def macs_per_image(self) -> int:
+        return self.patches_per_image * self.rows * self.cout
+
+    def block_row_slices(self) -> list[slice]:
+        """Row ranges of the lowered matrix feeding each block."""
+        r = self.array.rows
+        return [slice(i * r, min((i + 1) * r, self.rows)) for i in range(self.n_blocks)]
+
+
+@dataclass(frozen=True)
+class NetworkSpec:
+    name: str
+    layers: tuple[LayerSpec, ...]
+
+    @property
+    def n_arrays(self) -> int:
+        return sum(l.n_arrays for l in self.layers)
+
+    @property
+    def n_blocks(self) -> int:
+        return sum(l.n_blocks for l in self.layers)
+
+    def min_pes(self, arrays_per_pe: int = 64) -> int:
+        return -(-self.n_arrays // arrays_per_pe)
+
+    def block_table(self) -> np.ndarray:
+        """(n_blocks, 3) int table: [layer_index, block_index_in_layer, width]."""
+        out = []
+        for li, layer in enumerate(self.layers):
+            for bi in range(layer.n_blocks):
+                out.append((li, bi, layer.arrays_per_block))
+        return np.asarray(out, dtype=np.int64)
+
+
+def with_array(spec: NetworkSpec, array: ArrayConfig) -> NetworkSpec:
+    """Retarget a network onto a different crossbar geometry / ADC config:
+    the lowered matrix shapes are unchanged, the tiling re-derives."""
+    return NetworkSpec(spec.name, tuple(replace(l, array=array) for l in spec.layers))
+
+
+def resnet18_imagenet() -> NetworkSpec:
+    """The 20 convolutional layers of ResNet18 at 224x224 (the paper's
+    workload); the final fc layer is excluded, as in the paper's count."""
+    layers: list[LayerSpec] = []
+
+    def conv(name, k, cin, cout, out_hw, stride=1):
+        layers.append(LayerSpec(name, k, cin, cout, out_hw, stride))
+
+    conv("conv1", 7, 3, 64, 112, 2)
+    for b in range(2):
+        conv(f"layer1.{b}.conv1", 3, 64, 64, 56)
+        conv(f"layer1.{b}.conv2", 3, 64, 64, 56)
+    conv("layer2.0.conv1", 3, 64, 128, 28, 2)
+    conv("layer2.0.conv2", 3, 128, 128, 28)
+    conv("layer2.0.down", 1, 64, 128, 28, 2)
+    conv("layer2.1.conv1", 3, 128, 128, 28)
+    conv("layer2.1.conv2", 3, 128, 128, 28)
+    conv("layer3.0.conv1", 3, 128, 256, 14, 2)
+    conv("layer3.0.conv2", 3, 256, 256, 14)
+    conv("layer3.0.down", 1, 128, 256, 14, 2)
+    conv("layer3.1.conv1", 3, 256, 256, 14)
+    conv("layer3.1.conv2", 3, 256, 256, 14)
+    conv("layer4.0.conv1", 3, 256, 512, 7, 2)
+    conv("layer4.0.conv2", 3, 512, 512, 7)
+    conv("layer4.0.down", 1, 256, 512, 7, 2)
+    conv("layer4.1.conv1", 3, 512, 512, 7)
+    conv("layer4.1.conv2", 3, 512, 512, 7)
+    return NetworkSpec("resnet18", tuple(layers))
+
+
+def vgg11_cifar10() -> NetworkSpec:
+    """The 8 convolutional layers of VGG11 at 32x32 (the paper's second
+    workload)."""
+    cfg = [
+        # (cin, cout, out_hw) — maxpool after convs 1, 2, 4, 6, 8
+        (3, 64, 32),
+        (64, 128, 16),
+        (128, 256, 8),
+        (256, 256, 8),
+        (256, 512, 4),
+        (512, 512, 4),
+        (512, 512, 2),
+        (512, 512, 2),
+    ]
+    layers = tuple(
+        LayerSpec(f"conv{i+1}", 3, cin, cout, hw) for i, (cin, cout, hw) in enumerate(cfg)
+    )
+    return NetworkSpec("vgg11", layers)

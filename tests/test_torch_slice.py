@@ -1,0 +1,162 @@
+"""The port's slice end to end on the host, and the package's boundaries.
+
+* VGG11 (whose full spec is small) from shared inputs, through
+  ``profile_network`` -> ``run_policy`` for the five Fig 8 policies,
+  against the reference.  The capture runs float32 matmuls in another order
+  than XLA's, so throughput and utilization are held to the reference's
+  cycle-statistics tolerance (rtol 2e-2, atol 1e-2); the MAC-proportional
+  policies do not read the profile and use exactly the same arrays.
+* ``repro_torch`` imports and runs with jax unimportable, and its sources
+  import neither jax nor ``repro``.
+* Entry points called without ``device=`` ask for the card, and raise
+  where there is none.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.experimental
+import numpy as np
+import pytest
+import torch
+
+import repro.core.cim as R
+from repro.core.cim import profile as RP
+import repro_torch as T
+from repro_torch import convert
+from repro_torch.core.alloc.greedy import greedy_allocate_batch
+from repro_torch.core.cim.profile import synthetic_images
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _x64_shim():
+    """The reference imports ``jax.experimental.enable_x64``, which jax 0.9
+    removed; provide it for this module only."""
+    with pytest.MonkeyPatch.context() as mp:
+        if not hasattr(jax.experimental, "enable_x64"):
+            mp.setattr(
+                jax.experimental, "enable_x64", lambda: jax.enable_x64(True), raising=False
+            )
+        yield
+
+
+@pytest.fixture(scope="module")
+def vgg_profiles():
+    rspec, tspec = R.vgg11_cifar10(), T.vgg11_cifar10()
+    rprof = R.profile_network(rspec, n_images=2)
+    kimg, kw = jax.random.split(jax.random.PRNGKey(0))
+    keys = jax.random.split(kw, len(rspec.layers))
+    weights = [np.asarray(RP._kaiming(keys[i], l.rows, l.cout)) for i, l in enumerate(rspec.layers)]
+    images = np.asarray(RP.synthetic_images(2, 32, kimg))
+    x, ws = convert.capture_inputs_from_numpy(images, weights, tspec, device="cpu")
+    tprof = T.profile_network(tspec, n_images=2, images=x, weights=ws, device="cpu")
+    return rspec, rprof, tspec, tprof
+
+
+@pytest.mark.parametrize("policy", list(R.POLICIES))
+def test_vgg11_slice_matches_reference(vgg_profiles, policy):
+    rspec, rprof, tspec, tprof = vgg_profiles
+    for mult in (1, 2, 4):
+        pes = rspec.min_pes() * mult
+        r = R.run_policy(rspec, rprof, policy, pes)
+        t = T.run_policy(tspec, tprof, policy, pes)
+        assert np.isfinite(t.images_per_sec) and t.layer_utilization.shape == (len(tspec.layers),)
+        np.testing.assert_allclose(t.images_per_sec, r.images_per_sec, rtol=2e-2)
+        np.testing.assert_allclose(t.mean_utilization, r.mean_utilization, atol=1e-2)
+        if policy in ("baseline", "weight_based", "weight_blockflow"):
+            assert t.arrays_used == r.arrays_used
+
+
+def test_blockwise_beats_layerwise_beats_weight_based(vgg_profiles):
+    """The paper's Fig 8 ordering holds on the port's own numbers."""
+    _, _, tspec, tprof = vgg_profiles
+    pes = tspec.min_pes() * 2
+    ips = {p: T.run_policy(tspec, tprof, p, pes).images_per_sec for p in T.POLICIES}
+    assert ips["blockwise"] >= ips["perf_layerwise"] >= ips["weight_based"] > ips["baseline"]
+
+
+def test_runs_with_jax_unimportable():
+    code = """
+import sys
+sys.modules["jax"] = None  # any import of jax now raises ImportError
+import repro_torch as T
+spec = T.vgg11_cifar10()
+cap = T.capture_activations(spec, n_images=1, sample_patches=16, device="cpu")
+prof = T.derive_profile(cap, spec)
+res = T.simulate(spec, prof, T.allocate(spec, prof, "blockwise", spec.min_pes() * 2))
+assert res.images_per_sec > 0, res
+loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-3000:]
+
+
+def _imports(path: pathlib.Path) -> set[str]:
+    mods = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add(node.module)
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(node.func, "id", "")) in (
+            "import_module", "__import__",
+        ):
+            mods.update(a.value for a in node.args if isinstance(a, ast.Constant))
+    return mods
+
+
+def test_port_sources_import_neither_jax_nor_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+ENTRY_POINTS = [
+    "capture_activations",
+    "profile_network",
+    "synthetic_images",
+    "greedy_allocate_batch",
+    "capture_inputs_from_numpy",
+    "capture_from_numpy",
+]
+
+
+def _call(name):
+    spec = T.vgg11_cifar10()
+    if name == "capture_activations":
+        return T.capture_activations(spec, n_images=1)
+    if name == "profile_network":
+        return T.profile_network(spec, n_images=1)
+    if name == "synthetic_images":
+        return synthetic_images(1, 8, torch.Generator())
+    if name == "greedy_allocate_batch":
+        return greedy_allocate_batch([1.0], [1.0], [2.0])
+    if name == "capture_inputs_from_numpy":
+        weights = [np.zeros((l.rows, l.cout), np.float32) for l in spec.layers]
+        return convert.capture_inputs_from_numpy(np.zeros((1, 32, 32, 3)), weights, spec)
+
+    class Cap:  # the fields capture_from_numpy reads
+        network, n_images, sample_patches, seed, layers = "vgg11", 1, 1, 0, ()
+
+    return convert.capture_from_numpy(Cap())
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_points_default_to_the_card(monkeypatch, name):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        _call(name)
