@@ -20,7 +20,19 @@ sources.  Phases, each of which fails the run on any mismatch:
      and ``run_batch`` against the scalar ``simulate``;
   3. the same path on VGG11 at 64 images;
   4. the card against the host path on a small VGG11 input;
-  5. timings with CUDA events after warm-up.
+  5. timings with CUDA events after warm-up;
+  6. K2 (the fused allocate + eval kernel) against its plain version on
+     random problems (ties, warm starts, budget-0 rows, N not a multiple
+     of 32);
+  7. the fused DSE sweep on ResNet18 at full width: ``run_fused_sweep``
+     (``engine="kernel"``: one K1 launch per geometry group, then K2 per
+     chunk) over array rows 128 and 256 x ADC bits 1-8 x four policies x
+     4,400 PE budgets from 1.0 to 2.5x the minimum (281,600 configs), with
+     K1's and K2's launch counts set to 0 before and read after; then the
+     ``"torch"`` engine on the same grid, the staged ``run_sweep`` on a
+     64-budget sub-grid, and K2 against its plain version on every chunk of
+     that sub-grid; the same for VGG11 on a smaller grid;
+  8. K2's timings at the main path's chunk, beside its bound.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's launches
 on the main path, max |kernel - plain|, times and bound); the last line is
@@ -38,7 +50,20 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 LANE_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores, taken per integer op
+FP64_OPS_PER_S = 34e12  # H100 SXM float64 rate outside the tensor cores (K2 uses no tensor core)
 FIG8_MAX_MULT = 5.66  # the largest Fig 8 design size, in multiples of the minimum PEs
+# the reference's headline fused grid (benchmarks/run.py:782-798): its
+# ResNet18 half, array rows 128 and 256 x ADC bits 1-8 x four policies x
+# 4,400 PE budgets from 1.0 to 2.5x the minimum
+FUSED_ROWS = (128, 256)
+FUSED_ADC_BITS = (1, 2, 3, 4, 5, 6, 7, 8)
+FUSED_POLICIES = ("baseline", "weight_based", "perf_layerwise", "blockwise")
+FUSED_R18_BUDGETS = 4400
+FUSED_R18_MAX_MULT = 2.5
+FUSED_VGG_BUDGETS = 400  # VGG11: the same axes at a smaller grid, 1.0 to 6.0x
+FUSED_VGG_MAX_MULT = 6.0
+FUSED_SUBGRID = 64  # budgets held against the staged run_sweep
+K2_RTOL = 1e-12  # the reference's fused contract for float outputs
 
 
 def check(cond, msg):
@@ -70,6 +95,298 @@ def timed(fn, reps=1, warmup=1):
     return start.elapsed_time(end) / reps
 
 
+def k2_problem(seed, n, c, warm, ties=True):
+    """Numpy inputs of K2 drawn from small integer pools (priority ties are
+    common): A variants of N unit bases, a one-hot map with uncovered cells,
+    V = 2A bank slots, budgets with zeros.  The CPU tests draw the same
+    problems (tests/test_torch_fused_kernel.py)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    a, l, b = int(rng.integers(1, 4)), int(rng.integers(1, 6)), int(rng.integers(1, 40))
+    base = rng.integers(1, 13, (a, n)).astype(np.float64)
+    if not ties:
+        base *= rng.random((a, n)) * 1e3
+    cost = rng.integers(1, 5, n).astype(np.float64)
+    owner = rng.integers(-1, n, (l, b))
+    umap = np.zeros((n, l, b))
+    li, bi = np.nonzero(owner >= 0)
+    umap[owner[li, bi], li, bi] = 1.0
+    v = 2 * a
+    banks = (
+        rng.integers(1, 50, (v, l, b)).astype(np.float64),
+        rng.integers(50, 99, (v, l, b)).astype(np.float64),
+        rng.integers(1, 50, (v, l)).astype(np.float64),
+        rng.integers(50, 99, (v, l)).astype(np.float64),
+        rng.integers(1, 50, (v, l)).astype(np.float64),
+    )
+    b_mask = rng.random((l, b)) < 0.8
+    b_mask[:, 0] = True
+    ppi = rng.integers(1, 100, l).astype(np.float64)
+    width = rng.integers(1, 5, l).astype(np.float64)
+    larr = rng.integers(1, 50, l).astype(np.float64)
+    budgets = rng.integers(0, 60, c).astype(np.float64)
+    budgets[:2] = 0.0
+    a_idx = rng.integers(0, a, c).astype(np.int32)
+    sel = rng.integers(0, v, c).astype(np.int32)
+    layerwise = rng.random(c) < 0.5
+    r0 = rng.integers(1, 4, (c, n)).astype(np.float64) if warm else np.ones((c, n))
+    return (base, cost, umap, banks, b_mask, ppi, width, larr, budgets, a_idx, sel, layerwise, r0)
+
+
+def k2_errors(got, want, what):
+    """Replicas and leftover exactly equal; returns (max |err|, max relative
+    err) over the float outputs (T, img/s, layer cycles, utilization)."""
+    import torch
+
+    for i, name in ((4, "replicas"), (5, "leftover")):
+        check(torch.equal(got[i], want[i]), f"{what}: K2 {name} differ from the plain version")
+    abs_err = rel_err = 0.0
+    for g, w in zip(got[:4], want[:4]):
+        d = (g - w).abs()
+        abs_err = max(abs_err, float(d.max()) if d.numel() else 0.0)
+        rel_err = max(rel_err, float((d / w.abs()).max()) if d.numel() else 0.0)
+    check(rel_err <= K2_RTOL, f"{what}: K2 float outputs off by {rel_err} relative (limit {K2_RTOL})")
+    return abs_err, rel_err
+
+
+def k2_bound(args):
+    """(bound ms, bound_by, ops, bytes) of one K2 call from its inputs.
+
+    Operations, FP64: per config 80 bisection steps of 6 operations per unit
+    (divide, ceil, max, subtract, multiply, add), one more such pass to set
+    the replicas, and the eval: 5 per layer for a layer-wise config, 6 per
+    valid (layer, block) cell otherwise, 4 per layer for the utilization.
+    The residual grants after the bisection depend on ties and are left out,
+    so this is a lower bound.  Bytes: every input read once, every output
+    written once."""
+    base, cost, umap, banks, b_mask, ppi, width, larr, budgets, a_idx, sel, lw, r0 = args
+    C, N = r0.shape
+    L = b_mask.shape[0]
+    n_lw = int(lw.sum())
+    cells = int(b_mask.sum())
+    ops = C * (81 * N * 6 + 4 * L) + n_lw * 5 * L + (C - n_lw) * 6 * cells
+    ins = (base, cost, umap, *banks, b_mask, ppi, width, larr, budgets, a_idx, sel, lw, r0)
+    nbytes = sum(t.numel() * t.element_size() for t in ins) + C * 8 * (3 + 2 * L + N)
+    ops_ms, bytes_ms = ops / FP64_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), ops, nbytes
+
+
+def device_busy(fn):
+    """One call of ``fn`` under ``torch.profiler``: (device busy share of the
+    call's window, window ms, {kernel name: device ms}).  Busy time is the
+    union of the device's activity (kernels, copies, sets) inside the
+    window; it fails if nothing ran on the device."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    mark = "chip_smoke_window"
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(mark):
+            fn()
+            torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    win = [e for e in events if e.name == mark and e.device_type != cuda]
+    check(len(win) == 1, f"profiler: {len(win)} windows")
+    w0, w1 = win[0].time_range.start, win[0].time_range.end
+    dev = [e for e in events if e.device_type == cuda and e.name != mark
+           and e.time_range.end > w0 and e.time_range.start < w1]
+    check(len(dev) > 0, "profiler: no device activity in the traced window")
+    spans = sorted((max(e.time_range.start, w0), min(e.time_range.end, w1)) for e in dev)
+    busy, (c0, c1) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > c1:
+            busy += c1 - c0
+            c0, c1 = a, b
+        else:
+            c1 = max(c1, b)
+    busy += c1 - c0
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    return busy / (w1 - w0), (w1 - w0) / 1e3, by_name
+
+
+def fused_grid(network, n_budgets, max_mult, budgets_idx=None):
+    """design_grid over FUSED_ROWS x FUSED_ADC_BITS x n_budgets PE budgets
+    (``budgets_idx`` picks a subset of the multipliers) x FUSED_POLICIES."""
+    import numpy as np
+
+    from repro_torch import DEFAULT_ARRAY
+    from repro_torch.dse import design_grid
+
+    mults = np.linspace(1.0, max_mult, n_budgets)
+    if budgets_idx is not None:
+        mults = mults[budgets_idx]
+    arrays = tuple(
+        DEFAULT_ARRAY.variant(rows=r, cols=r, adc_bits=a) for r in FUSED_ROWS for a in FUSED_ADC_BITS
+    )
+    return design_grid(networks=(network,), policies=FUSED_POLICIES,
+                       pe_multipliers=tuple(mults), arrays=arrays)
+
+
+def same_sweep(a, b, what):
+    """Discrete columns exactly equal, floats within K2_RTOL."""
+    import numpy as np
+
+    for col in ("arrays_used", "arrays_total"):
+        check(np.array_equal(getattr(a, col), getattr(b, col)), f"{what}: {col} differ")
+    worst = 0.0
+    for col in ("total_cycles", "images_per_sec", "mean_utilization"):
+        x, y = getattr(a, col), getattr(b, col)
+        check(bool(np.isfinite(x).all()) and bool((x > 0).all()), f"{what}: {col} not finite and positive")
+        worst = max(worst, float(np.max(np.abs(x - y) / np.abs(y))))
+    check(worst <= K2_RTOL, f"{what}: float columns off by {worst} relative (limit {K2_RTOL})")
+    return worst
+
+
+def drive_fused(network, n_budgets, max_mult, label):
+    """The fused sweep's main path on one network, with K1's and K2's counts
+    set to 0 just before ``run_fused_sweep(engine="kernel")`` and read just
+    after; then the checks of what came out.  Returns the numbers the
+    summary prints."""
+    import numpy as np
+    import torch
+
+    import repro_torch.dse.fused as fused_mod
+    from repro_torch.dse import clear_caches, clear_fused_caches, get_fused_pipeline, run_fused_sweep, run_sweep
+    from repro_torch.kernels.bitplane_profile import bitplane_block_profile as k1
+    from repro_torch.kernels.fused_alloc_eval import fused_alloc_eval as k2, fused_alloc_eval_ref as k2_plain
+
+    clear_caches()
+    clear_fused_caches()
+    pts = fused_grid(network, n_budgets, max_mult)
+    out = {"configs": len(pts)}
+
+    k1.launches = 0
+    k2.launches = 0
+    t0 = time.perf_counter()
+    res_k = run_fused_sweep(pts, engine="kernel")
+    torch.cuda.synchronize()
+    out["kernel_cold_s"] = time.perf_counter() - t0
+    out["k1_launches"], out["k2_launches"] = k1.launches, k2.launches
+    groups = len(FUSED_ROWS)
+    check(out["k1_launches"] == groups,
+          f"{label}: K1 launched {out['k1_launches']} times on the fused path, want {groups} (one per geometry)")
+    check(out["k2_launches"] > 0, f"{label}: K2 never launched on the fused path")
+    print(f"{label}: fused main path ran over {len(pts)} configs, K1 launches {out['k1_launches']}, "
+          f"K2 launches {out['k2_launches']} ({out['kernel_cold_s']:.3f} s with capture and derive)")
+
+    # the torch engine on the same grid: the same answers
+    t0 = time.perf_counter()
+    res_t = run_fused_sweep(pts, engine="torch")
+    out["torch_s"] = time.perf_counter() - t0
+    out["kernel_vs_torch_rel"] = same_sweep(res_k, res_t, f"{label} kernel vs torch engine")
+    print(f"{label}: kernel engine == torch engine over {len(pts)} configs "
+          f"(arrays exact, max rel err {out['kernel_vs_torch_rel']:.3e}, limit {K2_RTOL})")
+    # warm end to end times of both engines (pipelines and schedules cached)
+    for eng in ("kernel", "torch"):
+        saved = (k1.launches, k2.launches)
+        t0 = time.perf_counter()
+        run_fused_sweep(pts, engine=eng)
+        torch.cuda.synchronize()
+        out[f"{eng}_warm_s"] = time.perf_counter() - t0
+        k1.launches, k2.launches = saved
+
+    # the pipelines alone, from packed columns (no per-point Python work)
+    packed = []
+    for rows in FUSED_ROWS:
+        rows_pts = [p for p in pts if p.array.rows == rows]
+        packed.append((get_fused_pipeline(network, rows_pts[0].array, FUSED_ADC_BITS),
+                       np.array([FUSED_ADC_BITS.index(p.array.adc_bits) for p in rows_pts], np.int32),
+                       np.array([p.policy for p in rows_pts], dtype=object),
+                       np.array([p.n_pes for p in rows_pts])))
+    for eng in ("kernel", "torch"):
+        saved = (k1.launches, k2.launches)
+        t0 = time.perf_counter()
+        for pipe, a_idx, pols, pes in packed:
+            pipe(a_idx, pols, pes, engine=eng, need_dups=False)
+        torch.cuda.synchronize()
+        out[f"{eng}_pipelines_s"] = time.perf_counter() - t0
+        k1.launches, k2.launches = saved
+    out["packed"] = packed
+
+    # a sub-grid of budgets: the staged path, the replica tensors, and K2
+    # against its plain version on every chunk's own inputs
+    sub = fused_grid(network, n_budgets, max_mult,
+                     np.unique(np.linspace(0, n_budgets - 1, FUSED_SUBGRID).round().astype(int)))
+    saved = (k1.launches, k2.launches)
+    staged = run_sweep(sub, engine="batch")
+    sub_k = run_fused_sweep(sub, engine="kernel")
+    out["staged_rel"] = same_sweep(sub_k, staged, f"{label} fused vs staged")
+    errs = []
+    real_k2 = fused_mod.fused_alloc_eval
+
+    def comparing(*args, **kw):
+        got = real_k2(*args, **kw)
+        want = k2_plain(*args, **kw)
+        errs.append(k2_errors(got, want, f"{label} K2 at the path's shapes (N={args[0].shape[1]})"))
+        return got
+
+    fused_mod.fused_alloc_eval = comparing
+    try:
+        for rows in FUSED_ROWS:
+            rows_pts = [p for p in sub if p.array.rows == rows]
+            pipe = get_fused_pipeline(network, rows_pts[0].array, FUSED_ADC_BITS)
+            a_idx = np.array([FUSED_ADC_BITS.index(p.array.adc_bits) for p in rows_pts], np.int32)
+            pols = np.array([p.policy for p in rows_pts], dtype=object)
+            pes = np.array([p.n_pes for p in rows_pts])
+            got = pipe(a_idx, pols, pes, engine="kernel")
+            want = pipe(a_idx, pols, pes, engine="torch")
+            check(np.array_equal(got["dups_lb"], want["dups_lb"]), f"{label} rows {rows}: replica tensors differ")
+    finally:
+        fused_mod.fused_alloc_eval = real_k2
+    torch.cuda.synchronize()
+    k1.launches, k2.launches = saved
+    out["max_abs_err"] = max(e[0] for e in errs)
+    out["max_rel_err"] = max(e[1] for e in errs)
+    print(f"{label}: fused == staged run_sweep over {len(sub)} configs (arrays exact, max rel err "
+          f"{out['staged_rel']:.3e}); replica tensors of both engines equal; K2 == plain on "
+          f"{len(errs)} chunks (replicas and leftover exact, float max abs err {out['max_abs_err']:.3e}, "
+          f"max rel err {out['max_rel_err']:.3e}, limit {K2_RTOL})")
+
+    # Fig 8 on the sweep's own numbers: rows 128, ADC 3 (the default array)
+    n_top = max(p.n_pes for p in pts if p.array.rows == 128)
+    ips = {p.policy: res_k.images_per_sec[i] for i, p in enumerate(pts)
+           if p.array.rows == 128 and p.array.adc_bits == 3 and p.n_pes == n_top}
+    print(f"{label} fig8 @ {n_top} PEs, rows 128, ADC 3: " + " ".join(f"{k}={v:.3f}" for k, v in ips.items())
+          + f" blockwise_vs_weight={ips['blockwise'] / ips['weight_based']:.4f}x")
+    return out
+
+
+def k2_chunk_args(network, rows):
+    """The K2 calls the main path makes for one geometry group, recorded as
+    they are made (first chunk of each family): (layer-family args,
+    block-family args), with their keyword arguments."""
+    import numpy as np
+
+    import repro_torch.dse.fused as fused_mod
+    from repro_torch.dse import get_fused_pipeline
+    from repro_torch.kernels.fused_alloc_eval import fused_alloc_eval as k2
+
+    pts = [p for p in fused_grid(network, FUSED_R18_BUDGETS, FUSED_R18_MAX_MULT) if p.array.rows == rows]
+    pipe = get_fused_pipeline(network, pts[0].array, FUSED_ADC_BITS)
+    seen = {}
+    real = fused_mod.fused_alloc_eval
+
+    def recording(*args, **kw):
+        seen.setdefault(args[0].shape[1], (args, kw))
+        return real(*args, **kw)
+
+    saved = k2.launches
+    fused_mod.fused_alloc_eval = recording
+    try:
+        pipe(np.array([FUSED_ADC_BITS.index(p.array.adc_bits) for p in pts], np.int32),
+             np.array([p.policy for p in pts], dtype=object), np.array([p.n_pes for p in pts]),
+             engine="kernel", need_dups=False)
+    finally:
+        fused_mod.fused_alloc_eval = real
+        k2.launches = saved
+    return seen[pipe.L], seen[pipe.N]
+
+
 def main() -> int:
     import torch
 
@@ -92,6 +409,10 @@ def main() -> int:
         bitplane_block_profile as k1,
         bitplane_block_profile_ref as k1_plain,
     )
+    from repro_torch.kernels.fused_alloc_eval import (
+        fused_alloc_eval as k2,
+        fused_alloc_eval_ref as k2_plain,
+    )
 
     dev = torch.device("cuda")
     gpu = gpu_line()
@@ -100,8 +421,8 @@ def main() -> int:
 
     # ---- 1. build, and the kernel against its plain version on edge cases
     t0 = time.perf_counter()
-    logs = _build.build("bitplane_profile")
-    print(f"build: K1 in {time.perf_counter() - t0:.3f} s (wall, nvcc included)")
+    logs = _build.build("bitplane_profile", "fused_alloc_eval")
+    print(f"build: K1 and K2 in {time.perf_counter() - t0:.3f} s (wall, two nvcc processes together)")
     for name, log in logs.items():
         print(f"[nvcc {name}]\n{log.strip()}")
     max_err = 0
@@ -299,6 +620,67 @@ def main() -> int:
               f"{n['nbytes'] / (n['ms'] * 1e-3) / 1e9:.1f} GB/s")
     print("K1 library_ms: null (no single PyTorch call computes bit-plane popcounts)")
 
+    # ---- 6. K2 against its plain version on random problems
+    k2_abs = k2_rel = 0.0
+    n_cases = (1, 5, 20, 31, 32, 33, 64, 100, 247, 300)
+    for seed in range(4 * len(n_cases)):
+        n = n_cases[seed % len(n_cases)]
+        args = [tuple(torch.as_tensor(b, device=dev) for b in x) if isinstance(x, tuple)
+                else torch.as_tensor(x, device=dev)
+                for x in k2_problem(seed, n, 513, seed % 2 == 1, seed % 3 != 0)]
+        saved = k2.launches
+        got = k2(*args, n_images=64, clock_hz=1e8)
+        want = k2_plain(*args, n_images=64, clock_hz=1e8)
+        torch.cuda.synchronize()
+        k2.launches = saved
+        a_err, r_err = k2_errors(got, want, f"K2 random problem {seed} (N={n})")
+        k2_abs, k2_rel = max(k2_abs, a_err), max(k2_rel, r_err)
+    print(f"K2 vs plain on {4 * len(n_cases)} random problems (N in {n_cases}, 513 configs each, ties, "
+          f"warm starts, budget-0 rows): replicas and leftover exact, float max abs err {k2_abs:.3e}, "
+          f"max rel err {k2_rel:.3e} (limit {K2_RTOL})")
+
+    # ---- 7. the fused DSE sweep on ResNet18 at full width
+    r18 = drive_fused("resnet18", FUSED_R18_BUDGETS, FUSED_R18_MAX_MULT, "resnet18 fused")
+
+    # ---- 8. K2 at the main path's chunk, beside its bound
+    from repro_torch.kernels.fused_alloc_eval import _launch, _prepare
+
+    k2_stats = {}
+    for tag, (args, kw) in zip(("layer", "block"), k2_chunk_args("resnet18", 128)):
+        saved = k2.launches
+        ms = timed(lambda: k2(*args, **kw), reps=20)
+        prepared = _prepare(*args)
+        kernel_ms = timed(lambda: _launch(prepared, kw["n_images"], kw["clock_hz"]), reps=20)
+        plain_ms = timed(lambda: k2_plain(*args, **kw), reps=2)
+        k2.launches = saved
+        bound_ms, bound_by, ops, nbytes = k2_bound(args)
+        C, N = args[-1].shape
+        k2_stats[tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        print(f"{gpu}: K2 {tag} family, rows 128, one launch of {C} configs x {N} units: {ms:.4f} ms "
+              f"through the wrapper ({ms / C * 1e6:.2f} ns/config), {kernel_ms:.4f} ms without its "
+              f"checks, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}: {ops:.4e} FP64 ops at {FP64_OPS_PER_S / 1e12:.0f} TFLOP/s, {nbytes} B at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved")
+    print("K2 library_ms: null (no single PyTorch call computes a greedy allocation)")
+    print(f"{gpu}: resnet18 fused sweep over {r18['configs']} configs, s: "
+          f"kernel engine {r18['kernel_warm_s']:.3f} (cold, with capture and derive: "
+          f"{r18['kernel_cold_s']:.3f}), torch engine {r18['torch_warm_s']:.3f} (first run {r18['torch_s']:.3f}); "
+          f"the two pipelines alone from packed columns: kernel {r18['kernel_pipelines_s']:.3f}, "
+          f"torch {r18['torch_pipelines_s']:.3f}")
+    for eng in ("kernel", "torch"):
+        saved = (k1.launches, k2.launches)
+        share, win_ms, by_name = device_busy(
+            lambda: [pipe(a, p, n, engine=eng, need_dups=False) for pipe, a, p, n in r18["packed"]])
+        k1.launches, k2.launches = saved
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        print(f"{gpu}: resnet18 fused pipelines, {eng} engine, torch.profiler: window {win_ms:.3f} ms, "
+              f"device busy {share:.4f} (idle {1 - share:.4f}); top device time: "
+              + "; ".join(f"{name[:60]} {t:.3f} ms" for name, t in top))
+
+    vgg = drive_fused("vgg11", FUSED_VGG_BUDGETS, FUSED_VGG_MAX_MULT, "vgg11 fused")
+    print(f"{gpu}: vgg11 fused sweep over {vgg['configs']} configs, s: kernel engine {vgg['kernel_warm_s']:.3f}, "
+          f"torch engine {vgg['torch_warm_s']:.3f}")
+
     print(gpu)
     print(json.dumps({"kernels": [{
         "name": "bitplane_profile",
@@ -311,6 +693,18 @@ def main() -> int:
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "fused_alloc_eval",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/fused_alloc_eval.cu",
+        "replaces": "src/repro/kernels/fused_alloc_eval.py:48",
+        "launches": r18["k2_launches"],
+        "max_abs_err": max(k2_abs, r18["max_abs_err"], vgg["max_abs_err"]),
+        "ms": k2_stats["block"]["ms"],
+        "plain_ms": k2_stats["block"]["plain_ms"],
+        "bound_ms": k2_stats["block"]["bound_ms"],
+        "bound_by": k2_stats["block"]["bound_by"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

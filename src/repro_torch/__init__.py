@@ -3,9 +3,13 @@
 The JAX package ``repro`` is the reference; this package runs the same
 pipeline on an NVIDIA Hopper card: profile (``capture_activations`` ->
 ``derive_profile``), allocate (``allocate``, ``greedy_allocate_batch``) and
-evaluate (``simulate``, ``BatchSimulator``, ``dse.run_batch``).  The
-bit-plane popcount behind ``derive_profile`` is a CUDA C++ kernel
-(``kernels.bitplane_profile``).
+evaluate (``simulate``, ``BatchSimulator``, ``dse.run_batch``), and the
+fused design-space sweep (``dse.run_fused_sweep`` -> ``dse.FusedPipeline``),
+which derives every ADC variant's cycle banks from one capture and
+allocates + evaluates every config.  Two CUDA C++ kernels carry it: K1, the
+bit-plane popcount behind ``derive_profile`` and the sweep's cycle banks
+(``kernels.bitplane_profile``), and K2, the fused greedy allocate + eval
+behind ``FusedPipeline(engine="kernel")`` (``kernels.fused_alloc_eval``).
 
 It imports torch and numpy only: never jax and nothing of ``repro``.
 

@@ -9,10 +9,13 @@ reference ``core/alloc/greedy.py``:
     prior-work policies, numpy on the host (their unstable ``argsort`` tie
     order must be numpy's to match);
   * ``greedy_batch_kernel`` / ``greedy_allocate_batch`` — the lock-step
-    batched greedy over C configs, in torch float64 on the device.
+    batched greedy over C configs, in torch float64 on the device;
+  * ``greedy_event_schedule`` / ``GreedyEventSchedule`` — the whole greedy
+    as one sorted grant-event table that answers every budget, numpy on the
+    host (the fused sweep's ``"torch"`` engine).
 
-Not yet ported: the placement-aware, release, event-schedule and queueing
-allocators (their callers are in later slices).
+Not yet ported: the placement-aware, release and queueing allocators
+(their callers are in later slices).
 """
 
 from __future__ import annotations
@@ -28,9 +31,11 @@ from ... import resolve_device
 __all__ = [
     "AllocationResult",
     "BatchAllocationResult",
+    "GreedyEventSchedule",
     "greedy_allocate",
     "greedy_allocate_batch",
     "greedy_batch_kernel",
+    "greedy_event_schedule",
     "proportional_allocate",
     "proportional_allocate_batch",
 ]
@@ -230,6 +235,154 @@ def greedy_allocate_batch(
     r, rem = greedy_batch_kernel(base_t, cost_t, budget_t, r0_t)
     spent = ((r - r0_t) * cost_t).sum(dim=1)
     return BatchAllocationResult(r.to(torch.int64), base_t / r, spent, rem)
+
+
+@dataclass(frozen=True)
+class GreedyEventSchedule:
+    """The greedy grant sequence as a static, budget-independent table.
+
+    The scalar heap loop is fully determined before it runs: unit ``i``'s
+    grant at replica count ``r`` has priority ``base_i / r``, priorities of
+    one unit strictly decrease in ``r``, ties across units resolve to the
+    lower index (heapq tuple order == ``argmax`` first-max), and the loop
+    stops at the FIRST grant it cannot afford.  So the whole run is a walk
+    down ONE sorted event list, and the stopping point for budget ``W`` is
+    the longest prefix whose cumulative cost is <= ``W``.
+
+    Exact, not approximate: priorities are the float64 quotients the heap
+    compares, so sorting by ``(-key, unit)`` reproduces every comparison;
+    with integer-valued costs and budgets every partial sum is an exact
+    float64 integer below 2**53, so ``cum_cost[e] <= W`` is the heap's
+    ``cost_i <= remaining`` test bit for bit; costs are positive, so
+    ``searchsorted(cum_cost, W, side="right")`` IS the stopping rule.
+
+    Attributes:
+      unit: (E,) int64 — receiving unit of each event, priority order.
+      key:  (E,) float64 — event priorities, non-increasing.
+      cum_cost: (E,) float64 — cumulative cost through each event.
+      r0:   (N,) int64 — warm-start replicas (grants count from here).
+      max_budget: largest budget this table is complete for.
+      base: (N,) float64 — the priorities' numerators.
+    """
+
+    unit: np.ndarray
+    key: np.ndarray
+    cum_cost: np.ndarray
+    r0: np.ndarray
+    max_budget: float
+    base: np.ndarray
+
+    @property
+    def n_units(self) -> int:
+        return self.r0.size
+
+    def __len__(self) -> int:
+        return self.unit.size
+
+    def replicas_at(self, budgets: np.ndarray) -> BatchAllocationResult:
+        """Replica counts for C budgets (CPU tensors) — element-wise those
+        of ``greedy_allocate`` (or the lock-step batch kernel) per budget.
+        Distinct stopping points are answered from one incremental walk over
+        the event list."""
+        b = np.atleast_1d(np.asarray(budgets, dtype=np.float64))
+        if b.size and b.max() > self.max_budget:
+            raise ValueError(
+                f"budget {b.max()} exceeds schedule coverage {self.max_budget}"
+            )
+        if np.any(b != np.floor(b)):
+            raise ValueError("exact prefix arithmetic needs integral budgets")
+        n = self.n_units
+        m = np.searchsorted(self.cum_cost, b, side="right")
+        uniq, inv = np.unique(m, return_inverse=True)
+        snaps = np.empty((uniq.size, n), dtype=np.int64)
+        counts = self.r0.copy()
+        prev = 0
+        for j, stop in enumerate(uniq):
+            if stop > prev:
+                counts = counts + np.bincount(self.unit[prev:stop], minlength=n)
+                prev = int(stop)
+            snaps[j] = counts
+        replicas = snaps[inv]
+        spent = (
+            np.where(m > 0, self.cum_cost[np.maximum(m - 1, 0)], 0.0)
+            if len(self)
+            else np.zeros(b.size)
+        )
+        return _host_result(replicas, self.base / replicas, spent, b - spent)
+
+
+def greedy_event_schedule(
+    base_latency: np.ndarray,
+    unit_cost: np.ndarray,
+    max_budget: float,
+    *,
+    initial_replicas: np.ndarray | None = None,
+) -> GreedyEventSchedule:
+    """Build the sorted grant-event table covering budgets up to
+    ``max_budget`` (numpy, on the host).
+
+    Events are generated per unit down to an estimated water level (with a
+    4x margin), sorted by ``(-priority, unit)``, and truncated at the first
+    event no ``<= max_budget`` run can afford.  A coverage check regenerates
+    with more events per unit whenever the truncation point could have been
+    preceded by an ungenerated event; it terminates because at most
+    ``max_budget / min(cost)`` events are ever affordable.
+    """
+    base = np.atleast_1d(np.asarray(base_latency, dtype=np.float64))
+    cost = np.atleast_1d(np.asarray(unit_cost, dtype=np.float64))
+    if base.shape != cost.shape:
+        raise ValueError(f"base_latency {base.shape} vs unit_cost {cost.shape}")
+    if np.any(cost <= 0):
+        raise ValueError("unit_cost must be strictly positive")
+    if np.any(cost != np.floor(cost)):
+        raise ValueError("exact prefix arithmetic needs integral unit costs")
+    n = base.size
+    r0 = (
+        np.ones(n, dtype=np.int64)
+        if initial_replicas is None
+        else np.asarray(initial_replicas, dtype=np.int64).copy()
+    )
+    if np.any(r0 < 1):
+        raise ValueError("every unit needs at least one replica")
+    W = float(max_budget)
+    if W != np.floor(W):
+        raise ValueError("exact prefix arithmetic needs an integral max_budget")
+    if n == 0 or W < np.min(cost):
+        return GreedyEventSchedule(
+            np.zeros(0, dtype=np.int64), np.zeros(0), np.zeros(0), r0, W, base
+        )
+    # at most floor(W / cost_i) grants of unit i fit ANY affordable prefix
+    cap = np.floor(W / cost).astype(np.int64) + 1
+    # water-level estimate: greedy stops near lam with
+    # sum_i cost_i * base_i / lam ~= W; generate 4x past it
+    lam = float(np.dot(cost, base / r0)) / max(W, 1.0) / 4.0
+    if lam > 0:
+        K = np.floor(base / (r0 * lam)).astype(np.int64) + 1
+        K = np.clip(K, 1, cap)
+    else:
+        K = cap
+    while True:
+        units = np.repeat(np.arange(n, dtype=np.int64), K)
+        offs = np.concatenate([[0], np.cumsum(K)[:-1]])
+        reps = r0[units] + (np.arange(units.size) - np.repeat(offs, K))
+        key = base[units] / reps
+        order = np.lexsort((units, -key))
+        units, key = units[order], key[order]
+        cum = np.cumsum(cost[units])
+        stop = int(np.searchsorted(cum, W, side="right"))
+        if stop == units.size:
+            if np.all(K >= cap):  # every affordable event already generated
+                break
+            K = np.minimum(K * 2, cap)
+            continue
+        # complete iff every unit's next UNgenerated event ranks after the
+        # first rejected one, i.e. strictly below its priority
+        next_key = base / (r0 + K)
+        short = (next_key >= key[stop]) & (K < cap)
+        if not short.any():
+            break
+        K = np.minimum(np.where(short, K * 2, K), cap)
+    return GreedyEventSchedule(units[:stop], key[:stop], cum[:stop], r0, W, base)
 
 
 def proportional_allocate(

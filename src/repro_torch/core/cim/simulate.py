@@ -276,7 +276,7 @@ def _pack_profile(spec: NetworkSpec, prof: NetworkProfile) -> SimTensors:
 
 
 def _eval_kernel(
-    mean_b,  # (..., L, B) — zskip variant already selected
+    mean_b,  # (..., L, B) — zskip variant already selected; (V, L, B) with ``sel``
     max_b,  # (..., L, B)
     pm_mean,  # (..., L)
     pm_max,  # (..., L)
@@ -289,9 +289,22 @@ def _eval_kernel(
     layerwise,  # (...) bool: barrier (layer-wise) vs independent blocks
     n_images,
     clock_hz,
+    *,
+    sel=None,  # (...) int variant index into a leading stack axis, or None
 ):
     """Allocations -> (T, img/s, per-layer makespan, per-layer util), over
-    any leading batch shape (none for ``simulate``, (C,) for the batch)."""
+    any leading batch shape (none for ``simulate``, (C,) for the batch).
+
+    With ``sel`` the five statistic tensors carry a leading variant axis
+    (the fused sweep's (2A, L, B) baseline + zero-skip per-ADC stacks) and
+    each allocation gathers its variant first.  Selecting an element is not
+    arithmetic, so results equal those from pre-gathered inputs."""
+    if sel is not None:
+        mean_b = mean_b[sel]
+        max_b = max_b[sel]
+        pm_mean = pm_mean[sel]
+        pm_max = pm_max[sel]
+        busy_sum = busy_sum[sel]
     P = ppi * n_images  # (L,) patches in the batch
     d_layer = dups_lb[..., 0]
     # layer-wise: patches synchronize on the slowest block (barrier)
@@ -311,7 +324,10 @@ def _eval_kernel(
     busy = busy_sum * P * width
     T = layer_T.amax(dim=-1)
     util = busy / (alive * T[..., None])
-    ips = n_images / (T / clock_hz)
+    # tensor / tensor divisions: torch turns ``scalar / tensor`` into
+    # ``reciprocal() * scalar``, and on CUDA ``tensor / scalar`` into a
+    # multiply by the scalar's reciprocal, each one more rounding
+    ips = torch.full_like(T, float(n_images)) / (T / torch.full_like(T, float(clock_hz)))
     return T, ips, layer_T, util
 
 

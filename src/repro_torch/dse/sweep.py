@@ -1,0 +1,331 @@
+"""Cartesian design-space sweeps (array geometry x ADC x PE count x policy
+x network) with two-level profile caching.
+
+Profiling splits into a geometry-independent capture (one quantized
+forward) and a cheap per-geometry derivation, and the caches split the same
+way: ``get_captured`` keeps captures keyed on (network, profile_images,
+sample_patches, seed, device), and ``get_profiled`` derives per-
+``ArrayConfig`` profiles from that shared capture, so a geometry x ADC
+sweep runs the network forward once.  ``run_sweep`` groups points by
+(network, array), every group sharing one ``BatchSimulator``, and evaluates
+each group with ``run_batch`` on the device (``engine="batch"``) or with the
+per-config ``allocate`` / ``simulate`` loop (``engine="scalar"``, the
+equivalence reference).
+
+Not ported yet: the serving-side latency columns (``fabric=``), sharding
+the batch over devices (``shard_devices=True``) and the multi-chip sweep;
+the first two raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..core.cim.cost import DEFAULT_ARRAY, ArrayConfig
+from ..core.cim.network import NetworkSpec, resnet18_imagenet, vgg11_cifar10, with_array
+from ..core.cim.profile import (
+    ActivationCapture,
+    NetworkProfile,
+    capture_activations,
+    derive_profile,
+)
+from ..core.cim.simulate import (
+    ARRAYS_PER_PE,
+    POLICIES,
+    BatchSimulator,
+    allocate,
+    simulate,
+)
+from ..fabric.telemetry import get_telemetry
+from .engine import run_batch
+
+__all__ = [
+    "FabricEval",
+    "SweepPoint",
+    "SweepResult",
+    "design_grid",
+    "run_sweep",
+    "get_captured",
+    "get_profiled",
+    "clear_caches",
+]
+
+FABRIC_NOT_PORTED = (
+    "the serving-side latency columns (fabric=) are not ported yet: they come "
+    "with fabric/ (ROADMAP.md §1, modules still to port)"
+)
+SHARD_NOT_PORTED = (
+    "splitting the config axis over devices (shard) is not ported yet "
+    "(ROADMAP.md §1, distrib.sharding.shard_map_batch)"
+)
+
+_SPEC_FNS = {"resnet18": resnet18_imagenet, "vgg11": vgg11_cifar10}
+_CAPTURE_CACHE: dict[tuple, ActivationCapture] = {}
+_PROFILE_CACHE: dict[tuple, tuple[NetworkSpec, NetworkProfile]] = {}
+_SIMULATOR_CACHE: dict[tuple, BatchSimulator] = {}
+
+
+@dataclass(frozen=True)
+class SweepPoint:
+    """One design point: what to build (array, PEs) and how to run it."""
+
+    network: str
+    policy: str
+    n_pes: int
+    array: ArrayConfig = DEFAULT_ARRAY
+
+
+@dataclass(frozen=True)
+class FabricEval:
+    """Serving-side evaluation attached to a sweep in the reference (the
+    virtual-time fabric at ``load_frac`` of each point's throughput).  The
+    port's sweeps refuse it until ``fabric/`` is ported."""
+
+    load_frac: float = 0.7
+    n_requests: int = 200
+    seed: int = 0
+
+
+@dataclass
+class SweepResult:
+    """Columnar sweep outcome on the host; row i corresponds to
+    ``points[i]``."""
+
+    points: list[SweepPoint]
+    total_cycles: np.ndarray
+    images_per_sec: np.ndarray
+    mean_utilization: np.ndarray
+    arrays_used: np.ndarray
+    arrays_total: np.ndarray
+    elapsed_s: float
+    engine: str
+
+    def __len__(self) -> int:
+        return len(self.points)
+
+    def rows(self) -> list[dict]:
+        return [
+            {
+                "network": p.network,
+                "policy": p.policy,
+                "n_pes": p.n_pes,
+                "adc_bits": p.array.adc_bits,
+                "array_rows": p.array.rows,
+                "total_cycles": float(self.total_cycles[i]),
+                "images_per_sec": float(self.images_per_sec[i]),
+                "mean_utilization": float(self.mean_utilization[i]),
+                "arrays_used": int(self.arrays_used[i]),
+                "arrays_total": int(self.arrays_total[i]),
+            }
+            for i, p in enumerate(self.points)
+        ]
+
+    def objectives(self, names: tuple[str, ...]) -> np.ndarray:
+        """(C, len(names)) matrix of the named columns (pareto input)."""
+        cols = []
+        for n in names:
+            if n not in ("total_cycles", "images_per_sec", "mean_utilization",
+                         "arrays_used", "arrays_total"):
+                raise ValueError(f"no column {n!r} in the port's SweepResult ({FABRIC_NOT_PORTED})")
+            cols.append(np.asarray(getattr(self, n), dtype=np.float64))
+        return np.stack(cols, axis=1)
+
+
+def _spec_for(network: str, array: ArrayConfig) -> NetworkSpec:
+    if network not in _SPEC_FNS:
+        raise ValueError(f"unknown network {network!r}; choose from {sorted(_SPEC_FNS)}")
+    return with_array(_SPEC_FNS[network](), array)
+
+
+def get_captured(
+    network: str,
+    *,
+    profile_images: int = 1,
+    sample_patches: int = 128,
+    seed: int = 0,
+    device: str | torch.device = "cuda",
+) -> ActivationCapture:
+    """Cached geometry-independent activation capture on ``device``: one
+    quantized forward per (network, images, sample, seed, device), shared by
+    every ``ArrayConfig`` a sweep derives profiles for."""
+    if network not in _SPEC_FNS:
+        raise ValueError(f"unknown network {network!r}; choose from {sorted(_SPEC_FNS)}")
+    dev = resolve_device(device)
+    key = (network, profile_images, sample_patches, seed, str(dev))
+    tel = get_telemetry()
+    if key not in _CAPTURE_CACHE:
+        tel.count("dse.capture.miss")
+        with tel.timed("dse.capture", network=network):
+            _CAPTURE_CACHE[key] = capture_activations(
+                _SPEC_FNS[network](),
+                n_images=profile_images,
+                sample_patches=sample_patches,
+                seed=seed,
+                device=dev,
+            )
+    else:
+        tel.count("dse.capture.hit")
+    return _CAPTURE_CACHE[key]
+
+
+def get_profiled(
+    network: str,
+    array: ArrayConfig = DEFAULT_ARRAY,
+    *,
+    profile_images: int = 1,
+    sample_patches: int = 128,
+    seed: int = 0,
+    device: str | torch.device = "cuda",
+) -> tuple[NetworkSpec, NetworkProfile]:
+    """Cached (spec, profile) for a (network, array-config) pair, derived on
+    the capture's device from the shared ``get_captured`` activations (K1
+    on the card)."""
+    _spec_for(network, array)  # validate the name before the cache lookup
+    dev = resolve_device(device)
+    key = (network, array, profile_images, sample_patches, seed, str(dev))
+    tel = get_telemetry()
+    if key not in _PROFILE_CACHE:
+        tel.count("dse.profile.miss")
+        cap = get_captured(
+            network,
+            profile_images=profile_images,
+            sample_patches=sample_patches,
+            seed=seed,
+            device=dev,
+        )
+        spec = _spec_for(network, array)
+        with tel.timed("dse.profile", network=network):
+            _PROFILE_CACHE[key] = (spec, derive_profile(cap, spec, array=array))
+    else:
+        tel.count("dse.profile.hit")
+    return _PROFILE_CACHE[key]
+
+
+def clear_caches() -> None:
+    _CAPTURE_CACHE.clear()
+    _PROFILE_CACHE.clear()
+    _SIMULATOR_CACHE.clear()
+
+
+def design_grid(
+    networks=("resnet18",),
+    policies=POLICIES,
+    pe_multipliers=(1.0, 1.41, 2.0, 2.83, 4.0, 5.66),
+    arrays=(DEFAULT_ARRAY,),
+    arrays_per_pe: int = ARRAYS_PER_PE,
+) -> list[SweepPoint]:
+    """Cartesian grid; PE budgets scale each (network, array)'s minimum
+    design size so every point is feasible."""
+    points = []
+    for net in networks:
+        for arr in arrays:
+            base = _spec_for(net, arr).min_pes(arrays_per_pe)
+            for m in pe_multipliers:
+                n_pes = max(base, int(np.ceil(base * m)))
+                for pol in policies:
+                    points.append(SweepPoint(net, pol, n_pes, arr))
+    return points
+
+
+def run_sweep(
+    points: list[SweepPoint],
+    *,
+    n_images: int = 64,
+    profile_images: int = 1,
+    sample_patches: int = 128,
+    seed: int = 0,
+    arrays_per_pe: int = ARRAYS_PER_PE,
+    engine: str = "batch",
+    fabric: FabricEval | None = None,
+    shard_devices: bool = False,
+    device: str | torch.device = "cuda",
+) -> SweepResult:
+    """Evaluate every point on ``device``; profiles are cached and excluded
+    from timing.  ``engine="batch"`` runs one ``run_batch`` per (network,
+    array) group; ``"scalar"`` loops ``allocate`` + ``simulate`` per point.
+    ``latency_aware`` points raise ``NotImplementedError`` (as in
+    ``allocate``), and so do ``fabric=`` and ``shard_devices=True``."""
+    if fabric is not None:
+        raise NotImplementedError(FABRIC_NOT_PORTED)
+    if shard_devices:
+        raise NotImplementedError(SHARD_NOT_PORTED)
+    if engine not in ("batch", "scalar"):
+        raise ValueError(f"engine must be 'batch' or 'scalar', got {engine!r}")
+    dev = resolve_device(device)
+    C = len(points)
+    out = {
+        name: np.zeros(C)
+        for name in ("total_cycles", "images_per_sec", "mean_utilization")
+    }
+    used = np.zeros(C, dtype=np.int64)
+    total = np.zeros(C, dtype=np.int64)
+
+    # group rows by (network, array): one packed profile per group
+    groups: dict[tuple, list[int]] = {}
+    for i, p in enumerate(points):
+        groups.setdefault((p.network, p.array), []).append(i)
+    prof_kw = dict(
+        profile_images=profile_images, sample_patches=sample_patches, seed=seed, device=dev
+    )
+    for net, arr in groups:  # warm the cache outside the timed region
+        get_profiled(net, arr, **prof_kw)
+
+    elapsed = 0.0
+    tel = get_telemetry()
+    tel.gauge("dse.sweep.points", C)
+    tel.gauge("dse.sweep.groups", len(groups))
+    done = 0
+    for (net, arr), rows in groups.items():
+        spec, prof = get_profiled(net, arr, **prof_kw)
+        idx = np.asarray(rows)
+        pols = np.array([points[i].policy for i in rows], dtype=object)
+        pes = np.array([points[i].n_pes for i in rows], dtype=np.int64)
+        t0 = time.perf_counter()
+        with tel.timed("dse.sweep.group", network=net, points=len(rows)):
+            if engine == "batch":
+                key = (net, arr, profile_images, sample_patches, seed, str(dev))
+                if key not in _SIMULATOR_CACHE:
+                    tel.count("dse.simulator.miss")
+                    _SIMULATOR_CACHE[key] = BatchSimulator(spec, prof)
+                else:
+                    tel.count("dse.simulator.hit")
+                alloc, res = run_batch(
+                    spec, prof, pols, pes,
+                    n_images=n_images,
+                    arrays_per_pe=arrays_per_pe,
+                    simulator=_SIMULATOR_CACHE[key],
+                )
+                out["total_cycles"][idx] = res.total_cycles.cpu().numpy()
+                out["images_per_sec"][idx] = res.images_per_sec.cpu().numpy()
+                out["mean_utilization"][idx] = res.mean_utilization.cpu().numpy()
+                used[idx] = alloc.arrays_used
+                total[idx] = alloc.arrays_total
+            else:
+                for i in rows:
+                    p = points[i]
+                    a = allocate(spec, prof, p.policy, p.n_pes, arrays_per_pe)
+                    s = simulate(spec, prof, a, n_images=n_images)
+                    out["total_cycles"][i] = s.total_cycles
+                    out["images_per_sec"][i] = s.images_per_sec
+                    out["mean_utilization"][i] = s.mean_utilization
+                    used[i] = a.arrays_used
+                    total[i] = a.arrays_total
+        elapsed += time.perf_counter() - t0
+        done += len(rows)
+        tel.gauge("dse.sweep.points_done", done)
+
+    return SweepResult(
+        points=list(points),
+        total_cycles=out["total_cycles"],
+        images_per_sec=out["images_per_sec"],
+        mean_utilization=out["mean_utilization"],
+        arrays_used=used,
+        arrays_total=total,
+        elapsed_s=elapsed,
+        engine=engine,
+    )

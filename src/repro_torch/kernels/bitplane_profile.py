@@ -10,7 +10,9 @@ bit-plane and the zero-skip cycle count
 ``bitplane_profile_kernel`` of ``src/repro/kernels/bitplane_profile.py:37``)
 on a CUDA tensor, and runs the plain PyTorch version
 ``bitplane_block_profile_ref`` on a CPU tensor.  ``bitplane_profile`` slices
-a (S, rows) patch matrix into zero-padded blocks around either one.
+a (S, rows) patch matrix into zero-padded blocks around either one;
+``bitplane_cycle_bank`` re-costs one popcount for several ADC precisions
+(the fused sweep's derive).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from . import _build
 __all__ = [
     "bitplane_block_profile",
     "bitplane_block_profile_ref",
+    "bitplane_cycle_bank",
     "bitplane_profile",
 ]
 
@@ -124,3 +127,35 @@ def bitplane_profile(
         blocks, rows_per_read=rows_per_read, cycles_per_read=cycles_per_read
     )
     return ones.permute(2, 0, 1).to(torch.int64), cyc.T.to(torch.int64)
+
+
+def bitplane_cycle_bank(
+    q_blocks: torch.Tensor,
+    rows_per_read: tuple[int, ...],
+    *,
+    cycles_per_read: int = 8,
+) -> torch.Tensor:
+    """Multi-ADC zero-skip costing: one popcount, A re-costings.
+
+    (..., S, r) uint8 blocks with zero-padded rows -> (A, ..., S) int32
+    cycles, one slice per entry of ``rows_per_read``.  The '1' bits per
+    plane come from ``bitplane_block_profile`` once (K1 on a CUDA tensor,
+    its plain version on a CPU tensor); they do not depend on
+    ``rows_per_read``, so re-costing them per ADC precision in torch gives
+    the reference's integers exactly.  Padded (all-zero) blocks cost the
+    1-read floor per plane and must be masked by the caller."""
+    if not isinstance(q_blocks, torch.Tensor) or q_blocks.dim() < 2:
+        raise ValueError("expected a (..., S, r) tensor")
+    if not rows_per_read or min(rows_per_read) < 1:
+        raise ValueError(f"rows_per_read must be >= 1, got {rows_per_read}")
+    *lead, s, r = q_blocks.shape
+    flat = q_blocks.reshape(-1, s, r).contiguous()
+    ones, _ = bitplane_block_profile(
+        flat, rows_per_read=int(rows_per_read[0]), cycles_per_read=cycles_per_read
+    )  # (M, 8, S)
+    banks = [
+        cycles_per_read
+        * torch.clamp((ones + rpr - 1) // rpr, min=1).sum(dim=1, dtype=torch.int32)
+        for rpr in rows_per_read
+    ]
+    return torch.stack(banks).reshape(len(rows_per_read), *lead, s)

@@ -8,8 +8,8 @@
   policies do not read the profile and use exactly the same arrays.
 * ``repro_torch`` imports and runs with jax unimportable, and its sources
   import neither jax nor ``repro``.
-* Entry points called without ``device=`` ask for the card, and raise
-  where there is none.
+* Entry points called without ``device=`` (the slice-1 ones, and the
+  fused sweep's) ask for the card, and raise where there is none.
 """
 
 import ast
@@ -30,6 +30,14 @@ import repro_torch as T
 from repro_torch import convert
 from repro_torch.core.alloc.greedy import greedy_allocate_batch
 from repro_torch.core.cim.profile import synthetic_images
+from repro_torch.dse import (
+    FusedPipeline,
+    design_grid,
+    get_captured,
+    get_fused_pipeline,
+    run_fused_sweep,
+    run_sweep,
+)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -91,6 +99,10 @@ cap = T.capture_activations(spec, n_images=1, sample_patches=16, device="cpu")
 prof = T.derive_profile(cap, spec)
 res = T.simulate(spec, prof, T.allocate(spec, prof, "blockwise", spec.min_pes() * 2))
 assert res.images_per_sec > 0, res
+from repro_torch.dse import design_grid, run_fused_sweep
+pts = design_grid(networks=("vgg11",), policies=("weight_based", "blockwise"), pe_multipliers=(2.0,))
+sweep = run_fused_sweep(pts, sample_patches=16, engine="kernel", device="cpu")
+assert (sweep.images_per_sec > 0).all(), sweep
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
 print("ok")
@@ -118,7 +130,15 @@ def _imports(path: pathlib.Path) -> set[str]:
 
 def test_port_sources_import_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 10
+    names = {str(f.relative_to(ROOT / "src")) for f in files[:-1]}
+    for module in (
+        "repro_torch/dse/fused.py",
+        "repro_torch/dse/sweep.py",
+        "repro_torch/dse/pareto.py",
+        "repro_torch/fabric/telemetry.py",
+        "repro_torch/kernels/fused_alloc_eval.py",
+    ):
+        assert module in names, module
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -132,6 +152,11 @@ ENTRY_POINTS = [
     "greedy_allocate_batch",
     "capture_inputs_from_numpy",
     "capture_from_numpy",
+    "FusedPipeline",
+    "get_fused_pipeline",
+    "run_fused_sweep",
+    "run_sweep",
+    "get_captured",
 ]
 
 
@@ -145,6 +170,16 @@ def _call(name):
         return synthetic_images(1, 8, torch.Generator())
     if name == "greedy_allocate_batch":
         return greedy_allocate_batch([1.0], [1.0], [2.0])
+    if name == "FusedPipeline":
+        return FusedPipeline("vgg11", T.DEFAULT_ARRAY, (3,))
+    if name == "get_fused_pipeline":
+        return get_fused_pipeline("vgg11", T.DEFAULT_ARRAY, (3,))
+    if name == "run_fused_sweep":
+        return run_fused_sweep(design_grid(networks=("vgg11",), pe_multipliers=(2.0,)))
+    if name == "run_sweep":
+        return run_sweep(design_grid(networks=("vgg11",), pe_multipliers=(2.0,)))
+    if name == "get_captured":
+        return get_captured("vgg11")
     if name == "capture_inputs_from_numpy":
         weights = [np.zeros((l.rows, l.cout), np.float32) for l in spec.layers]
         return convert.capture_inputs_from_numpy(np.zeros((1, 32, 32, 3)), weights, spec)
