@@ -32,7 +32,30 @@ sources.  Phases, each of which fails the run on any mismatch:
      ``"torch"`` engine on the same grid, the staged ``run_sweep`` on a
      64-budget sub-grid, and K2 against its plain version on every chunk of
      that sub-grid; the same for VGG11 on a smaller grid;
-  8. K2's timings at the main path's chunk, beside its bound.
+  8. K2's timings at the main path's chunk, beside its bound;
+  9. K4 (flash attention) against its plain version: float32 and bfloat16,
+     head dims 16, 64 and 128, s 1, 77, 200, 1000 and 1024, causal and not,
+     and Zamba2's prefill shape on the model's (b, s, h, hd) layout;
+ 10. K5 (the SSD chunk kernel) against its plain version at the Zamba2 and
+     Mamba2-370M prefill shapes and at small ragged ones (each of K4 and K5
+     has a tensor-core kernel for bf16 and a CUDA-core one for float32; both
+     run here, and K5 in bf16 refuses a shape its kernel does not take);
+ 11. Zamba2-1.2B at full width (38 Mamba2 layers, d_model 2048, the shared
+     attention block at 6 sites) served through ``launch.serve``'s stages:
+     random parameters from a seeded ``torch.Generator``, 4 prompts of 1024
+     tokens, prefill with the cache, then 31 greedy decode steps, with K4's
+     and K5's counts set to 0 before and read after (6 and 38 launches, all
+     in the prefill); prefill ms and decode tokens/s by CUDA events after a
+     warm-up, the device-busy share over the prefill (``torch.profiler``),
+     and K4 and K5 per launch on the path's own inputs beside their bounds,
+     their plain versions and, for K4, ``scaled_dot_product_attention``;
+ 12. kernels against plain versions end to end: Zamba2-1.2B in float32, 2
+     ragged prompts of 200 tokens and 4 tokens, once with K4 and K5 and once
+     with this script swapping the models' K4/K5 entry points for the plain
+     versions (logits within 1e-3 of max |logit|, equal tokens); and the
+     SMOKE config on the card against the same parameters on the host;
+ 13. Mamba2-370M at full width (48 layers, d_state 128), 2 prompts of 512
+     tokens and 8 tokens, with its timings (K5: 48 launches).
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's launches
 on the main path, max |kernel - plain|, times and bound); the last line is
@@ -51,6 +74,8 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 LANE_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores, taken per integer op
 FP64_OPS_PER_S = 34e12  # H100 SXM float64 rate outside the tensor cores (K2 uses no tensor core)
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (K4's and K5's inputs on the path)
+TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor-core rate (K5's float32 weights of y, in bf16)
 FIG8_MAX_MULT = 5.66  # the largest Fig 8 design size, in multiples of the minimum PEs
 # the reference's headline fused grid (benchmarks/run.py:782-798): its
 # ResNet18 half, array rows 128 and 256 x ADC bits 1-8 x four policies x
@@ -64,6 +89,16 @@ FUSED_VGG_BUDGETS = 400  # VGG11: the same axes at a smaller grid, 1.0 to 6.0x
 FUSED_VGG_MAX_MULT = 6.0
 FUSED_SUBGRID = 64  # budgets held against the staged run_sweep
 K2_RTOL = 1e-12  # the reference's fused contract for float outputs
+K4_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # the reference's tests/test_kernels.py
+# K5 vs plain, of 1 + |plain|: float32 as the reference's tests/test_kernels.py;
+# bf16 one bf16 step (2^-7), tighter than its 5e-2: the plain version rounds
+# the decayed B as the kernel does, so the two differ only by summation order
+# and y's final rounding
+K5_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+E2E_TOL = 1e-3  # kernels vs plain end to end, float32, of max |logit|
+ZAMBA = dict(batch=4, prompt_len=1024, gen=32)  # the serving path at full width
+MAMBA = dict(batch=2, prompt_len=512, gen=8)
+E2E = dict(batch=2, prompt_len=200, gen=4)  # a ragged prompt: 200 = 128 + 72
 
 
 def check(cond, msg):
@@ -387,6 +422,432 @@ def k2_chunk_args(network, rows):
     return seen[pipe.L], seen[pipe.N]
 
 
+def k4_bound(b, sq, sk, h, hd, causal, elem_bytes):
+    """(bound ms, bound_by, ops, bytes) of one K4 call: 2 products of
+    2 * hd operations for each (query, visible key) pair at the inputs'
+    rate (the bf16 tensor cores; float32 outside them), q, k, v read and o
+    written once."""
+    m = min(sq, sk)
+    pairs = (m * (m + 1) // 2 + (sq - m) * sk) if causal else sq * sk
+    ops = 4 * b * h * hd * pairs
+    nbytes = elem_bytes * b * h * hd * (2 * sq + 2 * sk)
+    rate = BF16_OPS_PER_S if elem_bytes == 2 else LANE_OPS_PER_S
+    ops_ms, bytes_ms = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), ops, nbytes
+
+
+def k5_ops(nc, Q, H, P, N):
+    """K5's operations by kind: (bf16 products, float32-weight products,
+    element-wise).  Per cell the lower triangle of C B^T and per head S's
+    (B decay)^T xdt (a multiply-add per (k, n, p)) take bf16 inputs; y's
+    weights are float32 (a multiply-add per (q, k <= q, p)); per head a
+    subtract, exponential and multiply per weight and the decayed B."""
+    tri = Q * (Q + 1) // 2
+    return nc * (2 * N * tri + H * 2 * Q * N * P), nc * H * 2 * P * tri, nc * H * (3 * tri + Q * N)
+
+
+def k5_bound(nc, Q, H, P, N, elem_bytes):
+    """(bound ms, bound_by, ops, bytes) of one K5 call: each kind of
+    ``k5_ops`` at the rate of the unit that does it for the inputs' type
+    (bf16 inputs: their products on the bf16 tensor cores, the float32
+    weights' on the TF32 tensor cores, the element-wise work outside them;
+    float32 inputs: all of it outside them), the kinds' times added; inputs
+    read and outputs (y in the inputs' type, S float32) written once."""
+    bf16_ops, f32w_ops, lane_ops = k5_ops(nc, Q, H, P, N)
+    ops = bf16_ops + f32w_ops + lane_ops
+    if elem_bytes == 2:
+        ops_s = bf16_ops / BF16_OPS_PER_S + f32w_ops / TF32_OPS_PER_S + lane_ops / LANE_OPS_PER_S
+    else:
+        ops_s = ops / LANE_OPS_PER_S
+    nbytes = elem_bytes * nc * (Q * H + 2 * Q * H * P + 2 * Q * N) + 4 * nc * H * N * P
+    ops_ms, bytes_ms = ops_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), ops, nbytes
+
+
+class swapped_ops:
+    """Within the block, the models call ``k4`` and ``k5`` in place of their
+    K4 / K5 entry points (``models.layers.flash_attention_op`` and
+    ``models.ssm.ssd_chunk_op``); the package itself has no switch."""
+
+    def __init__(self, k4, k5):
+        self.k4, self.k5 = k4, k5
+
+    @classmethod
+    def plain(cls):
+        """The kernels' plain versions."""
+        from repro_torch.kernels.flash_attention import flash_attention_op_ref
+        from repro_torch.kernels.ssd_scan import ssd_chunk_ref
+
+        return cls(flash_attention_op_ref, ssd_chunk_ref)
+
+    def __enter__(self):
+        import repro_torch.models.layers as layers
+        import repro_torch.models.ssm as ssm
+
+        self.saved = (layers.flash_attention_op, ssm.ssd_chunk_op)
+        layers.flash_attention_op, ssm.ssd_chunk_op = self.k4, self.k5
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.models.layers as layers
+        import repro_torch.models.ssm as ssm
+
+        layers.flash_attention_op, ssm.ssd_chunk_op = self.saved
+        return False
+
+
+def path_inputs(params, cfg, prompts, cache_fn):
+    """The first K4 and K5 calls of one prefill, recorded with their inputs
+    (clones); the launches they make are not counted."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention as k4
+    from repro_torch.kernels.ssd_scan import ssd_chunk as k5
+    from repro_torch.launch import serve
+
+    seen = {}
+
+    def rec4(*a, **kw):
+        seen.setdefault("k4", ([t.clone() for t in a], kw))
+        return ops.flash_attention_op(*a, **kw)
+
+    def rec5(*a, **kw):
+        seen.setdefault("k5", ([t.clone() for t in a], kw))
+        return ops.ssd_chunk_op(*a, **kw)
+
+    saved = (k4.launches, k5.launches)
+    with swapped_ops(rec4, rec5):
+        serve.prefill(params, cfg, prompts, cache_fn())
+    torch.cuda.synchronize()
+    k4.launches, k5.launches = saved
+    return seen
+
+
+def serve_full(arch, batch, prompt_len, gen, label, gpu, reps=3):
+    """The serving path of one FULL config on the card: setup, then K4's and
+    K5's counts set to 0 just before prefill + decode and read just after;
+    the checks of what came out; then timings.  Returns the numbers the
+    summary prints."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as k4
+    from repro_torch.kernels.ssd_scan import ssd_chunk as k5
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = get_config(arch)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params, cache, prompts = serve.setup(cfg, batch, prompt_len, gen, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    out = {"setup_s": time.perf_counter() - t0, "params": n_params}
+    print(f"{label}: {n_params} parameters (float32, seeded torch.Generator) on the card in "
+          f"{out['setup_s']:.3f} s; {batch} prompts x {prompt_len} tokens, {gen} generated")
+
+    def new_cache():
+        return lm.init_cache(cfg, batch, prompt_len + gen, device=dev)
+
+    with torch.inference_mode():
+        k4.launches = 0
+        k5.launches = 0
+        t0 = time.perf_counter()
+        tok, logits, cache = serve.prefill(params, cfg, prompts, cache)
+        torch.cuda.synchronize()
+        out["prefill_cold_s"] = time.perf_counter() - t0
+        out["k4_prefill"], out["k5_prefill"] = k4.launches, k5.launches
+        rest, cache = serve.decode(params, cfg, cache, tok, gen - 1)
+        torch.cuda.synchronize()
+        out["k4_launches"], out["k5_launches"] = k4.launches, k5.launches
+        n_sites = cfg.n_layers // cfg.shared_every if cfg.family == "hybrid" else 0
+        check(out["k5_prefill"] == cfg.n_layers and out["k5_launches"] == cfg.n_layers,
+              f"{label}: K5 launched {out['k5_prefill']} times in the prefill, {out['k5_launches']} on the "
+              f"path, want {cfg.n_layers} (one per Mamba2 layer, none in decode)")
+        check(out["k4_prefill"] == n_sites and out["k4_launches"] == n_sites,
+              f"{label}: K4 launched {out['k4_prefill']} times in the prefill, {out['k4_launches']} on the "
+              f"path, want {n_sites} (one per attention site, none in decode)")
+        print(f"{label}: main path ran (prefill + {gen - 1} decode steps), K4 launches {out['k4_launches']}, "
+              f"K5 launches {out['k5_launches']}")
+
+        # what came out
+        toks = torch.cat([tok[:, None], rest], dim=1)
+        check(tuple(logits.shape) == (batch, prompt_len, cfg.vocab) and logits.dtype == torch.bfloat16,
+              f"{label}: logits {tuple(logits.shape)} {logits.dtype}")
+        check(bool(torch.isfinite(logits).all()), f"{label}: non-finite prefill logits")
+        check(tuple(toks.shape) == (batch, gen) and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+              f"{label}: tokens {tuple(toks.shape)}")
+        for name, t in cache["layers"].items():
+            check(bool(torch.isfinite(t).all()), f"{label}: non-finite cache {name}")
+        if "shared_sites" in cache:
+            check(cache["shared_sites"]["len"] == prompt_len + gen - 1, f"{label}: cache len {cache['shared_sites']['len']}")
+        out["sample"] = toks[0, :8].tolist()
+        print(f"{label}: logits finite, shape {tuple(logits.shape)}; tokens of prompt 0: {out['sample']}")
+
+        # timings: prefill from a fresh cache, decode from the prefill's cache
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        pre = []
+        for _ in range(reps):
+            c = new_cache()
+            torch.cuda.synchronize()
+            ev[0].record()
+            tok, _, c = serve.prefill(params, cfg, prompts, c)
+            ev[1].record()
+            ev[1].synchronize()
+            pre.append(ev[0].elapsed_time(ev[1]))
+        out["prefill_ms"] = pre
+        dec = []
+        for _ in range(2):
+            c2 = new_cache()
+            tok, _, c2 = serve.prefill(params, cfg, prompts, c2)
+            torch.cuda.synchronize()
+            ev[0].record()
+            serve.decode(params, cfg, c2, tok, gen - 1)
+            ev[1].record()
+            ev[1].synchronize()
+            dec.append(ev[0].elapsed_time(ev[1]))
+        out["decode_ms"] = dec
+        out["decode_tok_per_s"] = [batch * (gen - 1) / (ms * 1e-3) for ms in dec]
+        share, win_ms, by_name = device_busy(lambda: serve.prefill(params, cfg, prompts, new_cache()))
+        out["busy"], out["busy_window_ms"] = share, win_ms
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        print(f"{gpu}: {label} prefill ms (CUDA events, warm, {reps} runs): "
+              + ", ".join(f"{x:.3f}" for x in pre)
+              + f" (first, cold: {out['prefill_cold_s'] * 1e3:.3f} host ms); decode {gen - 1} steps: "
+              + ", ".join(f"{x:.3f} ms = {t:.1f} tok/s" for x, t in zip(dec, out["decode_tok_per_s"])))
+        print(f"{gpu}: {label} prefill under torch.profiler: window {win_ms:.3f} ms, device busy {share:.4f} "
+              f"(idle {1 - share:.4f}); top device time: " + "; ".join(f"{n[:60]} {t:.3f} ms" for n, t in top))
+        out["seen"] = path_inputs(params, cfg, prompts, new_cache)
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernel_numbers(seen, gpu, label, k4_sites, k5_layers):
+    """K4 and K5 per launch on the path's own first inputs: kernel, plain
+    version, SDPA (K4) and bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention as k4, flash_attention_op_ref
+    from repro_torch.kernels.ssd_scan import ssd_chunk as k5, ssd_chunk_ref
+
+    res = {}
+    saved = (k4.launches, k5.launches)
+    if "k4" in seen:
+        (q, k, v), kw = seen["k4"]
+        b, s, h, hd = q.shape
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # (b, h, s, hd) views
+        ms = timed(lambda: ops.flash_attention_op(q, k, v, **kw), reps=20)
+        plain_ms = timed(lambda: flash_attention_op_ref(q, k, v, **kw), reps=5)
+        lib_ms = timed(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=kw["causal"]), reps=20)
+        got, want = ops.flash_attention_op(q, k, v, **kw).float(), flash_attention_op_ref(q, k, v, **kw).float()
+        d = (got - want).abs()
+        err, rel = float(d.max()), float((d / (1 + want.abs())).max())
+        check(rel <= K4_TOL[str(q.dtype).split(".")[1]], f"{label}: K4 vs plain on the path's inputs {rel}")
+        bound, by, n_ops, nbytes = k4_bound(b, s, s, h, hd, kw["causal"], q.element_size())
+        res["k4"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by, err=err)
+        print(f"{gpu}: {label} K4 per launch at {tuple(q.shape)} {q.dtype} causal={kw['causal']}: {ms:.4f} ms "
+              f"({k4_sites} per prefill: {ms * k4_sites:.3f} ms), plain {plain_ms:.4f} ms, "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}: {n_ops:.4e} ops at "
+              f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16, {nbytes} B), {n_ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s "
+              f"achieved; max |kernel - plain| {err:.3e} (relative to 1 + |plain|: {rel:.3e})")
+    (cum, xdt, B, C), kw = seen["k5"]
+    nc, Q, H, P = xdt.shape
+    N = B.shape[-1]
+    ms = timed(lambda: ops.ssd_chunk_op(cum, xdt, B, C, **kw), reps=20)
+    plain_ms = timed(lambda: ssd_chunk_ref(cum, xdt, B, C), reps=5)
+    y, st = ops.ssd_chunk_op(cum, xdt, B, C, **kw)
+    yp, sp = ssd_chunk_ref(cum, xdt, B, C)
+    err = rel = 0.0
+    for g, w in ((y.float(), yp.float()), (st, sp)):
+        d = (g - w).abs()
+        err, rel = max(err, float(d.max())), max(rel, float((d / (1 + w.abs())).max()))
+    tol = K5_TOL[str(xdt.dtype).split(".")[1]]
+    check(rel <= tol, f"{label}: K5 vs plain on the path's inputs {rel} (limit {tol})")
+    bound, by, n_ops, nbytes = k5_bound(nc, Q, H, P, N, xdt.element_size())
+    res["k5"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by=by, err=err)
+    print(f"{gpu}: {label} K5 per launch at cells {nc}, Q {Q}, H {H}, P {P}, N {N} {xdt.dtype}: {ms:.4f} ms "
+          f"({k5_layers} per prefill: {ms * k5_layers:.3f} ms), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+          f"({by}: {nbytes} B at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; {n_ops:.4e} ops, bf16 products at "
+          f"{BF16_OPS_PER_S / 1e12:.0f}, float32-weight products at {TF32_OPS_PER_S / 1e12:.0f} (TF32), "
+          f"element-wise at {LANE_OPS_PER_S / 1e12:.0f} TFLOP/s), "
+          f"{n_ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved; max |kernel - plain| {err:.3e} "
+          f"(relative to 1 + |plain|: {rel:.3e}); library_ms: null (no single PyTorch call computes the SSD chunk terms)")
+    torch.cuda.synchronize()
+    k4.launches, k5.launches = saved
+    return res
+
+
+def end_to_end_vs_plain(gpu):
+    """Zamba2-1.2B in float32 with the kernels, then with the plain
+    versions swapped in; then SMOKE on the card vs the host."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as k4
+    from repro_torch.kernels.ssd_scan import ssd_chunk as k5
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    dev = torch.device("cuda")
+    saved = (k4.launches, k5.launches)
+    cfg = get_config("zamba2-1.2b").with_(dtype="float32")
+    b, s, gen = E2E["batch"], E2E["prompt_len"], E2E["gen"]
+    params, _, prompts = serve.setup(cfg, b, s, gen, device=dev, seed=1)
+    runs = {}
+    with torch.inference_mode():
+        for name, swap in (("kernels", None), ("plain", swapped_ops.plain())):
+            cache = lm.init_cache(cfg, b, s + gen, device=dev)
+            before = (k4.launches, k5.launches)
+            if swap is None:
+                tok, logits, cache = serve.prefill(params, cfg, prompts, cache)
+                rest, cache = serve.decode(params, cfg, cache, tok, gen - 1)
+            else:
+                with swap:
+                    tok, logits, cache = serve.prefill(params, cfg, prompts, cache)
+                    rest, cache = serve.decode(params, cfg, cache, tok, gen - 1)
+            torch.cuda.synchronize()
+            used = (k4.launches - before[0], k5.launches - before[1])
+            want = (6, 38) if swap is None else (0, 0)
+            check(used == want, f"end to end, {name}: K4/K5 launched {used}, want {want}")
+            runs[name] = (logits.float(), torch.cat([tok[:, None], rest], dim=1))
+    (lk, tk), (lp, tp) = runs["kernels"], runs["plain"]
+    rel = float((lk - lp).abs().max() / lp.abs().max())
+    check(bool(torch.isfinite(lk).all()), "end to end: non-finite logits")
+    check(rel <= E2E_TOL, f"end to end: kernels vs plain logits off by {rel} of max |logit| (limit {E2E_TOL})")
+    check(torch.equal(tk, tp), f"end to end: tokens differ {tk.tolist()} vs {tp.tolist()}")
+    print(f"zamba2-1.2b float32, {b} prompts x {s} tokens + {gen}: kernels vs plain versions end to end, "
+          f"logits max |diff| {rel:.3e} of max |logit| (limit {E2E_TOL}), tokens equal {tk[0].tolist()}")
+    del params
+    torch.cuda.empty_cache()
+
+    # SMOKE: the same parameters on the host (plain versions) and the card (kernels)
+    small = get_config("zamba2-1.2b", smoke=True).with_(dtype="float32")
+    host = lm.init_params(small, generator=torch.Generator().manual_seed(0), device="cpu")
+    card = lm.LM(small, None, dev)
+    card.load_state_dict(host.state_dict())
+    toks = torch.randint(0, small.vocab, (2, 40), generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        outs = []
+        for model, d in ((host, "cpu"), (card, dev)):
+            cache = lm.init_cache(small, 2, 44, device=d)
+            tok, logits, cache = serve.prefill(model, small, toks.to(d), cache)
+            rest, _ = serve.decode(model, small, cache, tok, 3)
+            outs.append((logits.float().cpu(), torch.cat([tok[:, None], rest], dim=1).cpu()))
+    rel_s = float((outs[0][0] - outs[1][0]).abs().max() / outs[0][0].abs().max())
+    check(rel_s <= 1e-4 and torch.equal(outs[0][1], outs[1][1]),
+          f"smoke zamba2: card vs host logits {rel_s}, tokens {outs[0][1].tolist()} vs {outs[1][1].tolist()}")
+    print(f"zamba2-1.2b SMOKE float32: card (K4, K5) vs host (plain versions), logits max |diff| "
+          f"{rel_s:.3e} of max |logit| (limit 1e-4), tokens equal")
+    torch.cuda.synchronize()
+    k4.launches, k5.launches = saved
+    return rel
+
+
+def k4_card_checks():
+    """K4 against its plain version at the serving path's sizes and edge cases: returns the
+    max |err| per dtype."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention as k4, flash_attention_op_ref, flash_attention_ref
+
+    dev = torch.device("cuda")
+    saved = k4.launches
+    rng = np.random.default_rng(0)
+    worst = {}
+    for dt in ("float32", "bfloat16"):
+        tol, tdt = K4_TOL[dt], getattr(torch, dt)
+        for hd in (16, 64, 128):
+            for s in (1, 77, 200, 1000, 1024):
+                q, k, v = (torch.from_numpy(rng.standard_normal((8, s, hd), dtype=np.float32)).to(dev, tdt)
+                           for _ in range(3))
+                for causal in (True, False):
+                    got, want = k4(q, k, v, causal=causal), flash_attention_ref(q, k, v, causal)
+                    err = float((got.float() - want.float()).abs().max())
+                    check(err <= tol, f"K4 {dt} hd {hd} s {s} causal {causal}: max |err| {err} > {tol}")
+                    worst[dt] = max(worst.get(dt, 0.0), err)
+        q, k, v = (torch.from_numpy(rng.standard_normal((4, 1024, 32, 64), dtype=np.float32)).to(dev, tdt)
+                   for _ in range(3))
+        err = float((ops.flash_attention_op(q, k, v, causal=True).float()
+                     - flash_attention_op_ref(q, k, v, causal=True).float()).abs().max())
+        check(err <= tol, f"K4 {dt} on the model layout (4, 1024, 32, 64): max |err| {err}")
+        worst[dt] = max(worst[dt], err)
+        # fewer or more keys than queries (the causal mask counts both from 0)
+        for sq, sk in ((200, 77), (77, 200)):
+            q = torch.from_numpy(rng.standard_normal((8, sq, 64), dtype=np.float32)).to(dev, tdt)
+            k, v = (torch.from_numpy(rng.standard_normal((8, sk, 64), dtype=np.float32)).to(dev, tdt)
+                    for _ in range(2))
+            for causal in (True, False):
+                err = float((k4(q, k, v, causal=causal).float() - flash_attention_ref(q, k, v, causal).float()).abs().max())
+                check(err <= tol, f"K4 {dt} sq {sq} sk {sk} causal {causal}: max |err| {err}")
+                worst[dt] = max(worst[dt], err)
+        # rows that are not 16-byte aligned: float32 reads them by stride, bf16 copies them first
+        for s in (77, 1000):
+            q, k, v = (torch.from_numpy(rng.standard_normal((8, s, 65), dtype=np.float32)).to(dev, tdt)[..., :64]
+                       for _ in range(3))
+            for causal in (True, False):
+                err = float((k4(q, k, v, causal=causal).float() - flash_attention_ref(q, k, v, causal).float()).abs().max())
+                check(err <= tol, f"K4 {dt} s {s} causal {causal}, unaligned rows: max |err| {err}")
+                worst[dt] = max(worst[dt], err)
+    torch.cuda.synchronize()
+    k4.launches = saved
+    print("K4 vs plain, float32 and bfloat16 x hd (16, 64, 128) x s (1, 77, 200, 1000, 1024) x causal and not, "
+          "(4, 1024, 32, 64) by stride, sq != sk, and rows not 16-byte aligned: max |err| "
+          + ", ".join(f"{d} {e:.3e} (limit {K4_TOL[d]})" for d, e in worst.items()))
+    return max(worst.values())
+
+
+def k5_card_checks():
+    """K5 against its plain version at the path's shapes and small ragged
+    ones; errors relative to 1 + |plain|, as the reference's allclose."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_chunk as k5, ssd_chunk_ref
+
+    dev = torch.device("cuda")
+    saved = k5.launches
+    rng = np.random.default_rng(1)
+    worst_abs, worst_rel = 0.0, {}
+    shapes = ((32, 128, 64, 64, 64), (8, 128, 32, 64, 128), (3, 32, 4, 16, 32), (5, 16, 3, 16, 16),
+              (3, 48, 5, 24, 48), (2, 77, 5, 24, 40))
+    ragged = shapes[-1]  # Q and N off the bf16 kernel's multiples of 16: float32 only
+    for dt in ("float32", "bfloat16"):
+        tdt = getattr(torch, dt)
+        for nc, Q, H, P, N in shapes:
+            dtv = np.log1p(np.exp(rng.standard_normal((nc, Q, H)))) * 0.1
+            ins = [np.cumsum(-dtv, axis=1), rng.standard_normal((nc, Q, H, P)) * 0.5,
+                   rng.standard_normal((nc, Q, N)), rng.standard_normal((nc, Q, N))]
+            cum, xdt, B, C = (torch.from_numpy(a.astype(np.float32)).to(dev, tdt) for a in ins)
+            if dt == "bfloat16" and (nc, Q, H, P, N) == ragged:
+                try:
+                    k5(cum, xdt, B, C)
+                except ValueError:
+                    continue
+                raise AssertionError(f"K5 bfloat16 took {ragged}, a shape its kernel does not take")
+            yp, sp = ssd_chunk_ref(cum, xdt, B, C)
+            for hb in (None, 2):  # the default head block, and one that leaves a tail
+                y, st = k5(cum, xdt, B, C, head_block=hb)
+                for g, w, what in ((y.float(), yp.float(), "y"), (st, sp, "S")):
+                    d = (g - w).abs()
+                    rel = float((d / (1 + w.abs())).max())
+                    check(rel <= K5_TOL[dt], f"K5 {dt} {(nc, Q, H, P, N)} head block {hb} {what}: err {rel}")
+                    worst_abs = max(worst_abs, float(d.max()))
+                    worst_rel[dt] = max(worst_rel.get(dt, 0.0), rel)
+    torch.cuda.synchronize()
+    k5.launches = saved
+    print(f"K5 vs plain, float32 and bfloat16 at {shapes} (nc, Q, H, P, N; bfloat16 refuses {ragged}), "
+          f"head blocks default and 2: max |err| {worst_abs:.3e}; relative to 1 + |plain| "
+          + ", ".join(f"{d} {e:.3e} (limit {K5_TOL[d]})" for d, e in worst_rel.items()))
+    return worst_abs
+
+
+
 def main() -> int:
     import torch
 
@@ -415,14 +876,16 @@ def main() -> int:
     )
 
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_line()
     print(gpu)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     # ---- 1. build, and the kernel against its plain version on edge cases
     t0 = time.perf_counter()
-    logs = _build.build("bitplane_profile", "fused_alloc_eval")
-    print(f"build: K1 and K2 in {time.perf_counter() - t0:.3f} s (wall, two nvcc processes together)")
+    logs = _build.build("bitplane_profile", "fused_alloc_eval", "flash_attention", "ssd_chunk")
+    print(f"build: K1, K2, K4 and K5 in {time.perf_counter() - t0:.3f} s (wall, four nvcc processes together)")
     for name, log in logs.items():
         print(f"[nvcc {name}]\n{log.strip()}")
     max_err = 0
@@ -681,6 +1144,24 @@ def main() -> int:
     print(f"{gpu}: vgg11 fused sweep over {vgg['configs']} configs, s: kernel engine {vgg['kernel_warm_s']:.3f}, "
           f"torch engine {vgg['torch_warm_s']:.3f}")
 
+    # ---- 9. K4 against its plain version
+    k4_err = k4_card_checks()
+
+    # ---- 10. K5 against its plain version
+    k5_err = k5_card_checks()
+
+    # ---- 11. Zamba2-1.2B serving at full width
+    zamba = serve_full("zamba2-1.2b", **ZAMBA, label="zamba2-1.2b", gpu=gpu)
+    znum = kernel_numbers(zamba["seen"], gpu, "zamba2-1.2b", zamba["k4_launches"], zamba["k5_launches"])
+
+    # ---- 12. kernels against plain versions end to end
+    end_to_end_vs_plain(gpu)
+
+    # ---- 13. Mamba2-370M serving at full width
+    mamba = serve_full("mamba2-370m", **MAMBA, label="mamba2-370m", gpu=gpu)
+    check(mamba["k4_launches"] == 0, "mamba2-370m has no attention")
+    mnum = kernel_numbers(mamba["seen"], gpu, "mamba2-370m", 0, mamba["k5_launches"])
+
     print(gpu)
     print(json.dumps({"kernels": [{
         "name": "bitplane_profile",
@@ -705,6 +1186,30 @@ def main() -> int:
         "plain_ms": k2_stats["block"]["plain_ms"],
         "bound_ms": k2_stats["block"]["bound_ms"],
         "bound_by": k2_stats["block"]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:31",
+        "launches": zamba["k4_launches"],
+        "max_abs_err": max(k4_err, znum["k4"]["err"]),
+        "ms": znum["k4"]["ms"],
+        "plain_ms": znum["k4"]["plain_ms"],
+        "bound_ms": znum["k4"]["bound_ms"],
+        "bound_by": znum["k4"]["bound_by"],
+        "library_ms": znum["k4"]["library_ms"],
+    }, {
+        "name": "ssd_chunk",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:30",
+        "launches": zamba["k5_launches"],
+        "max_abs_err": max(k5_err, znum["k5"]["err"], mnum["k5"]["err"]),
+        "ms": znum["k5"]["ms"],
+        "plain_ms": znum["k5"]["plain_ms"],
+        "bound_ms": znum["k5"]["bound_ms"],
+        "bound_by": znum["k5"]["bound_by"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ once and hands them over:
     weights for ``capture_activations(..., images=, weights=)``;
   * ``capture_from_numpy`` — an ``ActivationCapture`` rebuilt from any
     object with the reference capture's fields (numpy ``rowbits`` and
-    ``sampled_q`` per layer), for ``derive_profile``.
+    ``sampled_q`` per layer), for ``derive_profile``;
+  * ``lm_params_from_numpy`` — an ``LM`` module holding the reference's
+    parameter pytree.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from . import resolve_device
 from .core.cim.network import NetworkSpec
 from .core.cim.profile import ActivationCapture, LayerCapture
 
-__all__ = ["capture_from_numpy", "capture_inputs_from_numpy"]
+__all__ = ["capture_from_numpy", "capture_inputs_from_numpy", "lm_params_from_numpy"]
 
 
 def capture_inputs_from_numpy(
@@ -74,3 +76,44 @@ def capture_from_numpy(capture, device: str | torch.device = "cuda") -> Activati
         int(capture.seed),
         tuple(layers),
     )
+
+
+def _flatten(tree, prefix=""):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _flatten(val, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", val
+
+
+def lm_params_from_numpy(tree, cfg, device: str | torch.device = "cuda"):
+    """An ``models.lm.LM`` for ``cfg`` on ``device`` holding the reference's
+    parameter pytree ``tree`` (nested dicts of arrays, as
+    ``repro.models.lm.init_params`` returns them, converted with
+    ``np.asarray``): ``tree["layers"]`` carries a leading layer axis, which
+    becomes the module list.  Every parameter must be present with its
+    shape; values are stored as float32."""
+    from .models.lm import LM
+
+    dev = resolve_device(device)
+    model = LM(cfg, None, dev)
+    want = model.state_dict()
+    got = {}
+    for name, arr in _flatten(tree):
+        arr = np.asarray(arr, dtype=np.float32)
+        if name.startswith("layers."):
+            if arr.shape[0] != cfg.n_layers:
+                raise ValueError(f"{name}: leading axis {arr.shape[0]} != n_layers {cfg.n_layers}")
+            rest = name[len("layers."):]
+            for i in range(cfg.n_layers):
+                got[f"layers.{i}.{rest}"] = arr[i]
+        else:
+            got[name] = arr
+    missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+    if missing or extra:
+        raise ValueError(f"parameter names differ: missing {missing}, unexpected {extra}")
+    for name, arr in got.items():
+        if tuple(arr.shape) != tuple(want[name].shape):
+            raise ValueError(f"{name}: shape {arr.shape} != {tuple(want[name].shape)}")
+    model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in got.items()})
+    return model

@@ -2,6 +2,8 @@
 
 K1 ``bitplane_profile``: CUDA C++ (``csrc/bitplane_profile.cu``).
 K2 ``fused_alloc_eval``: CUDA C++ (``csrc/fused_alloc_eval.cu``).
-Both are built with nvcc on first use (``_build``).  No kernel is built or
-loaded at import.
+K4 ``flash_attention``: CUDA C++ (``csrc/flash_attention.cu``).
+K5 ``ssd_scan``: CUDA C++ (``csrc/ssd_chunk.cu``).
+All are built with nvcc on first use (``_build``); ``ops`` wraps K4 and K5
+for the models.  No kernel is built or loaded at import.
 """

@@ -1,0 +1,149 @@
+"""K5: the Mamba2 SSD per-chunk terms.
+
+For every cell (one chunk of ``Q`` positions of one sequence) and head,
+``ssd_chunk`` returns the intra-chunk output and the chunk's summary state:
+
+    y_intra[q, h, :] = sum_{k<=q} (C_q . B_k) exp(cum_q,h - cum_k,h) xdt[k, h, :]
+    S_chunk[h, n, :] = sum_k exp(cum_last,h - cum_k,h) B[k, n] xdt[k, h, :]
+
+On CUDA tensors it launches the CUDA kernel (``csrc/ssd_chunk.cu``, which
+replaces the Pallas ``_ssd_chunk_kernel`` of
+``src/repro/kernels/ssd_scan.py:30``) over all cells in one launch; on CPU
+tensors it runs the plain PyTorch version ``ssd_chunk_ref``, the
+reference's ``kernels/ref.py::ssd_chunk_ref``.  The kernel keeps the
+Pallas kernel's types: float32 scores, decays and sums, y in xdt's type, S
+in float32, and the decayed B of the state rounded to B's type.
+
+The source holds one kernel per type: bf16 runs its three products on the
+tensor cores (``mma.sync``; y's float32 weights split into two tf32 parts)
+at the shapes the configs give (Q <= 128, Q and N multiples of 16, P of 8,
+P <= 128) and refuses others; float32 runs on the CUDA cores at any shape
+that fits in shared memory.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+__all__ = ["ssd_chunk", "ssd_chunk_ref"]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_SMEM = 232_448  # the most shared memory one block may use on the card
+TARGET_BLOCKS = 264  # two blocks per SM of the H100's 132
+
+
+@functools.cache
+def _lib():
+    lib = _build.load("ssd_chunk")
+    lib.ssd_chunk_launch.argtypes = (
+        [ctypes.c_void_p] * 6
+        + [ctypes.c_int, ctypes.c_longlong]
+        + [ctypes.c_int] * 6
+        + [ctypes.c_void_p]
+    )
+    lib.ssd_chunk_launch.restype = ctypes.c_int
+    lib.ssd_chunk_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.ssd_chunk_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def ssd_chunk_ref(cum, xdt, B, C) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K5, in float32: cum (nc, Q, H), xdt
+    (nc, Q, H, P), B and C (nc, Q, N) -> (y_intra (nc, Q, H, P) in xdt's
+    type, S_chunk (nc, H, N, P) float32).  The decay is masked before the
+    exponential: its upper triangle overflows.  The state's decayed B is
+    rounded to B's type, as the Pallas kernel's ``B * decay.astype(B.dtype)``."""
+    cum = cum.float()
+    Q = cum.shape[1]
+    diff = cum[:, :, None, :] - cum[:, None, :, :]  # (nc, Q, Q, H)
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=cum.device).tril()[None, :, :, None]
+    L = torch.exp(diff.masked_fill(~tri, float("-inf")))
+    scores = torch.einsum("cqn,ckn->cqk", C.float(), B.float())
+    y = torch.einsum("cqkh,ckhp->cqhp", scores[..., None] * L, xdt.float())
+    decay_end = torch.exp(cum[:, -1:, :] - cum)  # (nc, Q, H)
+    decay_end = decay_end.to(B.dtype).float()
+    bw = (decay_end[..., None] * B.float()[:, :, None, :]).to(B.dtype).float()  # (nc, Q, H, N)
+    S = torch.einsum("ckhn,ckhp->chnp", bw, xdt.float())
+    return y.to(xdt.dtype), S
+
+
+def _check(cum, xdt, B, C):
+    for t in (cum, xdt, B, C):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError("ssd_chunk takes torch tensors")
+    if cum.dim() != 3 or xdt.dim() != 4 or B.dim() != 3 or C.dim() != 3:
+        raise ValueError("want cum (nc, Q, H), xdt (nc, Q, H, P), B and C (nc, Q, N)")
+    nc, Q, H = cum.shape
+    if xdt.shape[:3] != (nc, Q, H):
+        raise ValueError(f"xdt {tuple(xdt.shape)} does not match cum {tuple(cum.shape)}")
+    if B.shape != C.shape or B.shape[:2] != (nc, Q):
+        raise ValueError(f"B {tuple(B.shape)} and C {tuple(C.shape)} must be ({nc}, {Q}, N)")
+    if not (cum.device == xdt.device == B.device == C.device):
+        raise ValueError("ssd_chunk: every input must lie on one device")
+
+
+def default_head_block(nc: int, H: int) -> int:
+    """Heads per block: 4, as the Pallas kernel's default, halved while the
+    grid would hold fewer than two blocks per SM."""
+    hb = min(4, H)
+    while hb > 1 and nc * -(-H // hb) < TARGET_BLOCKS:
+        hb //= 2
+    return hb
+
+
+def ssd_chunk(cum, xdt, B, C, *, head_block: int | None = None):
+    """K5 over nc cells -> (y_intra (nc, Q, H, P) in xdt's type, S_chunk
+    (nc, H, N, P) float32).
+
+    CUDA tensors (float32, or bfloat16 at the tensor-core kernel's shapes,
+    all four of one type) launch the kernel once on the current stream (no
+    synchronisation), ``head_block`` heads per block (by default
+    ``default_head_block``), and add one to ``ssd_chunk.launches``; other
+    bfloat16 shapes raise.  CPU tensors run ``ssd_chunk_ref``."""
+    _check(cum, xdt, B, C)
+    if cum.device.type == "cpu":
+        return ssd_chunk_ref(cum, xdt, B, C)
+    if cum.device.type != "cuda":
+        raise ValueError(f"no kernel for device {cum.device}")
+    dtype = xdt.dtype
+    if dtype not in _DTYPES or not (cum.dtype == B.dtype == C.dtype == dtype):
+        raise TypeError(
+            f"K5 takes float32 or bfloat16, all of one type; got cum {cum.dtype}, "
+            f"xdt {xdt.dtype}, B {B.dtype}, C {C.dtype}"
+        )
+    nc, Q, H, P = xdt.shape
+    N = B.shape[-1]
+    lib = _lib()
+    smem = lib.ssd_chunk_smem_bytes(_DTYPES[dtype], Q, N, P)
+    if smem < 0:
+        raise ValueError(
+            f"K5 in bfloat16 takes Q <= 128, Q and N multiples of 16, P a multiple of 8 up to 128; "
+            f"got Q={Q}, N={N}, P={P}"
+        )
+    if smem > MAX_SMEM:
+        raise ValueError(f"K5 at Q={Q}, N={N}, P={P} needs {smem} B of shared memory (at most {MAX_SMEM})")
+    hb = default_head_block(nc, H) if head_block is None else int(head_block)
+    if hb < 1:
+        raise ValueError(f"head_block must be >= 1, got {hb}")
+    # contiguous and 16-byte aligned (the bf16 kernel's loads): else a fresh copy
+    cum, xdt, B, C = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+                      else t.clone(memory_format=torch.contiguous_format) for t in (cum, xdt, B, C))
+    dev = xdt.device
+    y = torch.empty((nc, Q, H, P), dtype=dtype, device=dev)
+    S = torch.empty((nc, H, N, P), dtype=torch.float32, device=dev)
+    rc = lib.ssd_chunk_launch(
+        cum.data_ptr(), xdt.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(), S.data_ptr(),
+        _DTYPES[dtype], nc, Q, H, P, N, hb, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"ssd_chunk kernel launch failed: CUDA error {rc}")
+    ssd_chunk.launches += 1
+    return y, S
+
+
+ssd_chunk.launches = 0

@@ -1,0 +1,150 @@
+"""K4 (flash attention) of the port against the reference.
+
+On the host the port's K4 runs its plain version (dense float32 softmax);
+it is held against the reference's Pallas kernel in interpret mode, the
+reference's ``ref.flash_attention_ref`` and the model's ``layers._sdpa``,
+on the same inputs made with numpy.  Tolerances are the reference's own
+(``tests/test_kernels.py``): 2e-5 in float32, 3e-2 in bfloat16.  The
+Pallas kernel needs s to be a multiple of its tile (min(128, s)), so the
+ragged s = 200 is held against ``_sdpa`` only.
+
+The card-only tests hold the CUDA kernel against its plain version at the
+shapes ``chip_smoke.py`` checks; they skip without a card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as rops
+from repro.kernels import ref as rref
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.models import layers as rlayers
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_op,
+    flash_attention_op_ref,
+    flash_attention_ref,
+)
+
+TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+
+
+def _qkv(shape, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+
+
+def _jax(a, dtype):
+    return jnp.asarray(a).astype(jnp.dtype(dtype))
+
+
+def _torch(a, dtype):
+    return torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want, np.float32), rtol=TOL[dtype], atol=TOL[dtype]
+    )
+
+
+@pytest.mark.parametrize("s", [77, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_matches_pallas_kernel_and_ref(s, dtype, causal):
+    q, k, v = _qkv((3, s, 32), seed=s)
+    jq, jk, jv = (_jax(a, dtype) for a in (q, k, v))
+    bq = min(128, s)
+    want = pallas_flash(jq, jk, jv, causal=causal, bq=bq, bk=bq, interpret=True)
+    want_ref = rref.flash_attention_ref(jq, jk, jv, causal=causal)
+    got = flash_attention(*(_torch(a, dtype) for a in (q, k, v)), causal=causal)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (3, s, 32)
+    _close(got, want, dtype)
+    _close(got, want_ref, dtype)
+
+
+@pytest.mark.parametrize("s", [77, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_op_matches_reference_op(s, dtype):
+    """The (b, s, h, hd) wrappers: the reference folds the heads into the
+    batch axis, the port reads them by stride."""
+    q, k, v = _qkv((2, s, 4, 16), seed=7)
+    want = rops.flash_attention_op(*(_jax(a, dtype) for a in (q, k, v)), causal=True)
+    got = tops.flash_attention_op(*(_torch(a, dtype) for a in (q, k, v)), causal=True)
+    assert got.shape == (2, s, 4, 16)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("s", [1, 77, 128, 200, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_matches_model_sdpa(s, dtype, causal):
+    """K4 is what the model's _sdpa computes over a whole prompt from
+    position 0, with or without the masked tail of a preallocated cache."""
+    q, k, v = _qkv((2, s, 4, 16), seed=11)
+    jq, jk, jv = (_jax(a, dtype) for a in (q, k, v))
+    got = flash_attention_op(*(_torch(a, dtype) for a in (q, k, v)), causal=causal)
+    _close(got, rlayers._sdpa(jq, jk, jv, causal), dtype)
+    # the cache path of gqa_fwd at len 0: keys padded to max_seq, kv_len = s
+    pad = ((0, 0), (0, 5), (0, 0), (0, 0))
+    want = rlayers._sdpa(jq, jnp.pad(jk, pad), jnp.pad(jv, pad), causal, q_offset=0, kv_len=s)
+    _close(got, want, dtype)
+
+
+def test_checks():
+    q = torch.zeros((2, 8, 4, 16))
+    with pytest.raises(ValueError, match="equal q and kv heads"):
+        flash_attention_op(q, torch.zeros((2, 8, 2, 16)), torch.zeros((2, 8, 2, 16)))
+    with pytest.raises(TypeError, match="share a dtype"):
+        flash_attention_op(q, q.to(torch.bfloat16), q)
+    with pytest.raises(ValueError, match="at least one"):
+        flash_attention(torch.zeros((2, 0, 16)), torch.zeros((2, 4, 16)), torch.zeros((2, 4, 16)))
+    with pytest.raises(ValueError, match="differ"):
+        flash_attention(torch.zeros((2, 4, 16)), torch.zeros((3, 4, 16)), torch.zeros((3, 4, 16)))
+
+
+# ------------------------------------------------------------ on the card
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_equals_plain_on_card(dtype, hd):
+    """s in 1, 77, 200, 1000, 1024, causal and not; sq != sk; unaligned rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    for s in (1, 77, 200, 1000, 1024):
+        for causal in (True, False):
+            q, k, v = (_torch(a, dtype).cuda() for a in _qkv((6, s, hd), seed=hd + s))
+            before = flash_attention.launches
+            got = flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            assert flash_attention.launches == before + 1
+            want = flash_attention_ref(q, k, v, causal)
+            torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    # fewer or more keys than queries
+    for sq, sk in ((200, 77), (77, 200)):
+        q = _torch(_qkv((6, sq, hd), seed=1)[0], dtype).cuda()
+        k, v = (_torch(a, dtype).cuda() for a in _qkv((6, sk, hd), seed=2)[:2])
+        for causal in (True, False):
+            got, want = flash_attention(q, k, v, causal=causal), flash_attention_ref(q, k, v, causal)
+            torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    # rows that are not 16-byte aligned (float32 reads them by stride; bf16 copies them first)
+    q, k, v = (_torch(a, dtype).cuda()[..., :hd] for a in _qkv((6, 77, hd + 1), seed=hd))
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention_ref(q, k, v, True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_on_model_layout_on_card(dtype):
+    """Zamba2's prefill shape, (4, 1024, 32, 64), read by stride."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    q, k, v = (_torch(a, dtype).cuda() for a in _qkv((4, 1024, 32, 64), seed=3))
+    got = tops.flash_attention_op(q, k, v, causal=True)
+    want = flash_attention_op_ref(q, k, v, True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])

@@ -8,8 +8,10 @@
   policies do not read the profile and use exactly the same arrays.
 * ``repro_torch`` imports and runs with jax unimportable, and its sources
   import neither jax nor ``repro``.
-* Entry points called without ``device=`` (the slice-1 ones, and the
-  fused sweep's) ask for the card, and raise where there is none.
+* Entry points called without ``device=`` (the slice-1 ones, the fused
+  sweep's, and the serving slice's ``launch.serve.main``,
+  ``models.lm.init_params`` and ``models.lm.init_cache``) ask for the card,
+  and raise where there is none.
 """
 
 import ast
@@ -29,6 +31,7 @@ from repro.core.cim import profile as RP
 import repro_torch as T
 from repro_torch import convert
 from repro_torch.core.alloc.greedy import greedy_allocate_batch
+from repro_torch.configs import get_config
 from repro_torch.core.cim.profile import synthetic_images
 from repro_torch.dse import (
     FusedPipeline,
@@ -38,6 +41,8 @@ from repro_torch.dse import (
     run_fused_sweep,
     run_sweep,
 )
+from repro_torch.launch import serve
+from repro_torch.models import lm
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -103,6 +108,8 @@ from repro_torch.dse import design_grid, run_fused_sweep
 pts = design_grid(networks=("vgg11",), policies=("weight_based", "blockwise"), pe_multipliers=(2.0,))
 sweep = run_fused_sweep(pts, sample_patches=16, engine="kernel", device="cpu")
 assert (sweep.images_per_sec > 0).all(), sweep
+from repro_torch.launch import serve
+serve.main(["--arch", "zamba2-1.2b", "--smoke", "--batch", "1", "--prompt-len", "20", "--gen", "2", "--device", "cpu"])
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
 print("ok")
@@ -111,7 +118,7 @@ print("ok")
     out = subprocess.run(
         [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=300
     )
-    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-3000:]
+    assert out.returncode == 0 and out.stdout.strip().splitlines()[-1] == "ok", out.stderr[-3000:]
 
 
 def _imports(path: pathlib.Path) -> set[str]:
@@ -137,6 +144,17 @@ def test_port_sources_import_neither_jax_nor_reference():
         "repro_torch/dse/pareto.py",
         "repro_torch/fabric/telemetry.py",
         "repro_torch/kernels/fused_alloc_eval.py",
+        "repro_torch/kernels/flash_attention.py",
+        "repro_torch/kernels/ssd_scan.py",
+        "repro_torch/kernels/ops.py",
+        "repro_torch/models/config.py",
+        "repro_torch/models/layers.py",
+        "repro_torch/models/ssm.py",
+        "repro_torch/models/lm.py",
+        "repro_torch/configs/__init__.py",
+        "repro_torch/configs/zamba2_1_2b.py",
+        "repro_torch/train/step.py",
+        "repro_torch/launch/serve.py",
     ):
         assert module in names, module
     for path in files:
@@ -157,6 +175,9 @@ ENTRY_POINTS = [
     "run_fused_sweep",
     "run_sweep",
     "get_captured",
+    "serve_main",
+    "init_params",
+    "init_cache",
 ]
 
 
@@ -180,6 +201,12 @@ def _call(name):
         return run_sweep(design_grid(networks=("vgg11",), pe_multipliers=(2.0,)))
     if name == "get_captured":
         return get_captured("vgg11")
+    if name == "serve_main":
+        return serve.main(["--arch", "zamba2-1.2b", "--smoke", "--batch", "1", "--prompt-len", "4", "--gen", "2"])
+    if name == "init_params":
+        return lm.init_params(get_config("mamba2-370m", smoke=True))
+    if name == "init_cache":
+        return lm.init_cache(get_config("zamba2-1.2b", smoke=True), 1, 8)
     if name == "capture_inputs_from_numpy":
         weights = [np.zeros((l.rows, l.cout), np.float32) for l in spec.layers]
         return convert.capture_inputs_from_numpy(np.zeros((1, 32, 32, 3)), weights, spec)
