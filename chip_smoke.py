@@ -35,27 +35,45 @@ sources.  Phases, each of which fails the run on any mismatch:
   8. K2's timings at the main path's chunk, beside its bound;
   9. K4 (flash attention) against its plain version: float32 and bfloat16,
      head dims 16, 64 and 128, s 1, 77, 200, 1000 and 1024, causal and not,
-     and Zamba2's prefill shape on the model's (b, s, h, hd) layout;
+     and Zamba2's prefill shape on the model's (b, s, h, hd) layout; grouped
+     kv heads at the dense models' prefill shapes in bf16 (48 q on 8 kv
+     heads, 32 on 2, 12 on 2, head dim 128), timed beside SDPA, and small
+     float32 shapes with groups of 1, 2, 6 and 16;
  10. K5 (the SSD chunk kernel) against its plain version at the Zamba2 and
-     Mamba2-370M prefill shapes and at small ragged ones (each of K4 and K5
-     has a tensor-core kernel for bf16 and a CUDA-core one for float32; both
-     run here, and K5 in bf16 refuses a shape its kernel does not take);
- 11. Zamba2-1.2B at full width (38 Mamba2 layers, d_model 2048, the shared
+     Mamba2-370M prefill shapes and at small ragged ones (each of K3, K4 and
+     K5 has a tensor-core kernel for bf16 and a CUDA-core one for float32;
+     both run here, and K5 in bf16 refuses a shape its kernel does not take);
+ 11. K3 (the zero-skip matmul) against its plain version in float32 and
+     bf16: the reference's test shapes and masks, ragged M, N and K through
+     the op, Nemotron-4-15B's down-projection at its prefill and decode
+     shapes; then the reference benchmark's structured input (half the
+     tiles zero) at the prefill shape, timed against the dense input;
+ 12. Zamba2-1.2B at full width (38 Mamba2 layers, d_model 2048, the shared
      attention block at 6 sites) served through ``launch.serve``'s stages:
      random parameters from a seeded ``torch.Generator``, 4 prompts of 1024
-     tokens, prefill with the cache, then 31 greedy decode steps, with K4's
-     and K5's counts set to 0 before and read after (6 and 38 launches, all
-     in the prefill); prefill ms and decode tokens/s by CUDA events after a
-     warm-up, the device-busy share over the prefill (``torch.profiler``),
-     and K4 and K5 per launch on the path's own inputs beside their bounds,
-     their plain versions and, for K4, ``scaled_dot_product_attention``;
- 12. kernels against plain versions end to end: Zamba2-1.2B in float32, 2
-     ragged prompts of 200 tokens and 4 tokens, once with K4 and K5 and once
-     with this script swapping the models' K4/K5 entry points for the plain
-     versions (logits within 1e-3 of max |logit|, equal tokens); and the
-     SMOKE config on the card against the same parameters on the host;
- 13. Mamba2-370M at full width (48 layers, d_state 128), 2 prompts of 512
-     tokens and 8 tokens, with its timings (K5: 48 launches).
+     tokens, prefill with the cache, then 31 greedy decode steps, with K3's,
+     K4's and K5's counts set to 0 before and read after (K4 6 and K5 38
+     launches, all in the prefill); prefill ms and decode tokens/s by CUDA
+     events after a warm-up, the device-busy share over the prefill
+     (``torch.profiler``), the peak device memory, and each kernel per
+     launch on the path's own inputs beside its bound, its plain version
+     and the library call (K3 ``torch.matmul``, K4 SDPA);
+ 13. kernels against plain versions end to end: Zamba2-1.2B in float32, 2
+     ragged prompts of 200 tokens and 4 tokens, once with the kernels and
+     once with this script swapping the models' K3/K4/K5 entry points for
+     the plain versions (logits within 1e-3 of max |logit|, equal tokens);
+     and the SMOKE config on the card against the same parameters on the
+     host;
+ 14. Mamba2-370M at full width (48 layers, d_state 128), 2 prompts of 512
+     tokens and 8 tokens, with its timings (K5: 48 launches);
+ 15. the dense family at full width and depth, one model at a time, the
+     same stages as 12: Nemotron-4-15B (32 layers, d_model 6144, squared
+     ReLU: K3 32 launches per forward, K4 32 per prefill), GLM-4-9B (40
+     layers, 32 q on 2 kv heads: K4 40) and Qwen2-VL-2B (28 layers, M-RoPE,
+     qkv bias: K4 28), with the zero tiles K3 met on the path;
+ 16. Nemotron-4-15B in float32, kernels against plain versions end to end
+     as in 13, and the five dense SMOKE configs on the card against the
+     host.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's launches
 on the main path, max |kernel - plain|, times and bound); the last line is
@@ -95,9 +113,18 @@ K4_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # the reference's tests/test_kerne
 # the decayed B as the kernel does, so the two differ only by summation order
 # and y's final rounding
 K5_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+# K3 vs plain, of 1 + |plain|: bf16 as the reference's tests/test_kernels.py;
+# float32 as its tests/test_zskip_masks.py for full-range gaussian inputs
+K3_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 E2E_TOL = 1e-3  # kernels vs plain end to end, float32, of max |logit|
 ZAMBA = dict(batch=4, prompt_len=1024, gen=32)  # the serving path at full width
 MAMBA = dict(batch=2, prompt_len=512, gen=8)
+DENSE = dict(batch=4, prompt_len=1024, gen=32)  # the dense family at full width and depth
+DENSE_ARCHS = ("nemotron-4-15b", "glm4-9b", "qwen2-vl-2b")
+DENSE_SMOKE = DENSE_ARCHS + ("qwen2.5-32b", "qwen1.5-110b")
+NEMOTRON_DOWN = (4096, 24576, 6144)  # Nemotron-4-15B's prefill down-projection: 4 x 1024 rows, d_ff, d_model
+DENSE_HEADS = {"nemotron-4-15b": (48, 8), "glm4-9b": (32, 2), "qwen2-vl-2b": (12, 2)}  # q and kv heads, hd 128
+NEMOTRON_PEAK_GB = 69.0  # the reckoning of a bf16 prefill of 4 x 1024 on float32 parameters
 E2E = dict(batch=2, prompt_len=200, gen=4)  # a ragged prompt: 200 = 128 + 72
 
 
@@ -422,15 +449,17 @@ def k2_chunk_args(network, rows):
     return seen[pipe.L], seen[pipe.N]
 
 
-def k4_bound(b, sq, sk, h, hd, causal, elem_bytes):
+def k4_bound(b, sq, sk, h, hd, causal, elem_bytes, nkv=None):
     """(bound ms, bound_by, ops, bytes) of one K4 call: 2 products of
     2 * hd operations for each (query, visible key) pair at the inputs'
-    rate (the bf16 tensor cores; float32 outside them), q, k, v read and o
-    written once."""
+    rate (the bf16 tensor cores; float32 outside them), q read and o
+    written once, and k and v read once with their ``nkv`` heads (``h``
+    unless grouped)."""
+    nkv = nkv or h
     m = min(sq, sk)
     pairs = (m * (m + 1) // 2 + (sq - m) * sk) if causal else sq * sk
     ops = 4 * b * h * hd * pairs
-    nbytes = elem_bytes * b * h * hd * (2 * sq + 2 * sk)
+    nbytes = elem_bytes * b * hd * (2 * sq * h + 2 * sk * nkv)
     rate = BF16_OPS_PER_S if elem_bytes == 2 else LANE_OPS_PER_S
     ops_ms, bytes_ms = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), ops, nbytes
@@ -464,49 +493,88 @@ def k5_bound(nc, Q, H, P, N, elem_bytes):
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), ops, nbytes
 
 
-class swapped_ops:
-    """Within the block, the models call ``k4`` and ``k5`` in place of their
-    K4 / K5 entry points (``models.layers.flash_attention_op`` and
-    ``models.ssm.ssd_chunk_op``); the package itself has no switch."""
+def k3_bound(mask, M, N, bm, bk, elem_bytes, out_bytes):
+    """(bound ms, bound_by, ops, bytes) of one K3 call from its mask: the
+    products of the live A tiles only (2 * N per A element of a live tile;
+    a ragged last row tile counts its real rows) at the inputs' rate (bf16
+    tensor cores; float32 outside them); the live A tiles, the B rows some
+    live tile needs and the output, each once."""
+    import torch
 
-    def __init__(self, k4, k5):
-        self.k4, self.k5 = k4, k5
+    live = mask.bool().cpu()
+    rows = torch.full((live.shape[0],), bm, dtype=torch.int64)
+    rows[-1] = M - bm * (live.shape[0] - 1)
+    a_elems = int((live.sum(dim=1) * rows).sum()) * bk
+    b_rows = int(live.any(dim=0).sum()) * bk
+    ops = 2 * N * a_elems
+    nbytes = elem_bytes * (a_elems + b_rows * N) + out_bytes * M * N
+    rate = BF16_OPS_PER_S if elem_bytes == 2 else LANE_OPS_PER_S
+    ops_ms, bytes_ms = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), ops, nbytes
+
+
+def rel_err(got, want):
+    """(max |got - want|, max |got - want| / (1 + |want|)) in float32."""
+    d = (got.float() - want.float()).abs()
+    return float(d.max()), float((d / (1 + want.float().abs())).max())
+
+
+class swapped_ops:
+    """Within the block, the models call ``k3``, ``k4`` and ``k5`` in place
+    of their K3 / K4 / K5 entry points (``models.layers.zskip_matmul_op``,
+    ``models.layers.flash_attention_op`` and ``models.ssm.ssd_chunk_op``);
+    the package itself has no switch."""
+
+    def __init__(self, k3, k4, k5):
+        self.k3, self.k4, self.k5 = k3, k4, k5
 
     @classmethod
     def plain(cls):
         """The kernels' plain versions."""
         from repro_torch.kernels.flash_attention import flash_attention_op_ref
         from repro_torch.kernels.ssd_scan import ssd_chunk_ref
+        from repro_torch.kernels.zskip_matmul import zskip_matmul_op_ref
 
-        return cls(flash_attention_op_ref, ssd_chunk_ref)
+        return cls(zskip_matmul_op_ref, flash_attention_op_ref, ssd_chunk_ref)
 
     def __enter__(self):
         import repro_torch.models.layers as layers
         import repro_torch.models.ssm as ssm
 
-        self.saved = (layers.flash_attention_op, ssm.ssd_chunk_op)
-        layers.flash_attention_op, ssm.ssd_chunk_op = self.k4, self.k5
+        self.saved = (layers.zskip_matmul_op, layers.flash_attention_op, ssm.ssd_chunk_op)
+        layers.zskip_matmul_op, layers.flash_attention_op, ssm.ssd_chunk_op = self.k3, self.k4, self.k5
         return self
 
     def __exit__(self, *exc):
         import repro_torch.models.layers as layers
         import repro_torch.models.ssm as ssm
 
-        layers.flash_attention_op, ssm.ssd_chunk_op = self.saved
+        layers.zskip_matmul_op, layers.flash_attention_op, ssm.ssd_chunk_op = self.saved
         return False
 
 
 def path_inputs(params, cfg, prompts, cache_fn):
-    """The first K4 and K5 calls of one prefill, recorded with their inputs
-    (clones); the launches they make are not counted."""
+    """The first K3, K4 and K5 calls of one prefill, and the first K3 call of
+    the decode step after it, recorded with their inputs (clones), and the
+    zero tiles of every K3 input in that prefill and that decode step; the
+    launches they make are not counted."""
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention as k4
     from repro_torch.kernels.ssd_scan import ssd_chunk as k5
+    from repro_torch.kernels.zskip_matmul import zskip_matmul as k3
     from repro_torch.launch import serve
 
-    seen = {}
+    seen = {"zero_tiles": {"prefill": [0, 0], "decode": [0, 0]}}
+    stage = ["prefill"]
+
+    def rec3(a, b, **kw):
+        seen.setdefault("k3" if stage[0] == "prefill" else "k3_decode", ([a.clone(), b.clone()], kw))
+        zero, tiles = ops.zero_tiles(a)
+        seen["zero_tiles"][stage[0]][0] += zero
+        seen["zero_tiles"][stage[0]][1] += tiles
+        return ops.zskip_matmul_op(a, b, **kw)
 
     def rec4(*a, **kw):
         seen.setdefault("k4", ([t.clone() for t in a], kw))
@@ -516,60 +584,80 @@ def path_inputs(params, cfg, prompts, cache_fn):
         seen.setdefault("k5", ([t.clone() for t in a], kw))
         return ops.ssd_chunk_op(*a, **kw)
 
-    saved = (k4.launches, k5.launches)
-    with swapped_ops(rec4, rec5):
-        serve.prefill(params, cfg, prompts, cache_fn())
+    saved = (k3.launches, k4.launches, k5.launches)
+    with swapped_ops(rec3, rec4, rec5):
+        tok, _, cache = serve.prefill(params, cfg, prompts, cache_fn())
+        if "k3" in seen:
+            stage[0] = "decode"
+            serve.decode(params, cfg, cache, tok, 1)
     torch.cuda.synchronize()
-    k4.launches, k5.launches = saved
+    k3.launches, k4.launches, k5.launches = saved
     return seen
 
 
+def expected_launches(cfg, gen):
+    """{kernel: (launches in the prefill, launches on the whole path)} of
+    one prefill and ``gen - 1`` decode steps: K3 once per ``sq_relu`` layer
+    and forward, K4 once per attention layer or site in the prefill only, K5
+    once per Mamba2 layer in the prefill only."""
+    if cfg.family == "dense":
+        k3 = cfg.n_layers if cfg.activation == "sq_relu" else 0
+        return {"k3": (k3, k3 * gen), "k4": (cfg.n_layers, cfg.n_layers), "k5": (0, 0)}
+    n_sites = cfg.n_layers // cfg.shared_every if cfg.family == "hybrid" else 0
+    return {"k3": (0, 0), "k4": (n_sites, n_sites), "k5": (cfg.n_layers, cfg.n_layers)}
+
+
 def serve_full(arch, batch, prompt_len, gen, label, gpu, reps=3):
-    """The serving path of one FULL config on the card: setup, then K4's and
-    K5's counts set to 0 just before prefill + decode and read just after;
-    the checks of what came out; then timings.  Returns the numbers the
-    summary prints."""
+    """The serving path of one FULL config on the card: setup, then K3's,
+    K4's and K5's counts set to 0 just before prefill + decode and read just
+    after; the checks of what came out; then timings and the peak memory.
+    Returns the numbers the summary prints."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention as k4
     from repro_torch.kernels.ssd_scan import ssd_chunk as k5
+    from repro_torch.kernels.zskip_matmul import zskip_matmul as k3
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
     cfg = get_config(arch)
     dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, cache, prompts = serve.setup(cfg, batch, prompt_len, gen, device=dev, seed=0)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    out = {"setup_s": time.perf_counter() - t0, "params": n_params}
+    out = {"setup_s": time.perf_counter() - t0, "params": n_params,
+           "setup_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     print(f"{label}: {n_params} parameters (float32, seeded torch.Generator) on the card in "
           f"{out['setup_s']:.3f} s; {batch} prompts x {prompt_len} tokens, {gen} generated")
 
     def new_cache():
         return lm.init_cache(cfg, batch, prompt_len + gen, device=dev)
 
+    kernels = {"k3": k3, "k4": k4, "k5": k5}
+    want = expected_launches(cfg, gen)
     with torch.inference_mode():
-        k4.launches = 0
-        k5.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
         t0 = time.perf_counter()
         tok, logits, cache = serve.prefill(params, cfg, prompts, cache)
         torch.cuda.synchronize()
         out["prefill_cold_s"] = time.perf_counter() - t0
-        out["k4_prefill"], out["k5_prefill"] = k4.launches, k5.launches
+        in_prefill = {n: k.launches for n, k in kernels.items()}
         rest, cache = serve.decode(params, cfg, cache, tok, gen - 1)
         torch.cuda.synchronize()
-        out["k4_launches"], out["k5_launches"] = k4.launches, k5.launches
-        n_sites = cfg.n_layers // cfg.shared_every if cfg.family == "hybrid" else 0
-        check(out["k5_prefill"] == cfg.n_layers and out["k5_launches"] == cfg.n_layers,
-              f"{label}: K5 launched {out['k5_prefill']} times in the prefill, {out['k5_launches']} on the "
-              f"path, want {cfg.n_layers} (one per Mamba2 layer, none in decode)")
-        check(out["k4_prefill"] == n_sites and out["k4_launches"] == n_sites,
-              f"{label}: K4 launched {out['k4_prefill']} times in the prefill, {out['k4_launches']} on the "
-              f"path, want {n_sites} (one per attention site, none in decode)")
-        print(f"{label}: main path ran (prefill + {gen - 1} decode steps), K4 launches {out['k4_launches']}, "
-              f"K5 launches {out['k5_launches']}")
+        on_path = {n: k.launches for n, k in kernels.items()}
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        for n in kernels:
+            out[f"{n}_prefill"], out[f"{n}_launches"] = in_prefill[n], on_path[n]
+            check((in_prefill[n], on_path[n]) == want[n],
+                  f"{label}: {n.upper()} launched {in_prefill[n]} times in the prefill, {on_path[n]} on the "
+                  f"path, want {want[n]}")
+        print(f"{label}: main path ran (prefill + {gen - 1} decode steps), launches in the prefill / on the "
+              f"path: " + ", ".join(f"{n.upper()} {in_prefill[n]} / {on_path[n]}" for n in kernels))
 
         # what came out
         toks = torch.cat([tok[:, None], rest], dim=1)
@@ -579,11 +667,16 @@ def serve_full(arch, batch, prompt_len, gen, label, gpu, reps=3):
         check(tuple(toks.shape) == (batch, gen) and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
               f"{label}: tokens {tuple(toks.shape)}")
         for name, t in cache["layers"].items():
-            check(bool(torch.isfinite(t).all()), f"{label}: non-finite cache {name}")
-        if "shared_sites" in cache:
-            check(cache["shared_sites"]["len"] == prompt_len + gen - 1, f"{label}: cache len {cache['shared_sites']['len']}")
+            if isinstance(t, torch.Tensor):
+                check(bool(torch.isfinite(t).all()), f"{label}: non-finite cache {name}")
+        for part in ("layers", "shared_sites"):
+            if "len" in cache.get(part, {}):
+                check(cache[part]["len"] == prompt_len + gen - 1, f"{label}: cache len {cache[part]['len']}")
         out["sample"] = toks[0, :8].tolist()
-        print(f"{label}: logits finite, shape {tuple(logits.shape)}; tokens of prompt 0: {out['sample']}")
+        del logits
+        print(f"{label}: logits finite, shape {(batch, prompt_len, cfg.vocab)}; tokens of prompt 0: "
+              f"{out['sample']}; peak device memory on the path {out['peak_gb']:.2f} GB "
+              f"(torch.cuda.max_memory_allocated; {out['setup_peak_gb']:.2f} GB after setup)")
 
         # timings: prefill from a fresh cache, decode from the prefill's cache
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -592,7 +685,7 @@ def serve_full(arch, batch, prompt_len, gen, label, gpu, reps=3):
             c = new_cache()
             torch.cuda.synchronize()
             ev[0].record()
-            tok, _, c = serve.prefill(params, cfg, prompts, c)
+            serve.prefill(params, cfg, prompts, c)
             ev[1].record()
             ev[1].synchronize()
             pre.append(ev[0].elapsed_time(ev[1]))
@@ -600,13 +693,14 @@ def serve_full(arch, batch, prompt_len, gen, label, gpu, reps=3):
         dec = []
         for _ in range(2):
             c2 = new_cache()
-            tok, _, c2 = serve.prefill(params, cfg, prompts, c2)
+            tok, c2 = serve.prefill(params, cfg, prompts, c2)[0::2]
             torch.cuda.synchronize()
             ev[0].record()
             serve.decode(params, cfg, c2, tok, gen - 1)
             ev[1].record()
             ev[1].synchronize()
             dec.append(ev[0].elapsed_time(ev[1]))
+        del c, c2
         out["decode_ms"] = dec
         out["decode_tok_per_s"] = [batch * (gen - 1) / (ms * 1e-3) for ms in dec]
         share, win_ms, by_name = device_busy(lambda: serve.prefill(params, cfg, prompts, new_cache()))
@@ -619,89 +713,126 @@ def serve_full(arch, batch, prompt_len, gen, label, gpu, reps=3):
         print(f"{gpu}: {label} prefill under torch.profiler: window {win_ms:.3f} ms, device busy {share:.4f} "
               f"(idle {1 - share:.4f}); top device time: " + "; ".join(f"{n[:60]} {t:.3f} ms" for n, t in top))
         out["seen"] = path_inputs(params, cfg, prompts, new_cache)
+        zt = out["seen"]["zero_tiles"]
+        if out["k3_launches"]:
+            print(f"{label}: K3 zero tiles (128 x 128, skipped) on the path: prefill {zt['prefill'][0]} of "
+                  f"{zt['prefill'][1]} = {zt['prefill'][0] / zt['prefill'][1]:.6f}, one decode step "
+                  f"{zt['decode'][0]} of {zt['decode'][1]} = {zt['decode'][0] / zt['decode'][1]:.6f}")
     del params, cache
     torch.cuda.empty_cache()
     return out
 
 
-def kernel_numbers(seen, gpu, label, k4_sites, k5_layers):
-    """K4 and K5 per launch on the path's own first inputs: kernel, plain
-    version, SDPA (K4) and bounds."""
+def kernel_numbers(path, gpu, label):
+    """K3, K4 and K5 per launch on the path's own first inputs, for those the
+    path ran: kernel, plain version, the library call (K3: ``torch.matmul``,
+    K4: ``scaled_dot_product_attention``) and bounds.  ``path``: what
+    ``serve_full`` returned."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention as k4, flash_attention_op_ref
     from repro_torch.kernels.ssd_scan import ssd_chunk as k5, ssd_chunk_ref
+    from repro_torch.kernels.zskip_matmul import block_mask, zskip_matmul as k3, zskip_matmul_op_ref
 
+    seen = path["seen"]
+    launches = {n: path[f"{n}_prefill"] for n in ("k3", "k4", "k5")}
     res = {}
-    saved = (k4.launches, k5.launches)
+    saved = (k3.launches, k4.launches, k5.launches)
+    for key in ("k3", "k3_decode"):
+        if key not in seen:
+            continue
+        (a, b), kw = seen[key]
+        M, K = a.shape
+        N = b.shape[1]
+        ms = timed(lambda: ops.zskip_matmul_op(a, b, **kw), reps=20)
+        plain_ms = timed(lambda: zskip_matmul_op_ref(a, b), reps=5)
+        lib_ms = timed(lambda: torch.matmul(a, b), reps=20)
+        err, rel = rel_err(ops.zskip_matmul_op(a, b, **kw), zskip_matmul_op_ref(a, b))
+        tol = K3_TOL[str(a.dtype).split(".")[1]]
+        check(rel <= tol, f"{label}: K3 vs plain on the path's inputs {rel} (limit {tol})")
+        bound, by, n_ops, nbytes = k3_bound(block_mask(a), M, N, 128, 128, a.element_size(), a.element_size())
+        res[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by, err=err)
+        print(f"{gpu}: {label} K3 per launch ({'prefill' if key == 'k3' else 'decode'}) at ({M}, {K}) @ ({K}, {N}) "
+              f"{a.dtype}, the op with its mask: {ms:.4f} ms ({launches['k3']} per forward: "
+              f"{ms * launches['k3']:.3f} ms), plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}: {n_ops:.4e} ops at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16, {nbytes} B at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {n_ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved; "
+              f"max |kernel - plain| {err:.3e} (relative to 1 + |plain|: {rel:.3e})")
     if "k4" in seen:
         (q, k, v), kw = seen["k4"]
         b, s, h, hd = q.shape
+        nkv = k.shape[2]
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # (b, h, s, hd) views
         ms = timed(lambda: ops.flash_attention_op(q, k, v, **kw), reps=20)
         plain_ms = timed(lambda: flash_attention_op_ref(q, k, v, **kw), reps=5)
-        lib_ms = timed(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=kw["causal"]), reps=20)
-        got, want = ops.flash_attention_op(q, k, v, **kw).float(), flash_attention_op_ref(q, k, v, **kw).float()
-        d = (got - want).abs()
-        err, rel = float(d.max()), float((d / (1 + want.abs())).max())
+        lib_ms = timed(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=kw["causal"],
+                                                              enable_gqa=nkv != h), reps=20)
+        err, rel = rel_err(ops.flash_attention_op(q, k, v, **kw), flash_attention_op_ref(q, k, v, **kw))
         check(rel <= K4_TOL[str(q.dtype).split(".")[1]], f"{label}: K4 vs plain on the path's inputs {rel}")
-        bound, by, n_ops, nbytes = k4_bound(b, s, s, h, hd, kw["causal"], q.element_size())
+        bound, by, n_ops, nbytes = k4_bound(b, s, s, h, hd, kw["causal"], q.element_size(), nkv)
         res["k4"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by, err=err)
-        print(f"{gpu}: {label} K4 per launch at {tuple(q.shape)} {q.dtype} causal={kw['causal']}: {ms:.4f} ms "
-              f"({k4_sites} per prefill: {ms * k4_sites:.3f} ms), plain {plain_ms:.4f} ms, "
-              f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}: {n_ops:.4e} ops at "
-              f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16, {nbytes} B), {n_ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s "
-              f"achieved; max |kernel - plain| {err:.3e} (relative to 1 + |plain|: {rel:.3e})")
-    (cum, xdt, B, C), kw = seen["k5"]
-    nc, Q, H, P = xdt.shape
-    N = B.shape[-1]
-    ms = timed(lambda: ops.ssd_chunk_op(cum, xdt, B, C, **kw), reps=20)
-    plain_ms = timed(lambda: ssd_chunk_ref(cum, xdt, B, C), reps=5)
-    y, st = ops.ssd_chunk_op(cum, xdt, B, C, **kw)
-    yp, sp = ssd_chunk_ref(cum, xdt, B, C)
-    err = rel = 0.0
-    for g, w in ((y.float(), yp.float()), (st, sp)):
-        d = (g - w).abs()
-        err, rel = max(err, float(d.max())), max(rel, float((d / (1 + w.abs())).max()))
-    tol = K5_TOL[str(xdt.dtype).split(".")[1]]
-    check(rel <= tol, f"{label}: K5 vs plain on the path's inputs {rel} (limit {tol})")
-    bound, by, n_ops, nbytes = k5_bound(nc, Q, H, P, N, xdt.element_size())
-    res["k5"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by=by, err=err)
-    print(f"{gpu}: {label} K5 per launch at cells {nc}, Q {Q}, H {H}, P {P}, N {N} {xdt.dtype}: {ms:.4f} ms "
-          f"({k5_layers} per prefill: {ms * k5_layers:.3f} ms), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-          f"({by}: {nbytes} B at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; {n_ops:.4e} ops, bf16 products at "
-          f"{BF16_OPS_PER_S / 1e12:.0f}, float32-weight products at {TF32_OPS_PER_S / 1e12:.0f} (TF32), "
-          f"element-wise at {LANE_OPS_PER_S / 1e12:.0f} TFLOP/s), "
-          f"{n_ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved; max |kernel - plain| {err:.3e} "
-          f"(relative to 1 + |plain|: {rel:.3e}); library_ms: null (no single PyTorch call computes the SSD chunk terms)")
+        print(f"{gpu}: {label} K4 per launch at q {tuple(q.shape)}, kv heads {nkv}, {q.dtype} causal={kw['causal']}: "
+              f"{ms:.4f} ms ({launches['k4']} per prefill: {ms * launches['k4']:.3f} ms), plain {plain_ms:.4f} ms, "
+              f"scaled_dot_product_attention{' (enable_gqa)' if nkv != h else ''} {lib_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}: {n_ops:.4e} ops at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16, {nbytes} B), "
+              f"{n_ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved; max |kernel - plain| {err:.3e} "
+              f"(relative to 1 + |plain|: {rel:.3e})")
+    if "k5" in seen:
+        (cum, xdt, B, C), kw = seen["k5"]
+        nc, Q, H, P = xdt.shape
+        N = B.shape[-1]
+        ms = timed(lambda: ops.ssd_chunk_op(cum, xdt, B, C, **kw), reps=20)
+        plain_ms = timed(lambda: ssd_chunk_ref(cum, xdt, B, C), reps=5)
+        y, st = ops.ssd_chunk_op(cum, xdt, B, C, **kw)
+        yp, sp = ssd_chunk_ref(cum, xdt, B, C)
+        err = rel = 0.0
+        for g, w in ((y, yp), (st, sp)):
+            e, r = rel_err(g, w)
+            err, rel = max(err, e), max(rel, r)
+        tol = K5_TOL[str(xdt.dtype).split(".")[1]]
+        check(rel <= tol, f"{label}: K5 vs plain on the path's inputs {rel} (limit {tol})")
+        bound, by, n_ops, nbytes = k5_bound(nc, Q, H, P, N, xdt.element_size())
+        res["k5"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by=by, err=err)
+        print(f"{gpu}: {label} K5 per launch at cells {nc}, Q {Q}, H {H}, P {P}, N {N} {xdt.dtype}: {ms:.4f} ms "
+              f"({launches['k5']} per prefill: {ms * launches['k5']:.3f} ms), plain {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}: {nbytes} B at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; {n_ops:.4e} ops, bf16 "
+              f"products at {BF16_OPS_PER_S / 1e12:.0f}, float32-weight products at {TF32_OPS_PER_S / 1e12:.0f} "
+              f"(TF32), element-wise at {LANE_OPS_PER_S / 1e12:.0f} TFLOP/s), "
+              f"{n_ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved; max |kernel - plain| {err:.3e} "
+              f"(relative to 1 + |plain|: {rel:.3e}); library_ms: null (no single PyTorch call computes the SSD "
+              f"chunk terms)")
     torch.cuda.synchronize()
-    k4.launches, k5.launches = saved
+    k3.launches, k4.launches, k5.launches = saved
     return res
 
 
-def end_to_end_vs_plain(gpu):
-    """Zamba2-1.2B in float32 with the kernels, then with the plain
-    versions swapped in; then SMOKE on the card vs the host."""
+def end_to_end_vs_plain(arch, seed):
+    """``arch`` at full width in float32, ``E2E`` prompts, with the kernels
+    (each launched as often as ``expected_launches`` says) and then with the
+    plain versions swapped in (no launch): logits within ``E2E_TOL`` of max
+    |logit|, tokens equal."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention as k4
     from repro_torch.kernels.ssd_scan import ssd_chunk as k5
+    from repro_torch.kernels.zskip_matmul import zskip_matmul as k3
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
     dev = torch.device("cuda")
-    saved = (k4.launches, k5.launches)
-    cfg = get_config("zamba2-1.2b").with_(dtype="float32")
+    saved = (k3.launches, k4.launches, k5.launches)
+    cfg = get_config(arch).with_(dtype="float32")
     b, s, gen = E2E["batch"], E2E["prompt_len"], E2E["gen"]
-    params, _, prompts = serve.setup(cfg, b, s, gen, device=dev, seed=1)
+    params, _, prompts = serve.setup(cfg, b, s, gen, device=dev, seed=seed)
+    want_kernels = tuple(n[1] for n in expected_launches(cfg, gen).values())
     runs = {}
     with torch.inference_mode():
         for name, swap in (("kernels", None), ("plain", swapped_ops.plain())):
             cache = lm.init_cache(cfg, b, s + gen, device=dev)
-            before = (k4.launches, k5.launches)
+            before = (k3.launches, k4.launches, k5.launches)
             if swap is None:
                 tok, logits, cache = serve.prefill(params, cfg, prompts, cache)
                 rest, cache = serve.decode(params, cfg, cache, tok, gen - 1)
@@ -710,41 +841,62 @@ def end_to_end_vs_plain(gpu):
                     tok, logits, cache = serve.prefill(params, cfg, prompts, cache)
                     rest, cache = serve.decode(params, cfg, cache, tok, gen - 1)
             torch.cuda.synchronize()
-            used = (k4.launches - before[0], k5.launches - before[1])
-            want = (6, 38) if swap is None else (0, 0)
-            check(used == want, f"end to end, {name}: K4/K5 launched {used}, want {want}")
+            used = (k3.launches - before[0], k4.launches - before[1], k5.launches - before[2])
+            want = want_kernels if swap is None else (0, 0, 0)
+            check(used == want, f"end to end {arch}, {name}: K3/K4/K5 launched {used}, want {want}")
             runs[name] = (logits.float(), torch.cat([tok[:, None], rest], dim=1))
+            del logits, cache
     (lk, tk), (lp, tp) = runs["kernels"], runs["plain"]
     rel = float((lk - lp).abs().max() / lp.abs().max())
-    check(bool(torch.isfinite(lk).all()), "end to end: non-finite logits")
-    check(rel <= E2E_TOL, f"end to end: kernels vs plain logits off by {rel} of max |logit| (limit {E2E_TOL})")
-    check(torch.equal(tk, tp), f"end to end: tokens differ {tk.tolist()} vs {tp.tolist()}")
-    print(f"zamba2-1.2b float32, {b} prompts x {s} tokens + {gen}: kernels vs plain versions end to end, "
-          f"logits max |diff| {rel:.3e} of max |logit| (limit {E2E_TOL}), tokens equal {tk[0].tolist()}")
-    del params
+    check(bool(torch.isfinite(lk).all()), f"end to end {arch}: non-finite logits")
+    check(rel <= E2E_TOL, f"end to end {arch}: kernels vs plain logits off by {rel} of max |logit| (limit {E2E_TOL})")
+    check(torch.equal(tk, tp), f"end to end {arch}: tokens differ {tk.tolist()} vs {tp.tolist()}")
+    print(f"{arch} float32, {b} prompts x {s} tokens + {gen}: kernels (K3/K4/K5 launches {want_kernels}) vs plain "
+          f"versions end to end, logits max |diff| {rel:.3e} of max |logit| (limit {E2E_TOL}), tokens equal "
+          f"{tk[0].tolist()}")
+    del params, runs, lk, lp
     torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    k3.launches, k4.launches, k5.launches = saved
+    return rel
 
-    # SMOKE: the same parameters on the host (plain versions) and the card (kernels)
-    small = get_config("zamba2-1.2b", smoke=True).with_(dtype="float32")
+
+def smoke_card_vs_host(arch):
+    """The SMOKE config in float32: the same parameters on the host (plain
+    versions) and on the card (kernels), a prompt of 40 and 3 decode steps;
+    logits within 1e-4 of max |logit|, tokens equal."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as k4
+    from repro_torch.kernels.ssd_scan import ssd_chunk as k5
+    from repro_torch.kernels.zskip_matmul import zskip_matmul as k3
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    saved = (k3.launches, k4.launches, k5.launches)
+    small = get_config(arch, smoke=True).with_(dtype="float32")
     host = lm.init_params(small, generator=torch.Generator().manual_seed(0), device="cpu")
-    card = lm.LM(small, None, dev)
+    card = lm.LM(small, None, torch.device("cuda"))
     card.load_state_dict(host.state_dict())
     toks = torch.randint(0, small.vocab, (2, 40), generator=torch.Generator().manual_seed(1))
     with torch.inference_mode():
         outs = []
-        for model, d in ((host, "cpu"), (card, dev)):
+        for model, d in ((host, "cpu"), (card, "cuda")):
             cache = lm.init_cache(small, 2, 44, device=d)
             tok, logits, cache = serve.prefill(model, small, toks.to(d), cache)
             rest, _ = serve.decode(model, small, cache, tok, 3)
             outs.append((logits.float().cpu(), torch.cat([tok[:, None], rest], dim=1).cpu()))
+    torch.cuda.synchronize()
+    used = (k3.launches - saved[0], k4.launches - saved[1], k5.launches - saved[2])
+    check(sum(used) > 0, f"smoke {arch}: no kernel launched on the card")
     rel_s = float((outs[0][0] - outs[1][0]).abs().max() / outs[0][0].abs().max())
     check(rel_s <= 1e-4 and torch.equal(outs[0][1], outs[1][1]),
-          f"smoke zamba2: card vs host logits {rel_s}, tokens {outs[0][1].tolist()} vs {outs[1][1].tolist()}")
-    print(f"zamba2-1.2b SMOKE float32: card (K4, K5) vs host (plain versions), logits max |diff| "
+          f"smoke {arch}: card vs host logits {rel_s}, tokens {outs[0][1].tolist()} vs {outs[1][1].tolist()}")
+    print(f"{arch} SMOKE float32: card (K3/K4/K5 launches {used}) vs host (plain versions), logits max |diff| "
           f"{rel_s:.3e} of max |logit| (limit 1e-4), tokens equal")
-    torch.cuda.synchronize()
-    k4.launches, k5.launches = saved
-    return rel
+    k3.launches, k4.launches, k5.launches = saved
+    return rel_s
 
 
 def k4_card_checks():
@@ -848,6 +1000,165 @@ def k5_card_checks():
 
 
 
+def k3_card_checks(gpu):
+    """K3 against its plain version in float32 and bf16: the reference's
+    test shapes (derived masks; random masks at four densities with tiles of
+    64 and 128, all-zero and all-ones among them; both output types),
+    ragged M, N and K through the op, and Nemotron-4-15B's down-projection
+    at its prefill and decode shapes in bf16.  Then the structured input of
+    the reference's kernel benchmark (half the 128 x 128 tiles of A zero, a
+    checkerboard) scaled to the prefill shape, timed against the same shape
+    dense.  Returns (max |err|, the timings)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.zskip_matmul import (
+        block_mask,
+        block_mask_ref,
+        zskip_matmul as k3,
+        zskip_matmul_op_ref,
+        zskip_matmul_ref,
+    )
+
+    dev = torch.device("cuda")
+    saved = k3.launches
+    rng = np.random.default_rng(3)
+    worst_abs, worst_rel = 0.0, {}
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    def held(got, want, tol, what):
+        nonlocal worst_abs
+        err, rel = rel_err(got, want)
+        check(rel <= tol, f"K3 {what}: max |err| {err}, relative to 1 + |plain| {rel} (limit {tol})")
+        worst_abs = max(worst_abs, err)
+        return rel
+
+    for dt in ("float32", "bfloat16"):
+        tdt, tol = getattr(torch, dt), K3_TOL[dt]
+        rels = []
+        for M, K, N in ((128, 128, 128), (256, 384, 128), (384, 256, 256)):
+            keep = torch.from_numpy(rng.random((M // 128, K // 128)) < 0.5).to(dev)
+            a = (torch.relu(randn(M, K)) * keep.repeat_interleave(128, 0).repeat_interleave(128, 1)).to(tdt)
+            b = randn(K, N).to(tdt)
+            mask = block_mask(a)
+            check(torch.equal(mask, block_mask_ref(a, 128, 128)), f"K3 {dt} {(M, K, N)}: device mask")
+            rels.append(held(k3(a, b, mask), zskip_matmul_ref(a, b, mask, 128, 128), tol, f"{dt} {(M, K, N)}"))
+        # the reference's random-mask shapes; in bf16 also a grid of many blocks
+        # (in float32 its full-range sums over K = 2048 differ from cuBLAS's
+        # by more than the reference's 1e-4, a matter of summation order)
+        shapes = ((128, 256, 128, 64), (192, 64, 128, 64), (64, 320, 192, 64), (128, 128, 128, 128))
+        for M, K, N, t in shapes + (((1024, 2048, 512, 128),) if dt == "bfloat16" else ()):
+            a, b = randn(M, K).to(tdt), randn(K, N).to(tdt)
+            for density in (0.0, 0.3, 0.7, 1.0):
+                mask = torch.from_numpy((rng.random((M // t, K // t)) < density).astype(np.int32)).to(dev)
+                for out in (torch.float32, torch.bfloat16):
+                    got = k3(a, b, mask, bm=t, bn=t, bk=t, out_dtype=out)
+                    want = zskip_matmul_ref(a, b, mask, t, t, out)
+                    o_tol = K3_TOL["bfloat16"] if out == torch.bfloat16 else tol
+                    rels.append(held(got, want, o_tol, f"{dt} {(M, K, N)} tile {t} density {density} out {out}"))
+                    if density == 0.0:
+                        check(not got.float().any(), f"K3 {dt} {(M, K, N)}: all-zero mask, nonzero output")
+        for M, K, N in ((400, 1024, 512), (4, 4096, 1024), (4, 256, 64), (400, 256, 64), (130, 200, 64)):
+            a, b = torch.relu(randn(M, K)).to(tdt), randn(K, N).to(tdt)
+            rels.append(held(ops.zskip_matmul_op(a, b), zskip_matmul_op_ref(a, b), tol, f"{dt} op ragged {(M, K, N)}"))
+        worst_rel[dt] = max(rels)
+
+    # Nemotron-4-15B's down-projection: relu(x @ w_up)^2 rows against w_down, bf16
+    timing = {}
+    M_pre, FF, D = NEMOTRON_DOWN
+    b = (randn(FF, D) / FF ** 0.5).to(torch.bfloat16)
+    for M in (4, M_pre):
+        a = torch.square(torch.relu(randn(M, FF))).to(torch.bfloat16)
+        worst_rel[f"nemotron {M} rows"] = held(ops.zskip_matmul_op(a, b), zskip_matmul_op_ref(a, b), K3_TOL["bfloat16"],
+                                               f"Nemotron down-projection ({M}, {FF}) @ ({FF}, {D})")
+    # the structured input of benchmarks/run.py:269-272 at the prefill shape
+    # (a checkerboard of 128 x 128 tiles), against the same activations with
+    # no zero tile
+    dense = torch.relu(randn(M_pre, FF)).to(torch.bfloat16)
+    tiles = torch.arange(M_pre // 128, device=dev)[:, None] + torch.arange(FF // 128, device=dev)[None, :]
+    keep = (tiles % 2 == 0).repeat_interleave(128, 0).repeat_interleave(128, 1)
+    structured = dense * keep.to(torch.bfloat16)
+    for name, a in (("dense", dense), ("structured", structured)):
+        mask = block_mask(a)
+        held(ops.zskip_matmul_op(a, b), zskip_matmul_op_ref(a, b), K3_TOL["bfloat16"], f"{name} ({M_pre}, {FF})")
+        ms = timed(lambda: ops.zskip_matmul_op(a, b), reps=10)
+        kernel_ms = timed(lambda: k3(a, b, mask), reps=10)
+        lib_ms = timed(lambda: torch.matmul(a, b), reps=10)
+        bound, by, n_ops, nbytes = k3_bound(mask, M_pre, D, 128, 128, 2, 2)
+        zero = int(mask.numel() - mask.sum())
+        timing[name] = dict(ms=ms, kernel_ms=kernel_ms, library_ms=lib_ms, bound_ms=bound, zero=zero)
+        print(f"{gpu}: K3 {name} input ({M_pre}, {FF}) @ ({FF}, {D}) bf16, {zero} of {mask.numel()} A tiles zero: "
+              f"op {ms:.4f} ms (mask + kernel), kernel alone {kernel_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, "
+              f"bound with the skipped tiles' work taken out {bound:.4f} ms ({by}: {n_ops:.4e} ops, {nbytes} B), "
+              f"{n_ops / (kernel_ms * 1e-3) / 1e12:.2f} TFLOP/s achieved on the live tiles")
+    print(f"{gpu}: K3 structured vs dense at the prefill shape: kernel {timing['dense']['kernel_ms'] / timing['structured']['kernel_ms']:.3f}x "
+          f"faster with half the tiles skipped (the bound: {timing['dense']['bound_ms'] / timing['structured']['bound_ms']:.3f}x)")
+    torch.cuda.synchronize()
+    k3.launches = saved
+    print("K3 vs plain, float32 and bfloat16: the reference's test shapes with derived masks, random masks at "
+          "densities 0, 0.3, 0.7, 1 with tiles of 64 and 128 and both output types, ragged M, N and K through the "
+          "op, Nemotron's down-projection at 4 and 4096 rows, the structured and dense prefill inputs: max |err| "
+          f"{worst_abs:.3e}; relative to 1 + |plain| "
+          + ", ".join(f"{d} {e:.3e}" for d, e in worst_rel.items()) + f" (limits {K3_TOL})")
+    del dense, structured, b, a
+    torch.cuda.empty_cache()
+    return worst_abs, timing
+
+
+def k4_grouped_checks(gpu):
+    """Grouped kv heads in K4 against the plain version: the dense models'
+    prefill shapes in bf16, causal (Nemotron-4-15B 48 q on 8 kv heads,
+    GLM-4-9B 32 on 2, Qwen2-VL-2B 12 on 2, head dim 128), each timed beside
+    its bound and SDPA with ``enable_gqa``; and small float32 shapes with
+    groups of 1, 2, 6 and 16, causal and not.  Returns the max |err|."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention as k4, flash_attention_op_ref
+
+    dev = torch.device("cuda")
+    saved = k4.launches
+    rng = np.random.default_rng(4)
+    worst = 0.0
+
+    def randn(*shape, dt):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dt)
+
+    b, s = DENSE["batch"], DENSE["prompt_len"]
+    for label, (nq, nkv) in DENSE_HEADS.items():
+        q = randn(b, s, nq, 128, dt=torch.bfloat16)
+        k, v = (randn(b, s, nkv, 128, dt=torch.bfloat16) for _ in range(2))
+        err, rel = rel_err(ops.flash_attention_op(q, k, v, causal=True), flash_attention_op_ref(q, k, v, True))
+        check(rel <= K4_TOL["bfloat16"], f"K4 grouped {label}: relative err {rel}")
+        worst = max(worst, err)
+        ms = timed(lambda: ops.flash_attention_op(q, k, v, causal=True), reps=20)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = timed(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, enable_gqa=True), reps=20)
+        bound, by, n_ops, nbytes = k4_bound(b, s, s, nq, 128, True, 2, nkv)
+        print(f"{gpu}: K4 grouped at {label}'s prefill shape ({b}, {s}, {nq} q / {nkv} kv heads, 128) bf16 causal: "
+              f"{ms:.4f} ms, scaled_dot_product_attention (enable_gqa) {lib_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({by}: {n_ops:.4e} ops, {nbytes} B), {n_ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved; "
+              f"max |kernel - plain| {err:.3e}")
+    for group in (1, 2, 6, 16):
+        for causal in (True, False):
+            q = randn(2, 77, 2 * group, 64, dt=torch.float32)
+            k, v = (randn(2, 77, 2, 64, dt=torch.float32) for _ in range(2))
+            err, rel = rel_err(ops.flash_attention_op(q, k, v, causal=causal),
+                               flash_attention_op_ref(q, k, v, causal))
+            check(rel <= K4_TOL["float32"], f"K4 grouped float32 group {group} causal {causal}: {rel}")
+            worst = max(worst, err)
+    torch.cuda.synchronize()
+    k4.launches = saved
+    print(f"K4 grouped vs plain: bf16 at the three dense prefill shapes, float32 with groups 1, 2, 6, 16: "
+          f"max |err| {worst:.3e}")
+    return worst
+
+
 def main() -> int:
     import torch
 
@@ -884,8 +1195,8 @@ def main() -> int:
 
     # ---- 1. build, and the kernel against its plain version on edge cases
     t0 = time.perf_counter()
-    logs = _build.build("bitplane_profile", "fused_alloc_eval", "flash_attention", "ssd_chunk")
-    print(f"build: K1, K2, K4 and K5 in {time.perf_counter() - t0:.3f} s (wall, four nvcc processes together)")
+    logs = _build.build("bitplane_profile", "fused_alloc_eval", "zskip_matmul", "flash_attention", "ssd_chunk")
+    print(f"build: K1, K2, K3, K4 and K5 in {time.perf_counter() - t0:.3f} s (wall, five nvcc processes together)")
     for name, log in logs.items():
         print(f"[nvcc {name}]\n{log.strip()}")
     max_err = 0
@@ -1144,24 +1455,49 @@ def main() -> int:
     print(f"{gpu}: vgg11 fused sweep over {vgg['configs']} configs, s: kernel engine {vgg['kernel_warm_s']:.3f}, "
           f"torch engine {vgg['torch_warm_s']:.3f}")
 
-    # ---- 9. K4 against its plain version
-    k4_err = k4_card_checks()
+    # ---- 9. K4 against its plain version, equal and grouped kv heads
+    k4_err = max(k4_card_checks(), k4_grouped_checks(gpu))
 
     # ---- 10. K5 against its plain version
     k5_err = k5_card_checks()
 
-    # ---- 11. Zamba2-1.2B serving at full width
+    # ---- 11. K3 against its plain version, and its structured input
+    k3_err, _ = k3_card_checks(gpu)
+
+    # ---- 12. Zamba2-1.2B serving at full width
     zamba = serve_full("zamba2-1.2b", **ZAMBA, label="zamba2-1.2b", gpu=gpu)
-    znum = kernel_numbers(zamba["seen"], gpu, "zamba2-1.2b", zamba["k4_launches"], zamba["k5_launches"])
+    znum = kernel_numbers(zamba, gpu, "zamba2-1.2b")
 
-    # ---- 12. kernels against plain versions end to end
-    end_to_end_vs_plain(gpu)
+    # ---- 13. kernels against plain versions end to end, and SMOKE card vs host
+    end_to_end_vs_plain("zamba2-1.2b", 1)
+    smoke_card_vs_host("zamba2-1.2b")
 
-    # ---- 13. Mamba2-370M serving at full width
+    # ---- 14. Mamba2-370M serving at full width
     mamba = serve_full("mamba2-370m", **MAMBA, label="mamba2-370m", gpu=gpu)
-    check(mamba["k4_launches"] == 0, "mamba2-370m has no attention")
-    mnum = kernel_numbers(mamba["seen"], gpu, "mamba2-370m", 0, mamba["k5_launches"])
+    mnum = kernel_numbers(mamba, gpu, "mamba2-370m")
 
+    # ---- 15. the dense family at full width and depth, one model at a time
+    dense, dnum = {}, {}
+    for arch in DENSE_ARCHS:
+        dense[arch] = serve_full(arch, **DENSE, label=arch, gpu=gpu)
+        dnum[arch] = kernel_numbers(dense[arch], gpu, arch)
+        del dense[arch]["seen"]
+    nem = dense["nemotron-4-15b"]
+    print(f"{gpu}: nemotron-4-15b peak device memory on the path {nem['peak_gb']:.2f} GB "
+          f"(reckoned about {NEMOTRON_PEAK_GB} GB: 62.5 float32 weights + head cast + logits + one MLP + cache)")
+    for arch in DENSE_ARCHS:
+        d = dense[arch]
+        print(f"{gpu}: {arch} summary: prefill {min(d['prefill_ms']):.3f} ms (best of {len(d['prefill_ms'])}), "
+              f"decode {max(d['decode_tok_per_s']):.1f} tok/s (best of 2), device busy {d['busy']:.4f} over the "
+              f"prefill, peak {d['peak_gb']:.2f} GB, launches K3 {d['k3_launches']}, K4 {d['k4_launches']}")
+
+    # ---- 16. kernels against plain versions end to end: Nemotron-4-15B in
+    # float32 (K3 on every forward, K4 in the prefill); the SMOKE dense configs
+    end_to_end_vs_plain("nemotron-4-15b", 2)
+    for arch in DENSE_SMOKE:
+        smoke_card_vs_host(arch)
+
+    nnum = dnum["nemotron-4-15b"]
     print(gpu)
     print(json.dumps({"kernels": [{
         "name": "bitplane_profile",
@@ -1188,17 +1524,29 @@ def main() -> int:
         "bound_by": k2_stats["block"]["bound_by"],
         "library_ms": None,
     }, {
+        "name": "zskip_matmul",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/zskip_matmul.cu",
+        "replaces": "src/repro/kernels/zskip_matmul.py:28",
+        "launches": nem["k3_launches"],
+        "max_abs_err": max(k3_err, nnum["k3"]["err"], nnum["k3_decode"]["err"]),
+        "ms": nnum["k3"]["ms"],
+        "plain_ms": nnum["k3"]["plain_ms"],
+        "bound_ms": nnum["k3"]["bound_ms"],
+        "bound_by": nnum["k3"]["bound_by"],
+        "library_ms": nnum["k3"]["library_ms"],
+    }, {
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:31",
-        "launches": zamba["k4_launches"],
-        "max_abs_err": max(k4_err, znum["k4"]["err"]),
-        "ms": znum["k4"]["ms"],
-        "plain_ms": znum["k4"]["plain_ms"],
-        "bound_ms": znum["k4"]["bound_ms"],
-        "bound_by": znum["k4"]["bound_by"],
-        "library_ms": znum["k4"]["library_ms"],
+        "launches": nem["k4_launches"],
+        "max_abs_err": max(k4_err, znum["k4"]["err"], *(dnum[a]["k4"]["err"] for a in DENSE_ARCHS)),
+        "ms": nnum["k4"]["ms"],
+        "plain_ms": nnum["k4"]["plain_ms"],
+        "bound_ms": nnum["k4"]["bound_ms"],
+        "bound_by": nnum["k4"]["bound_by"],
+        "library_ms": nnum["k4"]["library_ms"],
     }, {
         "name": "ssd_chunk",
         "route": "cuda",

@@ -28,6 +28,11 @@ import torch
 
 from ... import resolve_device
 
+SPARES_AND_AUDIT_NOT_PORTED = (
+    "spare_fraction and audit are not ported yet: they come with the fault and "
+    "observability slice (ROADMAP.md §1, work still to do)"
+)
+
 __all__ = [
     "AllocationResult",
     "BatchAllocationResult",
@@ -69,6 +74,8 @@ def greedy_allocate(
     budget: float,
     *,
     initial_replicas: np.ndarray | None = None,
+    spare_fraction: float = 0.0,
+    audit=None,
 ) -> AllocationResult:
     """Grant replicas to the unit with the highest expected latency.
 
@@ -77,7 +84,12 @@ def greedy_allocate(
     cost available for *additional* replicas; ``initial_replicas``:
     optionally start from an existing allocation.  Stops when the current
     slowest unit can no longer be afforded, the paper's stopping rule.
+    ``spare_fraction`` (a hot-spare reserve) and ``audit`` (a decision log)
+    take the reference's defaults, 0.0 and None; other values raise
+    ``NotImplementedError`` until the fault and observability slice.
     """
+    if spare_fraction != 0.0 or audit is not None:
+        raise NotImplementedError(SPARES_AND_AUDIT_NOT_PORTED)
     base_latency = np.asarray(base_latency, dtype=np.float64)
     unit_cost = np.asarray(unit_cost, dtype=np.float64)
     if base_latency.shape != unit_cost.shape:

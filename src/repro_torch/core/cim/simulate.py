@@ -35,7 +35,7 @@ from typing import Literal
 import numpy as np
 import torch
 
-from ..alloc.greedy import greedy_allocate, proportional_allocate
+from ..alloc.greedy import SPARES_AND_AUDIT_NOT_PORTED, greedy_allocate, proportional_allocate
 from .network import NetworkSpec
 from .profile import NetworkProfile
 
@@ -69,7 +69,7 @@ ARRAYS_PER_PE = 64
 CLOCK_HZ = 100e6
 LATENCY_AWARE_NOT_PORTED = (
     "policy 'latency_aware' is not ported yet: it comes with fabric/ and the "
-    "queueing allocator (ROADMAP.md §1, modules still to port)"
+    "queueing allocator (ROADMAP.md §1, work still to do)"
 )
 
 
@@ -129,11 +129,19 @@ def allocate(
     n_pes: int,
     arrays_per_pe: int = ARRAYS_PER_PE,
     free_budget: float | None = None,
+    offered_ips: float | None = None,
+    load_frac: float = 0.7,
+    audit=None,
 ) -> Allocation:
     """Pick replica counts.  ``free_budget`` caps the arrays spent on extra
-    replicas below the physical ``total - base``."""
-    if policy == "latency_aware":
+    replicas below the physical ``total - base``.  ``offered_ips`` and
+    ``load_frac`` (the ``latency_aware`` policy's target load) and ``audit``
+    take the reference's defaults, None, 0.7 and None; other values raise
+    ``NotImplementedError`` until their slices."""
+    if policy == "latency_aware" or offered_ips is not None or load_frac != 0.7:
         raise NotImplementedError(LATENCY_AWARE_NOT_PORTED)
+    if audit is not None:
+        raise NotImplementedError(SPARES_AND_AUDIT_NOT_PORTED)
     total = n_pes * arrays_per_pe
     base_arrays = spec.n_arrays
     if total < base_arrays:

@@ -17,7 +17,10 @@
 // Layout: each of q, k, v, o is addressed as [b, s, h, d] with element strides
 // (stride_b, stride_s, stride_h) given by the caller and d contiguous, so both
 // the (bh, s, hd) layout of the Pallas kernel (H = 1) and the model's
-// (b, s, h, hd) layout run without a transpose.
+// (b, s, h, hd) layout run without a transpose.  Grouped kv heads: k and v
+// hold H / G heads, and query head h reads kv head h / G (G = 1: one kv head
+// per query head), the grouping of the reference model's _sdpa_block
+// (src/repro/models/layers.py:125-145); k and v are never repeated per head.
 //
 // What bounds it: bytes, barely.  At the Zamba2 prefill shape (128 heads x
 // 1024 tokens, hd 64, causal, bf16) it does about 1.7e10 floating-point
@@ -68,7 +71,7 @@ struct Args {
   const void* v;
   void* o;
   Strides sq_, sk_, sv_, so_;
-  int H, Sq, Sk, causal;
+  int H, G, Sq, Sk, causal;  // G: query heads per kv head
   float scale;
 };
 
@@ -99,8 +102,9 @@ __global__ void __launch_bounds__(kRows) flash_attention_kernel(const Args a) {
   const bool live = row < a.Sq;
 
   const float* q = static_cast<const float*>(a.q) + b * a.sq_.b + h * a.sq_.h;
-  const float* k = static_cast<const float*>(a.k) + b * a.sk_.b + h * a.sk_.h;
-  const float* v = static_cast<const float*>(a.v) + b * a.sv_.b + h * a.sv_.h;
+  const int hk = h / a.G;
+  const float* k = static_cast<const float*>(a.k) + b * a.sk_.b + hk * a.sk_.h;
+  const float* v = static_cast<const float*>(a.v) + b * a.sv_.b + hk * a.sv_.h;
   float* o = static_cast<float*>(a.o) + b * a.so_.b + h * a.so_.h;
 
   float qr[kQInRegisters<HD> ? HD : 1];
@@ -256,8 +260,9 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attention_mma_kernel(const 
   const int warp_last = row0 + warp * 16 + 15;
 
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) + b * a.sq_.b + h * a.sq_.h;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k) + b * a.sk_.b + h * a.sk_.h;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) + b * a.sv_.b + h * a.sv_.h;
+  const int hk = h / a.G;
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k) + b * a.sk_.b + hk * a.sk_.h;
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) + b * a.sv_.b + hk * a.sv_.h;
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o) + b * a.so_.b + h * a.so_.h;
 
   for (int i = tid; i < kMmaRows * kChunks; i += kMmaThreads) {
@@ -455,17 +460,18 @@ int dispatch_bf16(const Args& a, int hd, long long BH, cudaStream_t stream) {
 // Plain C entry point, loaded with ctypes.  q, k, v, o are device pointers on
 // `device` of one type (dtype 0: float32, 1: bfloat16, 16-byte aligned rows),
 // addressed as [b, s, h, d] with the given element strides and d contiguous; B * H
-// (batch, head) pairs, sq query rows, sk keys, head dim hd in {16, 32, 64,
-// 128}.  The caller has checked shapes and types.  Returns cudaGetLastError()
+// (batch, query head) pairs, H / G kv heads in k and v, sq query rows, sk
+// keys, head dim hd in {16, 32, 64, 128}.  The caller has checked shapes and types.  Returns cudaGetLastError()
 // after the launch (0 when the launch was accepted).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, long long B, int H,
-    int sq, int sk, int hd, long long qsb, long long qss, long long qsh, long long ksb,
+    int G, int sq, int sk, int hd, long long qsb, long long qss, long long qsh, long long ksb,
     long long kss, long long ksh, long long vsb, long long vss, long long vsh, long long osb,
     long long oss, long long osh, int causal, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || H == 0 || sq == 0) return 0;
+  if (G < 1 || H % G != 0) return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
   a.k = k;
@@ -476,6 +482,7 @@ extern "C" int flash_attention_launch(
   a.sv_ = Strides{vsb, vss, vsh};
   a.so_ = Strides{osb, oss, osh};
   a.H = H;
+  a.G = G;
   a.Sq = sq;
   a.Sk = sk;
   a.causal = causal;

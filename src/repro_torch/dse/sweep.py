@@ -57,7 +57,7 @@ __all__ = [
 
 FABRIC_NOT_PORTED = (
     "the serving-side latency columns (fabric=) are not ported yet: they come "
-    "with fabric/ (ROADMAP.md §1, modules still to port)"
+    "with fabric/ (ROADMAP.md §1, work still to do)"
 )
 SHARD_NOT_PORTED = (
     "splitting the config axis over devices (shard) is not ported yet "

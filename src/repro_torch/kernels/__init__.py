@@ -2,8 +2,9 @@
 
 K1 ``bitplane_profile``: CUDA C++ (``csrc/bitplane_profile.cu``).
 K2 ``fused_alloc_eval``: CUDA C++ (``csrc/fused_alloc_eval.cu``).
+K3 ``zskip_matmul``: CUDA C++ (``csrc/zskip_matmul.cu``).
 K4 ``flash_attention``: CUDA C++ (``csrc/flash_attention.cu``).
 K5 ``ssd_scan``: CUDA C++ (``csrc/ssd_chunk.cu``).
-All are built with nvcc on first use (``_build``); ``ops`` wraps K4 and K5
-for the models.  No kernel is built or loaded at import.
+All are built with nvcc on first use (``_build``); ``ops`` wraps K3, K4 and
+K5 for the models.  No kernel is built or loaded at import.
 """

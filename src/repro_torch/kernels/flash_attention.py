@@ -10,7 +10,10 @@ the reference's ``kernels/ref.py::flash_attention_ref``.
 
 ``flash_attention_op`` is the same kernel on the model's (b, s, h, hd)
 layout: the kernel takes each tensor's strides, so the heads need no
-transpose; ``flash_attention_op_ref`` is its plain version.  Both kernel
+transpose.  k and v may hold fewer heads than q (grouped kv heads): query
+head h reads kv head ``h // (nq // nkv)``, the grouping of the reference
+model's ``_sdpa_block``, and k and v are never repeated per head.
+``flash_attention_op_ref`` is its plain version.  Both kernel
 entry points count their launches on ``flash_attention.launches``.
 
 The source holds one kernel per type: bf16 runs on the tensor cores
@@ -41,7 +44,7 @@ def _launcher():
     fn.argtypes = (
         [ctypes.c_void_p] * 4
         + [ctypes.c_int, ctypes.c_longlong]
-        + [ctypes.c_int] * 4
+        + [ctypes.c_int] * 5
         + [ctypes.c_longlong] * 12
         + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     )
@@ -77,9 +80,9 @@ def _check(q, k, v, layout: str):
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
     if q.shape[0] != k.shape[0] or q.shape[-1] != k.shape[-1]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ in batch or head dim")
-    if layout == "bshd" and q.shape[2] != k.shape[2]:
+    if layout == "bshd" and q.shape[2] % k.shape[2] != 0:
         raise ValueError(
-            f"K4 takes equal q and kv heads, got {q.shape[2]} and {k.shape[2]}"
+            f"K4 takes q heads that are a multiple of the kv heads, got {q.shape[2]} and {k.shape[2]}"
         )
     if q.shape[1] == 0 or k.shape[1] == 0:
         raise ValueError("flash attention needs at least one query and one key")
@@ -92,8 +95,9 @@ def _rows_aligned(t) -> bool:
 
 def _launch(q, k, v, causal: bool) -> torch.Tensor:
     """Launch K4 on checked CUDA tensors: (bh, s, hd) when 3-D (one head per
-    batch row), (b, s, h, hd) when 4-D; each is passed by its (batch, seq,
-    head) element strides and the output is contiguous in q's shape."""
+    batch row), (b, s, h, hd) when 4-D, k and v with h / group heads; each
+    is passed by its (batch, seq, head) element strides and the output is
+    contiguous in q's shape."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"K4 takes float32 or bfloat16, got {q.dtype}")
     hd = q.shape[-1]
@@ -112,7 +116,8 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     dev = q.device
     rc = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype],
-        q.shape[0], q.shape[2] if four_d else 1, q.shape[1], k.shape[1], hd,
+        q.shape[0], q.shape[2] if four_d else 1, q.shape[2] // k.shape[2] if four_d else 1,
+        q.shape[1], k.shape[1], hd,
         *strides(q), *strides(k), *strides(v), *strides(o),
         int(bool(causal)), dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -138,9 +143,12 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
 
 
 def flash_attention_op_ref(q, k, v, causal: bool = True) -> torch.Tensor:
-    """Plain version of ``flash_attention_op``: the heads folded into the
-    batch axis for ``flash_attention_ref``."""
+    """Plain version of ``flash_attention_op``: each kv head repeated for
+    its group of query heads (head h reads kv head h // group), then the
+    heads folded into the batch axis for ``flash_attention_ref``."""
     b, sq, h, hd = q.shape
+    group = h // k.shape[2]
+    k, v = k.repeat_interleave(group, dim=2), v.repeat_interleave(group, dim=2)
 
     def fold(t):
         return t.transpose(1, 2).reshape(b * h, t.shape[1], hd)
@@ -150,10 +158,11 @@ def flash_attention_op_ref(q, k, v, causal: bool = True) -> torch.Tensor:
 
 
 def flash_attention_op(q, k, v, *, causal: bool = True) -> torch.Tensor:
-    """K4 on the model's layout: q (b, sq, h, hd), k and v (b, sk, h, hd)
-    -> (b, sq, h, hd), each head attending to its own keys (equal q and kv
-    heads).  CPU tensors run ``flash_attention_op_ref``; on CUDA tensors the
-    kernel reads the heads by stride."""
+    """K4 on the model's layout: q (b, sq, h, hd), k and v (b, sk, nkv, hd)
+    with h a multiple of nkv -> (b, sq, h, hd), query head i attending to kv
+    head i // (h // nkv).  CPU tensors run ``flash_attention_op_ref``; on
+    CUDA tensors the kernel reads the heads by stride, with no copy of k or
+    v per query head."""
     _check(q, k, v, "bshd")
     if q.device.type == "cpu":
         return flash_attention_op_ref(q, k, v, causal)

@@ -1,14 +1,13 @@
 """Batched serving loop: prefill a batch of prompts with the cache, then
 decode greedily against it (reference: ``src/repro/launch/serve.py``).
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \\
       --batch 4 --prompt-len 32 --gen 16 [--smoke] [--device cpu]
 
 It runs on the card unless ``--device cpu`` is given, and raises without
-one.  Families ``ssm`` and ``hybrid`` are ported; the others raise
-``NotImplementedError``, so ``--arch`` defaults to zamba2-1.2b (the
-reference's default, glm4-9b, comes with the dense-family slice).  One
-device, so there is no mesh.
+one.  ``--arch`` defaults to glm4-9b, as the reference's does.  Families
+``dense``, ``ssm`` and ``hybrid`` are ported; the others raise
+``NotImplementedError``.  One device, so there is no mesh.
 
 ``setup``, ``prefill`` and ``decode`` are the loop's three stages, for
 callers that time them.
@@ -69,7 +68,7 @@ def _sync(dev: torch.device):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, default="zamba2-1.2b")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="glm4-9b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

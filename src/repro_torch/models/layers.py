@@ -18,11 +18,22 @@ works in float32.  The parameters of this serving slice do not require
 gradients.
 
 Attention over a whole prompt from position 0 (no cache, or a cache of
-length 0) is K4 (``kernels.ops.flash_attention_op``): it is exactly the
-reference's ``_sdpa`` there, causal or not.  Decode and prefill onto a
-non-empty cache run ``_sdpa`` in plain torch, as the reference computes
-them outside any Pallas kernel.  The cache's ``len`` is a host int, so this
-choice reads nothing back from the card, and the cache is written in place.
+length 0) is K4 (``kernels.ops.flash_attention_op``), which takes the
+grouped kv heads as they are: it is exactly the reference's ``_sdpa``
+there, causal or not.  Decode and prefill onto a non-empty cache run
+``_sdpa`` in plain torch, as the reference computes them outside any Pallas
+kernel.  The cache's ``len`` is a host int, so this choice reads nothing
+back from the card, and the cache is written in place.  A write past the
+cache's end starts at ``max_seq - s`` instead, as the reference's
+``dynamic_update_slice_in_dim`` clamps its start index, and attends with
+``q_offset = len`` and ``kv_len = len + s`` as the reference does.
+
+The ``sq_relu`` MLP's down-projection is K3 (``kernels.ops.zskip_matmul_op``)
+on the (b*s, d_ff) view, in prefill and decode alike: squared-ReLU
+activations are the zero-skip kernel's input.  The other activations'
+products stay ``torch.matmul``, as the reference computes them outside any
+Pallas kernel.
+
 The mesh-only paths (``_constrain_heads``, ``_decode_attn_seq_sharded``) are
 identities on one device and are not ported; MLA and MoE come with their
 slice (ROADMAP.md).
@@ -37,7 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.ops import flash_attention_op
+from ..kernels.ops import flash_attention_op, zskip_matmul_op
 from .config import ModelConfig
 
 __all__ = [
@@ -64,7 +75,7 @@ def _dense(shape, generator: torch.Generator | None, device, scale: float = 1.0)
     if generator is None:
         return _param(torch.zeros(shape, dtype=torch.float32, device=device))
     w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-    return _param(w * (scale / math.sqrt(shape[0])))
+    return _param(w.mul_(scale / math.sqrt(shape[0])))  # in place: no second copy
 
 
 # --------------------------------------------------------------------- norms
@@ -211,11 +222,15 @@ def gqa_fwd(p: GQAttention, cfg: ModelConfig, x, positions, cache: dict | None =
         new_cache = None
     else:
         start = int(cache["len"])
+        max_s = cache["k"].shape[1]
+        if s > max_s:
+            raise ValueError(f"cache holds {max_s} positions, {s} new tokens asked for")
+        # past the end the write starts at max_s - s, as the reference's
+        # dynamic_update_slice_in_dim clamps its start index
+        at = min(start, max_s - s)
         new_len = start + s
-        if new_len > cache["k"].shape[1]:
-            raise ValueError(f"cache holds {cache['k'].shape[1]} positions, {new_len} asked for")
-        cache["k"][:, start:new_len] = k
-        cache["v"][:, start:new_len] = v
+        cache["k"][:, at : at + s] = k
+        cache["v"][:, at : at + s] = v
         if start == 0:
             # a whole prompt from position 0: the reference's masked _sdpa
             # over the cache is exactly attention over the s new tokens
@@ -223,6 +238,7 @@ def gqa_fwd(p: GQAttention, cfg: ModelConfig, x, positions, cache: dict | None =
         else:
             # positions past new_len are masked in the reference; they add
             # exp(finfo.min - max) = 0 to the softmax, so they are cut here
+            # (past the cache's end the slice is the whole cache, all valid)
             out = _sdpa(q, cache["k"][:, :new_len], cache["v"][:, :new_len], a.causal,
                         q_offset=start, kv_len=new_len)
         new_cache = {"k": cache["k"], "v": cache["v"], "len": new_len}
@@ -259,7 +275,8 @@ class MLP(nn.Module):
 
 
 def mlp_fwd(p: MLP, x: torch.Tensor, activation: str) -> torch.Tensor:
-    """``jax.nn.gelu`` is the tanh approximation, so gelu here is too."""
+    """``jax.nn.gelu`` is the tanh approximation, so gelu here is too.
+    ``sq_relu``'s down-projection is K3."""
     dt = x.dtype
     up = x @ p.w_up.to(dt)
     if activation == "silu_glu":
@@ -268,6 +285,9 @@ def mlp_fwd(p: MLP, x: torch.Tensor, activation: str) -> torch.Tensor:
         h = F.gelu(x @ p.w_gate.to(dt), approximate="tanh") * up
     elif activation == "sq_relu":  # Nemotron-4: squared ReLU
         h = torch.square(F.relu(up))
+        # K3 skips the all-zero tiles of the squared-ReLU activations
+        y = zskip_matmul_op(h.reshape(-1, h.shape[-1]), p.w_down.to(dt))
+        return y.reshape(*h.shape[:-1], y.shape[-1])
     elif activation == "gelu":
         h = F.gelu(up, approximate="tanh")
     else:

@@ -1,4 +1,5 @@
-"""Decoder-only LM for the SSM (Mamba2) and hybrid (Zamba2) families.
+"""Decoder-only LM for the dense (GQA), SSM (Mamba2) and hybrid (Zamba2)
+families.
 
 Map to the reference (``src/repro/models/lm.py``):
 
@@ -17,9 +18,12 @@ Map to the reference (``src/repro/models/lm.py``):
 The reference scans homogeneous layer stacks with ``lax.scan`` (and remats
 them for training); here the layers are an ``nn.ModuleList`` walked by a
 Python loop, in the same order: for the hybrid family the shared block runs
-after every ``shared_every``-th Mamba2 layer, with or without a cache.
-Remat is a training concern and is not ported, nor is ``loss_fn`` (the
-training slice).  The families ``dense``, ``moe`` and ``encdec`` raise
+after every ``shared_every``-th Mamba2 layer, with or without a cache.  The
+dense family is a stack of ``Block``s; its cache is
+``{"layers": {"k", "v" (L, b, max_seq, nkv, hd), "len"}}`` with one host-int
+``len`` where the reference stacks one per layer.  Remat is a training
+concern and is not ported, nor is ``loss_fn`` (the training slice).  The
+families ``moe`` and ``encdec``, and MLA attention, raise
 ``NotImplementedError``: they come with later slices (ROADMAP.md).
 
 With a cache, ``forward`` writes the new state into the cache's tensors in
@@ -41,9 +45,8 @@ from .ssm import Mamba2, init_mamba2_cache, mamba2_step
 
 __all__ = ["LM", "Block", "SSMBlock", "forward", "init_cache", "init_params"]
 
-FAMILIES = ("ssm", "hybrid")
+FAMILIES = ("dense", "ssm", "hybrid")
 _LATER = {
-    "dense": "the dense-family slice (GLM-4-9B / Nemotron-4-15B serving)",
     "moe": "the MLA/MoE slice",
     "encdec": "the enc-dec slice",
 }
@@ -51,6 +54,11 @@ _LATER = {
 
 def _check_family(cfg: ModelConfig):
     if cfg.family in FAMILIES:
+        if cfg.family != "ssm" and cfg.attn.kind != "gqa":
+            raise NotImplementedError(
+                f"attention {cfg.attn.kind!r} ({cfg.name}) is not ported yet: it comes with "
+                f"{_LATER['moe']}, ROADMAP.md section 1"
+            )
         return
     if cfg.family in _LATER:
         raise NotImplementedError(
@@ -110,14 +118,16 @@ class SSMBlock(nn.Module):
 
 
 class LM(nn.Module):
-    """The LM of one ``ModelConfig`` (families ``ssm`` and ``hybrid``)."""
+    """The LM of one ``ModelConfig`` (families ``dense``, ``ssm`` and
+    ``hybrid``)."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator | None = None, device=None):
         super().__init__()
         _check_family(cfg)
         self.cfg = cfg
         self.embed = _dense((cfg.vocab, cfg.d_model), generator, device)
-        self.layers = nn.ModuleList(SSMBlock(cfg, generator, device) for _ in range(cfg.n_layers))
+        block = Block if cfg.family == "dense" else SSMBlock
+        self.layers = nn.ModuleList(block(cfg, generator, device) for _ in range(cfg.n_layers))
         if cfg.family == "hybrid":
             self.shared_block = Block(cfg, generator, device)
         self.final_norm = RMSNorm(cfg.d_model, device=device)
@@ -131,9 +141,41 @@ class LM(nn.Module):
         x = self.embed[tokens].to(_dtype(cfg))
         b, s, _ = x.shape
         if positions is None:
-            base = cache["shared_sites"]["len"] if cache is not None and cfg.family == "hybrid" else 0
+            base = 0
+            if cache is not None and cfg.family == "dense":
+                base = cache["layers"]["len"]
+            elif cache is not None and cfg.family == "hybrid":
+                base = cache["shared_sites"]["len"]
             positions = (base + torch.arange(s, device=x.device))[None, :].expand(b, s)
 
+        if cfg.family == "dense":
+            x = self._dense_layers(x, positions, cache)
+        else:
+            x = self._ssm_layers(x, positions, cache)
+        x = self.final_norm(x, cfg.norm_eps)
+        head = self.embed.T if cfg.tie_embeddings else self.lm_head
+        return x @ head.to(x.dtype), cache
+
+    def _dense_layers(self, x, positions, cache):
+        """The blocks in order; with a cache each reads and writes its layer
+        of the stacked k and v, and the new length is written back."""
+        new_len = None
+        for i, layer in enumerate(self.layers):
+            c_l = None
+            if cache is not None:
+                kv = cache["layers"]
+                c_l = {"k": kv["k"][i], "v": kv["v"][i], "len": kv["len"]}
+            x, c_new = layer(x, positions, c_l)
+            if c_new is not None:
+                new_len = c_new["len"]
+        if new_len is not None:
+            cache["layers"]["len"] = new_len
+        return x
+
+    def _ssm_layers(self, x, positions, cache):
+        """Mamba2 layers, with the hybrid family's shared block after every
+        ``shared_every``-th."""
+        cfg = self.cfg
         hybrid = cfg.family == "hybrid" and cfg.shared_every
         site = 0
         new_len = None
@@ -151,10 +193,7 @@ class LM(nn.Module):
                 site += 1
         if new_len is not None:
             cache["shared_sites"]["len"] = new_len
-
-        x = self.final_norm(x, cfg.norm_eps)
-        head = self.embed.T if cfg.tie_embeddings else self.lm_head
-        return x @ head.to(x.dtype), cache
+        return x
 
 
 def init_params(
@@ -179,13 +218,21 @@ def init_cache(
     dtype: torch.dtype | None = None,
     device: str | torch.device = "cuda",
 ) -> dict:
-    """Preallocated decode state on ``device`` (the card by default):
-    ``{"layers": {conv_x, conv_B, conv_C, ssm stacked over layers}}`` and,
-    for the hybrid family, ``"shared_sites": {"k", "v" stacked over the
-    n_layers // shared_every attention sites, "len": 0}``."""
+    """Preallocated decode state on ``device`` (the card by default): for
+    the dense family ``{"layers": {"k", "v" stacked over layers, "len": 0}}``;
+    otherwise ``{"layers": {conv_x, conv_B, conv_C, ssm stacked over
+    layers}}`` and, for the hybrid family, ``"shared_sites": {"k", "v"
+    stacked over the n_layers // shared_every attention sites, "len": 0}``."""
     dev = resolve_device(device)
     _check_family(cfg)
     dtype = dtype or _dtype(cfg)
+    if cfg.family == "dense":
+        one = init_gqa_cache(cfg, batch, max_seq, dtype, dev)
+        return {"layers": {
+            "k": torch.zeros((cfg.n_layers, *one["k"].shape), dtype=dtype, device=dev),
+            "v": torch.zeros((cfg.n_layers, *one["v"].shape), dtype=dtype, device=dev),
+            "len": 0,
+        }}
     one = init_mamba2_cache(cfg, batch, dtype, dev)
     layers = {
         k: torch.zeros((cfg.n_layers, *v.shape), dtype=v.dtype, device=dev) for k, v in one.items()

@@ -193,3 +193,25 @@ def test_unported_and_invalid_policies_raise(shared):
         T.allocate(tspec, tprof, "blockwise", tspec.min_pes() - 1)
     with pytest.raises(ValueError, match="dups_lb"):
         T.BatchSimulator(tspec, tprof)(torch.ones(2, 3, 4), [True, True], [True, True])
+
+
+def test_reference_keywords_take_their_defaults(shared):
+    """``greedy_allocate``'s ``spare_fraction`` / ``audit`` and ``allocate``'s
+    ``offered_ips`` / ``load_frac`` / ``audit``: the reference's defaults
+    give the reference's result; any other value is refused by name."""
+    rspec, rprof, tspec, tprof = shared
+    base, cost = _units(3, 40)
+    want = RG.greedy_allocate(base, cost, 100.0)
+    got = TG.greedy_allocate(base, cost, 100.0, spare_fraction=0.0, audit=None)
+    np.testing.assert_array_equal(got.replicas, want.replicas)
+    assert got.leftover == want.leftover
+    for kw in (dict(spare_fraction=0.25), dict(audit=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TG.greedy_allocate(base, cost, 100.0, **kw)
+    pes = tspec.min_pes() * 2
+    a = T.allocate(tspec, tprof, "blockwise", pes, offered_ips=None, load_frac=0.7, audit=None)
+    r = R.allocate(rspec, rprof, "blockwise", pes)
+    assert a.arrays_used == r.arrays_used
+    for kw in (dict(offered_ips=100.0), dict(load_frac=0.5), dict(audit=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            T.allocate(tspec, tprof, "blockwise", pes, **kw)

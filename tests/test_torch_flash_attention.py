@@ -94,10 +94,31 @@ def test_plain_matches_model_sdpa(s, dtype, causal):
     _close(got, want, dtype)
 
 
+@pytest.mark.parametrize("group", [2, 6, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_grouped_plain_matches_model_sdpa(group, dtype, causal):
+    """Grouped kv heads: query head h reads kv head h // group, as the
+    reference model's _sdpa_block groups them (q.reshape(b, s, kv, rep, hd))."""
+    nkv, s = 2, 77
+    rng = np.random.default_rng(group)
+    q = rng.standard_normal((2, s, nkv * group, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((2, s, nkv, 16)).astype(np.float32) for _ in range(2))
+    want = rlayers._sdpa(_jax(q, dtype), _jax(k, dtype), _jax(v, dtype), causal)
+    got = flash_attention_op(_torch(q, dtype), _torch(k, dtype), _torch(v, dtype), causal=causal)
+    assert got.shape == (2, s, nkv * group, 16)
+    _close(got, want, dtype)
+    # and K4's function per head: query head h against kv head h // group
+    h = nkv * group - 1
+    one = flash_attention_ref(_torch(q, dtype)[:, :, h], _torch(k, dtype)[:, :, h // group],
+                              _torch(v, dtype)[:, :, h // group], causal)
+    _close(got[:, :, h], one.float().numpy(), dtype)
+
+
 def test_checks():
     q = torch.zeros((2, 8, 4, 16))
-    with pytest.raises(ValueError, match="equal q and kv heads"):
-        flash_attention_op(q, torch.zeros((2, 8, 2, 16)), torch.zeros((2, 8, 2, 16)))
+    with pytest.raises(ValueError, match="multiple of the kv heads"):
+        flash_attention_op(q, torch.zeros((2, 8, 3, 16)), torch.zeros((2, 8, 3, 16)))
     with pytest.raises(TypeError, match="share a dtype"):
         flash_attention_op(q, q.to(torch.bfloat16), q)
     with pytest.raises(ValueError, match="at least one"):
@@ -148,3 +169,25 @@ def test_kernel_on_model_layout_on_card(dtype):
     got = tops.flash_attention_op(q, k, v, causal=True)
     want = flash_attention_op_ref(q, k, v, True)
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_grouped_kernel_on_card():
+    """Grouped kv heads at the dense models' prefill shapes in bf16, causal
+    (Nemotron-4-15B 48 on 8, GLM-4-9B 32 on 2, Qwen2-VL-2B 12 on 2, head
+    dim 128), and small float32 shapes with groups of 1, 2, 6 and 16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    rng = np.random.default_rng(5)
+    cases = [((4, 1024, nq, 128), nkv, "bfloat16", True) for nq, nkv in ((48, 8), (32, 2), (12, 2))]
+    cases += [((2, 77, 2 * g, 64), 2, "float32", c) for g in (1, 2, 6, 16) for c in (True, False)]
+    for (b, s, nq, hd), nkv, dtype, causal in cases:
+        q = _torch(rng.standard_normal((b, s, nq, hd)).astype(np.float32), dtype).cuda()
+        k, v = (_torch(rng.standard_normal((b, s, nkv, hd)).astype(np.float32), dtype).cuda()
+                for _ in range(2))
+        before = flash_attention.launches
+        got = tops.flash_attention_op(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        want = flash_attention_op_ref(q, k, v, causal)
+        torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])

@@ -189,7 +189,7 @@ def test_serve_main_on_the_host(capsys):
     assert len(line["sample"]) == 3 and line["prefill_s"] >= 0 and line["decode_tok_per_s"] > 0
 
 
-@pytest.mark.parametrize("name", ["glm4-9b", "deepseek-v2-236b"])
+@pytest.mark.parametrize("name", ["grok-1-314b", "deepseek-v2-236b"])
 def test_other_families_wait_for_their_slice(name):
     cfg = get_config(name, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
