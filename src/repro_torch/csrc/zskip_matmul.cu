@@ -11,34 +11,62 @@
 // 0 set to zero, summed in float32 and written in float32 or bf16.  The mask
 // has ceil(M / bm) rows: a ragged last row tile counts only its real rows,
 // and ragged N is masked here too.  K must be a multiple of bk, and bm and
-// bk are 64 or 128, so every (TM, TK) tile of A that a block stages lies in
-// one mask tile.
+// bk are 64 or 128, so every (64 x 64) tile of A that a warpgroup multiplies
+// lies in one mask tile.
 //
 // What bounds it on this card: at Nemotron-4-15B's prefill down-projection,
 // (4096, 24576) @ (24576, 6144) in bf16, operations: 1.24e12 of them take
 // 1.25 ms on the bf16 tensor cores, while the 0.55 GB of inputs and output
 // take 0.165 ms at the memory's rate.  At its decode shape (4 rows) it is
-// bytes: B's 0.30 GB take 0.090 ms.  The design does this about it:
-//   * bf16 runs on the tensor cores (mma.sync m16n8k16, float32 sums; A and
-//     B staged in shared memory, fragments read with ldmatrix); float32 runs
-//     on the CUDA cores in float32 (no TF32: the plain version's products
-//     are full float32).
-//   * One block per output tile with a loop over K inside it, in place of
-//     the Pallas grid's innermost axis.  The block reads one mask flag per K
-//     step; where it is 0 the block skips both the loads of that A tile and
-//     of the matching B rows, and the products.
-//   * A grid with fewer blocks than the card has SMs (decode: 4 rows) splits
-//     K across blocks; each split writes a float32 partial into a workspace
-//     that the caller allocated, and a second kernel sums the splits in order
-//     and writes the output.  So decode streams B with 6x more blocks in
-//     flight.
-// No wgmma, TMA or cp.async pipeline yet: the loads of one K step complete
-// before its products start.  Neither kernel allocates or synchronises; both
-// run on the caller's stream.
+// bytes: B's 0.30 GB take 0.090 ms.  What the bf16 design does about it:
+//   * The usual Hopper GEMM shape.  A persistent grid, one block per SM,
+//     takes (128 x 256) output tiles (and, for a small grid, K splits of
+//     them) from a work queue (hopper::next_unit), so blocks whose tiles
+//     are mostly dead take more of them.  In each block one producer thread
+//     issues TMA loads
+//     (cp.async.bulk.tensor, 128-byte swizzle) of A's (128 x 64) and B's
+//     (64 x 256) tiles into a ring of kStages stages, under full/empty
+//     mbarrier pairs; two consumer warpgroups each own 64 output rows and
+//     run wgmma m64n256k16 on the stages that have arrived, keeping one
+//     stage's products in flight while the next arrives.  So one tile's
+//     epilogue overlaps the next tile's loads, and B is read once per 128
+//     rows of A (the old 64 x 128 tile read it once per 64).  setmaxnreg
+//     moves registers from the producer to the consumers, whose (64 x 256)
+//     float32 accumulator is 128 registers a thread.
+//   * B stays (K, N) row-major: wgmma reads it as an MN-major operand
+//     (the descriptor's transpose bit).  The tensor maps are encoded at
+//     every launch (the model casts its weight afresh for every product,
+//     so B's pointer changes every call).
+//   * The skip.  A consumer warpgroup reads its own mask flag per 64-wide K
+//     step (with bm = 64 the two warpgroups' rows lie in different mask
+//     rows) and skips its products on a dead step while still releasing
+//     the stage; the producer loads a step (A and B) when either half is
+//     live and skips it when both are dead.  Producer and consumers read
+//     the same flags from the mask in the same order (a warp reads 32
+//     steps' flags with one load a lane and a ballot), so they walk the
+//     same sequence of stages.
+//   * Ragged edges: TMA fills the parts of a box past M, N or K with zeros,
+//     and the epilogue stores only real rows and columns.  TMA needs 16-byte
+//     aligned bases and row strides; the wrapper copies an operand that is
+//     not (kernels/zskip_matmul.py).
+//   * Decode (4 rows): the 4 real rows sit in a zero-filled 64-row box of
+//     the first warpgroup (the second has no row and skips every product),
+//     and K is split across blocks so that 24 output tiles still fill the
+//     SMs; each split streams its slice of B through the same TMA ring and
+//     writes a float32 partial into a workspace that the caller allocated,
+//     and a second kernel sums the splits in order.  Operand swapping (N as
+//     wgmma's M) would waste less tensor work, but decode is bound by B's
+//     bytes, which both read once, and the zero-filled box keeps one kernel.
+// float32 runs on the CUDA cores in float32 (no TF32: the plain version's
+// products are full float32), one block per 64 x 64 output tile.  No
+// kernel allocates or synchronises; all run on the caller's stream (the
+// wrapper allocates the work queue, two zeroed ints, once per stream).
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -128,119 +156,292 @@ __global__ void __launch_bounds__(kFThreads) zskip_f32_kernel(const Args p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: a (64 x 128) output tile per block of 4 warps,
-// each warp 32 rows x 64 columns (2 x 8 tiles of m16n8, 64 float32 sums a
-// thread).  K steps of 64: the block stages A's (64 x 64) tile and B's
-// (64 x 128) rows in shared memory as bf16 (rows padded by 16 bytes, so the
-// ldmatrix row addresses fall on distinct banks), then per 16-wide slice a
-// warp reads its A fragments with ldmatrix and its B fragments with
-// ldmatrix.trans (B is row-major, K by N) and runs 16 mma.sync.
-constexpr int TM = 64, TN = 128, TK = 64, kThreads = 128;
-constexpr int LDA_S = TK + 8, LDB_S = TN + 8;
+// bf16 on the tensor cores (wgmma, TMA, warp specialised, persistent).
+constexpr int HM = 128, HN = 256, HK = 64;  // block tile: rows, columns, K step
+constexpr int kStages = 4;
+constexpr int kHThreads = 384;  // warpgroups 0 and 1 consume, 2 produces
+constexpr uint32_t kABytes = HM * HK * 2;  // one (128 x 64) box of A
+constexpr uint32_t kBBox = HK * 64 * 2;    // one (64 x 64) box of B
+constexpr uint32_t kBBytes = HN / 64 * kBBox;
+constexpr uint32_t kStageBytes = kABytes + kBBytes;
+// the ring's barriers, the schedule's two slots (barriers and unit numbers), 1024 for alignment
+constexpr size_t kHSmem = kStages * kStageBytes + (2 * kStages + 4) * sizeof(uint64_t) + 2 * sizeof(int) + 1024;
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* ptr) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+struct HArgs {
+  const int* mask;  // (ceil(M / bm), mask_cols) int32, 0 = skip
+  void* o;
+  float* ws;  // (splits, M, N) float32 partials when splits > 1
+  int* sched;  // (2,) int32, zero at launch and left zero: the work queue (hopper::next_unit)
+  int M, N, K;
+  long long ldo;
+  int bm, bk, mask_cols;
+  int out_bf16;
+  int steps_per_split, splits;  // K steps of 64 per split, number of splits
+  int m_tiles, tiles;           // output tiles: along M, in all
+};
+
+// the work unit u: its output tile (m0, n0) and its K steps [k0, k1)
+struct Unit {
+  int m0, n0, split, k0, k1;
+};
+
+__device__ __forceinline__ Unit unit_of(const HArgs& p, int u) {
+  Unit w;
+  const int tile = u % p.tiles;
+  w.split = u / p.tiles;
+  w.m0 = (tile % p.m_tiles) * HM;
+  w.n0 = (tile / p.m_tiles) * HN;
+  w.k0 = w.split * p.steps_per_split;
+  w.k1 = min(p.K / HK, w.k0 + p.steps_per_split);
+  return w;
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* ptr) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+// the mask row of the 64 rows from `row` on, or null when they lie past M
+__device__ __forceinline__ const int* mask_row(const HArgs& p, int row) {
+  return row < p.M ? p.mask + (long long)(row / p.bm) * p.mask_cols : nullptr;
 }
 
-// d += a b for one m16n8k16 tile
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// bit i: whether step kb + i (< k1) of these 64 rows is live; one load a
+// lane and a ballot, so a warp reads 32 steps' flags at once
+__device__ __forceinline__ uint32_t live_bits(const HArgs& p, const int* mrow, int kb, int k1, int lane) {
+  const int kc = kb + lane;
+  const bool live = mrow != nullptr && kc < k1 && __ldg(mrow + kc * HK / p.bk) != 0;
+  return __ballot_sync(0xffffffffu, live);
 }
 
-// eight bf16 from src, those at or past `valid` read as zero
-__device__ __forceinline__ uint4 load8(const __nv_bfloat16* src, int valid, bool vec) {
-  if (vec && valid >= 8) return *reinterpret_cast<const uint4*>(src);
-  __align__(16) __nv_bfloat16 t[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) t[e] = e < valid ? src[e] : __ushort_as_bfloat16(0);
-  return *reinterpret_cast<const uint4*>(t);
-}
+__global__ void __launch_bounds__(kHThreads, 1)
+    zskip_wgmma_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmB,
+                       const HArgs p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* sched_full = empty + kStages;  // the schedule: the producer's next unit, two slots
+  uint64_t* sched_empty = sched_full + 2;
+  volatile int* sched_unit = reinterpret_cast<int*>(sched_empty + 2);
+  const int wg = threadIdx.x / 128;
+  const int n_units = p.tiles * p.splits;
 
-__global__ void __launch_bounds__(kThreads) zskip_mma_kernel(const Args p) {
-  __shared__ __align__(16) __nv_bfloat16 As[TM * LDA_S];
-  __shared__ __align__(16) __nv_bfloat16 Bs[TK * LDB_S];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, c = lane & 3;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int n0 = blockIdx.x * TN, m0 = blockIdx.y * TM;
-  const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(p.a);
-  const __nv_bfloat16* B = static_cast<const __nv_bfloat16*>(p.b);
-  const int* mrow = p.mask + (long long)(m0 / p.bm) * p.mask_cols;
-  const bool a_vec = reinterpret_cast<uintptr_t>(A) % 16 == 0 && p.lda % 8 == 0;
-  const bool b_vec = reinterpret_cast<uintptr_t>(B) % 16 == 0 && p.ldb % 8 == 0;
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  const int nk = p.K / TK;
-  const int kc0 = blockIdx.z * p.chunks_per_split, kc1 = min(nk, kc0 + p.chunks_per_split);
-  for (int kc = kc0; kc < kc1; ++kc) {
-    const int k0 = kc * TK;
-    if (mrow[k0 / p.bk] == 0) continue;  // the same flag for the whole block
-    __syncthreads();                      // the previous step is consumed
-    for (int i = tid; i < TM * (TK / 8); i += kThreads) {
-      const int r = i >> 3, ch = i & 7, row = m0 + r;
-      const uint4 val = row < p.M ? load8(A + row * p.lda + k0 + ch * 8, 8, a_vec)
-                                  : make_uint4(0u, 0u, 0u, 0u);
-      *reinterpret_cast<uint4*>(As + r * LDA_S + ch * 8) = val;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
-    for (int i = tid; i < TK * (TN / 8); i += kThreads) {
-      const int r = i >> 4, ch = i & 15, col = n0 + ch * 8;
-      const uint4 val = col < p.N ? load8(B + (long long)(k0 + r) * p.ldb + col, p.N - col, b_vec)
-                                  : make_uint4(0u, 0u, 0u, 0u);
-      *reinterpret_cast<uint4*>(Bs + r * LDB_S + ch * 8) = val;
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(&sched_full[s], 1);
+      hopper::mbar_init(&sched_empty[s], 8);
     }
-    __syncthreads();
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: warp 8 reads the flags, its lane 0 issues the loads and
+    // takes the block's next unit from the work queue once the current one is
+    // loaded (so a block whose units are cheap, being mostly dead, takes
+    // more of them), and passes it to the consumers
+    hopper::regs_dealloc<40>();
+    if (threadIdx.x / 32 == 8) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        hopper::prefetch_tensormap(&tmA);
+        hopper::prefetch_tensormap(&tmB);
+      }
+      int stage = 0, slot = 0;
+      uint32_t phase = 0, sphase = 0;
+      for (int u = blockIdx.x; u < n_units;) {
+        const Unit w = unit_of(p, u);
+        const int* m0row = mask_row(p, w.m0);
+        const int* m1row = mask_row(p, w.m0 + 64);
+        for (int kb = w.k0; kb < w.k1; kb += 32) {
+          uint32_t steps = live_bits(p, m0row, kb, w.k1, lane) | live_bits(p, m1row, kb, w.k1, lane);
+          while (steps != 0) {
+            const int kc = kb + __ffs(steps) - 1;
+            steps &= steps - 1;
+            if (lane == 0) {
+              hopper::mbar_wait(&empty[stage], phase ^ 1);
+              uint8_t* st = smem + stage * kStageBytes;
+              hopper::mbar_expect_tx(&full[stage], kStageBytes);
+              hopper::tma_load_2d(st, &tmA, &full[stage], kc * HK, w.m0);
 #pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk) {
-      uint32_t af[2][4];
+              for (int j = 0; j < HN / 64; ++j)
+                hopper::tma_load_2d(st + kABytes + j * kBBox, &tmB, &full[stage], w.n0 + 64 * j, kc * HK);
+            }
+            if (++stage == kStages) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+        int next = 0;
+        if (lane == 0) {
+          next = hopper::next_unit(p.sched, n_units);
+          hopper::mbar_wait(&sched_empty[slot], sphase ^ 1);
+          sched_unit[slot] = next;
+          hopper::mbar_arrive(&sched_full[slot]);
+        }
+        u = __shfl_sync(0xffffffffu, next, 0);
+        if (++slot == 2) {
+          slot = 0;
+          sphase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the tile
+    hopper::regs_alloc<232>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, c = lane & 3;
+    const bool vec = (p.N % 2 == 0) && (p.splits > 1 || p.ldo % 2 == 0);
+    int stage = 0, slot = 0;
+    uint32_t phase = 0, sphase = 0;
+    float acc[HN / 2];
+    for (int u = blockIdx.x; u < n_units;) {
+      const Unit w = unit_of(p, u);
+      const int row0 = w.m0 + 64 * wg;
+      const int* mine = mask_row(p, row0);
+      const int* other = mask_row(p, w.m0 + 64 * (1 - wg));
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldmatrix_x4(af[mt], As + (wm * 32 + mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDA_S +
-                                kk * 16 + (lane >> 4) * 8);
+      for (int i = 0; i < HN / 2; ++i) acc[i] = 0.f;
+      int held = -1;  // the stage whose products may still be in flight
+      for (int kb = w.k0; kb < w.k1; kb += 32) {
+        const uint32_t my_steps = live_bits(p, mine, kb, w.k1, lane);
+        uint32_t steps = my_steps | live_bits(p, other, kb, w.k1, lane);
+        while (steps != 0) {
+          const int i = __ffs(steps) - 1;
+          steps &= steps - 1;
+          const bool my_live = (my_steps >> i) & 1;
+          hopper::mbar_wait(&full[stage], phase);
+          if (my_live) {
+            const uint8_t* st = smem + stage * kStageBytes;
+            hopper::fence_regs(acc);
+            hopper::wgmma_fence();
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bfr[4];
-        ldmatrix_x4_trans(bfr, Bs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDB_S +
-                                   wn * 64 + np * 16 + (lane >> 4) * 8);
+            for (int t = 0; t < HK / 16; ++t) {
+              const uint64_t da = hopper::desc_sw128(st + wg * (kABytes / 2) + t * 32, 16, 1024);
+              const uint64_t db = hopper::desc_sw128(st + kABytes + t * 16 * 128, kBBox, 1024);
+              hopper::wgmma_m64n256k16_ss<1>(acc, da, db, 1);
+            }
+            hopper::wgmma_commit();
+            hopper::fence_regs(acc);
+            hopper::wgmma_wait<1>();  // the previous step's products are done
+          } else {
+            hopper::wgmma_wait<0>();
+          }
+          if (held >= 0) {
+            __syncwarp();
+            if (lane == 0) hopper::mbar_arrive(&empty[held]);
+          }
+          held = stage;
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      if (held >= 0) {
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[held]);
+      }
+      // the next unit, as the producer took it
+      hopper::mbar_wait(&sched_full[slot], sphase);
+      const int next = sched_unit[slot];
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&sched_empty[slot]);
+      if (++slot == 2) {
+        slot = 0;
+        sphase ^= 1;
+      }
+      u = next;
+      // epilogue: thread (warp, g, c) holds rows 16 warp + g (+ 8), columns 8 j + 2 c (+ 1)
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][2 * np], af[mt], bfr[0], bfr[1]);
-          mma_bf16(acc[mt][2 * np + 1], af[mt], bfr[2], bfr[3]);
+      for (int half = 0; half < 2; ++half) {
+        const int row = row0 + 16 * warp + g + 8 * half;
+        if (row >= p.M) continue;
+#pragma unroll
+        for (int j = 0; j < HN / 8; ++j) {
+          const int col = w.n0 + 8 * j + 2 * c;
+          const float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+          if (col >= p.N) continue;
+          const bool pair = vec && col + 1 < p.N;
+          if (p.splits > 1) {
+            float* dst = p.ws + ((long long)w.split * p.M + row) * p.N + col;
+            if (pair) {
+              *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+            } else {
+              dst[0] = v0;
+              if (col + 1 < p.N) dst[1] = v1;
+            }
+          } else if (p.out_bf16) {
+            __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(p.o) + row * p.ldo + col;
+            if (pair) {
+              *reinterpret_cast<uint32_t*>(dst) = hopper::pack_bf16(v0, v1);
+            } else {
+              dst[0] = __float2bfloat16(v0);
+              if (col + 1 < p.N) dst[1] = __float2bfloat16(v1);
+            }
+          } else {
+            float* dst = static_cast<float*>(p.o) + row * p.ldo + col;
+            if (pair) {
+              *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+            } else {
+              dst[0] = v0;
+              if (col + 1 < p.N) dst[1] = v1;
+            }
+          }
         }
       }
     }
   }
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + wm * 32 + mt * 16 + g + (e >> 1) * 8;
-        const int col = n0 + wn * 64 + nt * 8 + 2 * c + (e & 1);
-        if (row < p.M && col < p.N) store_out(p, row, col, acc[mt][nt][e]);
-      }
+}
+
+// Encodes A's and B's tensor maps and launches the persistent kernel.
+int launch_wgmma(const Args& a, int* sched, cudaStream_t stream, int device) {
+  CUtensorMap tmA, tmB;
+  {
+    const uint64_t dims[2] = {(uint64_t)a.K, (uint64_t)a.M};
+    const uint64_t strides[1] = {(uint64_t)a.lda * 2};
+    const uint32_t box[2] = {HK, HM};
+    int err = hopper::encode_bf16_map(&tmA, a.a, 2, dims, strides, box);
+    if (err) return err;
+  }
+  {
+    const uint64_t dims[2] = {(uint64_t)a.N, (uint64_t)a.K};
+    const uint64_t strides[1] = {(uint64_t)a.ldb * 2};
+    const uint32_t box[2] = {64, HK};
+    int err = hopper::encode_bf16_map(&tmB, a.b, 2, dims, strides, box);
+    if (err) return err;
+  }
+  HArgs p;
+  p.mask = a.mask;
+  p.o = a.o;
+  p.ws = a.ws;
+  p.sched = sched;
+  p.M = a.M;
+  p.N = a.N;
+  p.K = a.K;
+  p.ldo = a.ldo;
+  p.bm = a.bm;
+  p.bk = a.bk;
+  p.mask_cols = a.mask_cols;
+  p.out_bf16 = a.out_bf16;
+  p.steps_per_split = a.chunks_per_split;
+  p.splits = a.splits;
+  p.m_tiles = (a.M + HM - 1) / HM;
+  p.tiles = p.m_tiles * ((a.N + HN - 1) / HN);
+  const int sms = hopper::sm_count(device);
+  if (sms == 0) return (int)cudaErrorInvalidDevice;
+  static bool smem_set[64] = {};  // the shared-memory limit, raised once per device
+  if (!smem_set[device]) {
+    cudaError_t err = cudaFuncSetAttribute(zskip_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kHSmem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[device] = true;
+  }
+  const int grid = p.tiles * p.splits < sms ? p.tiles * p.splits : sms;
+  zskip_wgmma_kernel<<<grid, kHThreads, kHSmem, stream>>>(tmA, tmB, p);
+  return (int)cudaGetLastError();
 }
 
 // the splits' partials summed in split order, then written in the output type
@@ -263,13 +464,17 @@ __global__ void zskip_reduce_kernel(const Args p) {
 // pointers of one type (dtype 0: float32, 1: bfloat16) with row strides lda,
 // ldb and contiguous columns; mask (ceil(M / bm), mask_cols = K / bk) int32;
 // o (M, N) with row stride ldo, float32 (out_bf16 0) or bf16 (1); ws a
-// (splits, M, N) float32 workspace when splits > 1, else unused.  K is a
+// (splits, M, N) float32 workspace when splits > 1, else unused; sched two
+// int32 that are 0, and stay 0 after the launch (bf16 only: the persistent
+// kernel's work queue; one pair per stream).  K is a
 // multiple of bk; bm and bk are 64 or 128; chunks_per_split counts the
 // kernel's K steps (16 for float32, 64 for bf16) and splits *
-// chunks_per_split covers K.  The caller has checked all of this.  Returns
-// cudaGetLastError() after the launches (0 when they were accepted).
+// chunks_per_split covers K.  For bf16, a and b start on 16 bytes and lda
+// and ldb are multiples of 8 (TMA's alignment).  The caller has checked all
+// of this.  Returns a CUDA error code: that of the tensor maps' encoding,
+// else cudaGetLastError() after the launches (0 when they were accepted).
 extern "C" int zskip_matmul_launch(const void* a, const void* b, const int* mask, void* o,
-                                   float* ws, int dtype, int out_bf16, int M, int N, int K,
+                                   float* ws, int* sched, int dtype, int out_bf16, int M, int N, int K,
                                    long long lda, long long ldb, long long ldo, int bm, int bk,
                                    int mask_cols, int chunks_per_split, int splits, int device,
                                    void* stream) {
@@ -300,13 +505,12 @@ extern "C" int zskip_matmul_launch(const void* a, const void* b, const int* mask
   if (dtype == 0) {
     const dim3 grid((N + FN - 1) / FN, (M + FM - 1) / FM, splits);
     zskip_f32_kernel<<<grid, kFThreads, 0, s>>>(p);
+    err = cudaGetLastError();
   } else if (dtype == 1) {
-    const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM, splits);
-    zskip_mma_kernel<<<grid, kThreads, 0, s>>>(p);
+    err = (cudaError_t)launch_wgmma(p, sched, s, device);
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long long total = (long long)M * N;
   zskip_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(p);

@@ -3,9 +3,15 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point.  ``build`` compiles
 it with ``nvcc`` for ``sm_90a`` into ``build/repro_torch/`` at the root of
 the checkout, one ``nvcc`` process per source, all started together; the
-library's file name carries a hash of its source, so an edited source is
-rebuilt and an unchanged one is reused.  ``load`` builds on first use and
-opens the library with ctypes.  Nothing here runs at import.
+library's file name carries a hash of its source and of every ``csrc/*.cuh``
+header it includes, so an edited source or header is rebuilt and an
+unchanged one is reused.  The compiler's output (with ``ptxas -v``'s report)
+is kept beside the library as ``<library>.log``.  ``load`` builds on first
+use and opens the library with ctypes.  Nothing here runs at import.
+
+The Hopper kernels encode TMA tensor maps with the driver's
+``cuTensorMapEncodeTiled``; ``csrc/hopper.cuh`` reaches it through the
+runtime's ``cudaGetDriverEntryPoint``, so nothing links against ``libcuda``.
 """
 
 from __future__ import annotations
@@ -13,11 +19,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "build", "library_path", "load"]
+__all__ = ["BUILD_DIR", "CSRC", "build", "library_path", "load", "work_queue"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -28,6 +35,7 @@ NVCC_FLAGS = (
 )
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_QUEUES: dict[tuple[int, int], object] = {}
 
 
 def _nvcc() -> str:
@@ -37,31 +45,55 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.M)
+
+
+def _sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes, directly or
+    through another header."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo.extend(CSRC / m.decode() for m in _INCLUDE.findall(path.read_bytes()))
+    return seen
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(*names: str) -> dict[str, str]:
-    """Compile every named source whose library is missing; returns the
-    compiler's output for each one built (the ``-Xptxas -v`` report).
-    Raises, after every ``nvcc`` started has ended, if any failed."""
+    """Compile every named source whose library (or its log) is missing;
+    returns the compiler's output for every name, read back from the log of
+    a library built before (the ``-Xptxas -v`` report).  Raises, after every
+    ``nvcc`` started has ended, if any failed."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {}
+    jobs, logs = {}, {}
     for name in names:
         out = library_path(name)
-        if out.exists():
+        log = out.with_name(f"{out.name}.log")
+        if out.exists() and log.exists():
+            logs[name] = log.read_text()
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
-        jobs[name] = (proc, tmp, out)
-    logs, failed = {}, []
-    for name, (proc, tmp, out) in jobs.items():
+        jobs[name] = (proc, tmp, out, log)
+    failed = []
+    for name, (proc, tmp, out, log) in jobs.items():
         logs[name] = proc.communicate()[0]
         if proc.returncode == 0:
+            tmp_log = tmp.with_name(f"{tmp.name}.log")
+            tmp_log.write_text(logs[name])
+            os.replace(tmp_log, log)
             os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
         else:
             failed.append(name)
@@ -79,3 +111,17 @@ def load(name: str) -> ctypes.CDLL:
         build(name)
         lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def work_queue(device, stream: int):
+    """Two zeroed int32 on ``device`` for the persistent Hopper kernels'
+    work queue (``hopper::next_unit`` in ``csrc/hopper.cuh``), one pair per
+    (device, stream): a launch leaves them zero again, so they are
+    allocated once and launches on one stream reuse them in turn."""
+    import torch
+
+    key = (device.index, stream)
+    q = _QUEUES.get(key)
+    if q is None:
+        q = _QUEUES[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return q

@@ -16,10 +16,18 @@ model's ``_sdpa_block``, and k and v are never repeated per head.
 ``flash_attention_op_ref`` is its plain version.  Both kernel
 entry points count their launches on ``flash_attention.launches``.
 
-The source holds one kernel per type: bf16 runs on the tensor cores
-(``mma.sync``), which read rows in 16-byte pieces, so bf16 tensors whose
-rows are not 16-byte aligned (none that the models pass) are copied first;
-float32 runs on the CUDA cores in float32 at any strides.
+``flash_attention_op(..., round_scores=True)`` rounds each score q . k to
+the inputs' type before the float32 scale and softmax, as the reference
+model's ``_sdpa_block`` does (its bf16 einsum, then the division by
+``np.sqrt(hd)`` in float32); the model's prompt attention passes it.  By
+default, and always in ``flash_attention``, the scores stay float32, the
+Pallas kernel's function.  In float32 the rounding changes nothing.
+
+The source holds one kernel per type: bf16 runs on the tensor cores (head
+dims 64 and 128 with ``wgmma`` fed by TMA, 16 and 32 with ``mma.sync``),
+which read rows that start on 16 bytes, so bf16 tensors whose rows do not
+(none that the models pass) are copied first; float32 runs on the CUDA cores
+in float32 at any strides.
 """
 
 from __future__ import annotations
@@ -46,19 +54,22 @@ def _launcher():
         + [ctypes.c_int, ctypes.c_longlong]
         + [ctypes.c_int] * 5
         + [ctypes.c_longlong] * 12
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
 
 
-def flash_attention_ref(q, k, v, causal: bool = True) -> torch.Tensor:
+def flash_attention_ref(q, k, v, causal: bool = True, *, round_scores: bool = False) -> torch.Tensor:
     """Plain PyTorch version of K4: (bh, sq, hd) dense softmax attention in
     float32, the causal mask counted from position 0 in q and in k, out in
-    q's type."""
+    q's type.  ``round_scores`` rounds q . k to q's type before the scale."""
     sq, hd = q.shape[1], q.shape[2]
     sk = k.shape[1]
-    s = torch.einsum("bqh,bkh->bqk", q.float(), k.float()) / math.sqrt(hd)
+    s = torch.einsum("bqh,bkh->bqk", q.float(), k.float())
+    if round_scores:
+        s = s.to(q.dtype).float()
+    s = s / math.sqrt(hd)
     if causal:
         mask = torch.arange(sq, device=q.device)[:, None] >= torch.arange(sk, device=q.device)[None, :]
         s = s.masked_fill(~mask, -math.inf)
@@ -93,7 +104,7 @@ def _rows_aligned(t) -> bool:
     return t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:-1])
 
 
-def _launch(q, k, v, causal: bool) -> torch.Tensor:
+def _launch(q, k, v, causal: bool, round_scores: bool = False) -> torch.Tensor:
     """Launch K4 on checked CUDA tensors: (bh, s, hd) when 3-D (one head per
     batch row), (b, s, h, hd) when 4-D, k and v with h / group heads; each
     is passed by its (batch, seq, head) element strides and the output is
@@ -108,18 +119,21 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     if q.dtype == torch.bfloat16:
         q, k, v = (t if _rows_aligned(t) else t.clone(memory_format=torch.contiguous_format) for t in (q, k, v))
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dev = q.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    queue = _build.work_queue(dev, stream) if q.dtype == torch.bfloat16 else None
     four_d = q.dim() == 4
 
     def strides(t):
         return (t.stride(0), t.stride(1), t.stride(2) if four_d else 0)
 
-    dev = q.device
     rc = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype],
         q.shape[0], q.shape[2] if four_d else 1, q.shape[2] // k.shape[2] if four_d else 1,
         q.shape[1], k.shape[1], hd,
         *strides(q), *strides(k), *strides(v), *strides(o),
-        int(bool(causal)), dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        int(bool(causal)), int(bool(round_scores)), 0 if queue is None else queue.data_ptr(),
+        dev.index, stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
@@ -142,7 +156,7 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     return _launch(q, k, v, causal)
 
 
-def flash_attention_op_ref(q, k, v, causal: bool = True) -> torch.Tensor:
+def flash_attention_op_ref(q, k, v, causal: bool = True, *, round_scores: bool = False) -> torch.Tensor:
     """Plain version of ``flash_attention_op``: each kv head repeated for
     its group of query heads (head h reads kv head h // group), then the
     heads folded into the batch axis for ``flash_attention_ref``."""
@@ -153,22 +167,23 @@ def flash_attention_op_ref(q, k, v, causal: bool = True) -> torch.Tensor:
     def fold(t):
         return t.transpose(1, 2).reshape(b * h, t.shape[1], hd)
 
-    o = flash_attention_ref(fold(q), fold(k), fold(v), causal)
+    o = flash_attention_ref(fold(q), fold(k), fold(v), causal, round_scores=round_scores)
     return o.reshape(b, h, sq, hd).transpose(1, 2)
 
 
-def flash_attention_op(q, k, v, *, causal: bool = True) -> torch.Tensor:
+def flash_attention_op(q, k, v, *, causal: bool = True, round_scores: bool = False) -> torch.Tensor:
     """K4 on the model's layout: q (b, sq, h, hd), k and v (b, sk, nkv, hd)
     with h a multiple of nkv -> (b, sq, h, hd), query head i attending to kv
-    head i // (h // nkv).  CPU tensors run ``flash_attention_op_ref``; on
-    CUDA tensors the kernel reads the heads by stride, with no copy of k or
-    v per query head."""
+    head i // (h // nkv); ``round_scores`` rounds q . k to q's type before
+    the scale, as the reference model does.  CPU tensors run
+    ``flash_attention_op_ref``; on CUDA tensors the kernel reads the heads
+    by stride, with no copy of k or v per query head."""
     _check(q, k, v, "bshd")
     if q.device.type == "cpu":
-        return flash_attention_op_ref(q, k, v, causal)
+        return flash_attention_op_ref(q, k, v, causal, round_scores=round_scores)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    return _launch(q, k, v, causal)
+    return _launch(q, k, v, causal, round_scores)
 
 
 flash_attention.launches = 0

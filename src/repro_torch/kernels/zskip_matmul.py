@@ -19,8 +19,12 @@ the tiles of A that the op's mask skips.
 
 ``block_mask_ref`` and ``zskip_matmul_ref`` are copies of the reference's
 ``kernels/ref.py`` oracles; ``zskip_matmul_op_ref`` is the op's plain
-version.  The source holds one kernel per type: bf16 on
-the tensor cores, float32 on the CUDA cores in float32.
+version.  The source holds one kernel per type: bf16 on the tensor cores
+(``wgmma`` fed by TMA, one persistent block per SM), float32 on the CUDA
+cores in float32.  TMA reads rows that start on 16 bytes, so a bf16 operand
+whose base or row stride is not (B with N not a multiple of 8, a view at an
+odd offset) is copied first, B with zero columns added; the kernel stores
+only the real N columns.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ __all__ = [
 TILES = (64, 128)  # the mask granularities the kernel takes, as bm, bn and bk
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels' own tiles (csrc/zskip_matmul.cu): (rows, columns, K step)
-_KERNEL_TILE = {torch.float32: (64, 64, 16), torch.bfloat16: (64, 128, 64)}
+_KERNEL_TILE = {torch.float32: (64, 64, 16), torch.bfloat16: (128, 256, 64)}
 _MAX_SPLITS = 16
 
 
@@ -53,7 +57,7 @@ _MAX_SPLITS = 16
 def _launcher():
     fn = _build.load("zskip_matmul").zskip_matmul_launch
     fn.argtypes = (
-        [ctypes.c_void_p] * 5
+        [ctypes.c_void_p] * 6
         + [ctypes.c_int] * 5
         + [ctypes.c_longlong] * 3
         + [ctypes.c_int] * 6
@@ -122,16 +126,38 @@ def _check_operands(a, b):
 
 def _splits(M, N, K, dtype, device) -> tuple[int, int]:
     """(K steps per split, splits): K is split across blocks when the
-    output tiles alone do not give every SM two blocks."""
+    output tiles alone leave SMs idle.  float32 launches a block per tile
+    and aims at two a SM; bf16 runs one persistent block per SM and splits
+    so that the (tile, split) units make one wave."""
     tm, tn, tk = _KERNEL_TILE[dtype]
     steps = K // tk
     blocks = -(-M // tm) * -(-N // tn)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     if blocks >= sms or steps <= 1:
         return steps, 1
-    want = min(steps, -(-2 * sms // blocks), _MAX_SPLITS)
+    if dtype == torch.float32:
+        want = min(steps, -(-2 * sms // blocks), _MAX_SPLITS)
+    else:
+        want = max(1, min(steps, sms // blocks, _MAX_SPLITS))
     per = -(-steps // want)
     return per, -(-steps // per)
+
+
+def _tma_ready(t: torch.Tensor) -> bool:
+    """Whether TMA can read the rows of bf16 ``t``: contiguous columns, a
+    base and a row stride on 16 bytes (8 elements)."""
+    return t.stride(1) == 1 and t.stride(0) % 8 == 0 and t.data_ptr() % 16 == 0
+
+
+def _for_tma(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when TMA can read it, else a copy that it can: rows of
+    a multiple of 8 elements, any added columns zero."""
+    if _tma_ready(t):
+        return t
+    rows, cols = t.shape
+    out = t.new_zeros((rows, -(-cols // 8) * 8))
+    out[:, :cols] = t
+    return out
 
 
 def _launch(a, b, mask, bm: int, bk: int, out_dtype) -> torch.Tensor:
@@ -143,18 +169,24 @@ def _launch(a, b, mask, bm: int, bk: int, out_dtype) -> torch.Tensor:
         raise TypeError(f"K3 writes float32 or bfloat16, got {out_dtype}")
     M, K = a.shape
     N = b.shape[1]
-    a = a if a.stride(1) == 1 else a.contiguous()
-    b = b if b.stride(1) == 1 else b.contiguous()
+    if a.dtype == torch.bfloat16:
+        a, b = _for_tma(a), _for_tma(b)
+    else:
+        a = a if a.stride(1) == 1 else a.contiguous()
+        b = b if b.stride(1) == 1 else b.contiguous()
     mask = mask.to(device=a.device, dtype=torch.int32).contiguous()
     o = torch.empty((M, N), dtype=out_dtype, device=a.device)
     per, splits = _splits(M, N, K, a.dtype, a.device)
     ws = torch.empty((splits, M, N), dtype=torch.float32, device=a.device) if splits > 1 else None
     dev = a.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    queue = _build.work_queue(dev, stream) if a.dtype == torch.bfloat16 else None
     rc = _launcher()(
         a.data_ptr(), b.data_ptr(), mask.data_ptr(), o.data_ptr(), 0 if ws is None else ws.data_ptr(),
+        0 if queue is None else queue.data_ptr(),
         _DTYPES[a.dtype], int(out_dtype == torch.bfloat16), M, N, K,
         a.stride(0), b.stride(0), o.stride(0), bm, bk, mask.shape[1], per, splits,
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        dev.index, stream,
     )
     if rc != 0:
         raise RuntimeError(f"zskip_matmul kernel launch failed: CUDA error {rc}")

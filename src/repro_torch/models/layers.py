@@ -19,8 +19,11 @@ gradients.
 
 Attention over a whole prompt from position 0 (no cache, or a cache of
 length 0) is K4 (``kernels.ops.flash_attention_op``), which takes the
-grouped kv heads as they are: it is exactly the reference's ``_sdpa``
-there, causal or not.  Decode and prefill onto a non-empty cache run
+grouped kv heads as they are: it is the reference's ``_sdpa`` there,
+causal or not, with the scores rounded to the activations' type before the
+float32 scale as the reference rounds them (``round_scores``); only the
+probabilities stay unnormalised when they are rounded for the product with
+v, as in any flash attention.  Decode and prefill onto a non-empty cache run
 ``_sdpa`` in plain torch, as the reference computes them outside any Pallas
 kernel.  The cache's ``len`` is a host int, so this choice reads nothing
 back from the card, and the cache is written in place.  A write past the
@@ -41,6 +44,7 @@ slice (ROADMAP.md).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -104,6 +108,15 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
 
 
+@functools.cache
+def _rope_freqs_on(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """``rope_freqs`` as float32 on ``device``, made once per device: a copy
+    from the host at every call would synchronise the card's stream.  Made
+    outside inference mode, so that autograd may use it later."""
+    with torch.inference_mode(False):
+        return torch.tensor(rope_freqs(head_dim, theta), dtype=torch.float32, device=device)
+
+
 def apply_rope(
     x: torch.Tensor,  # (b, s, h, hd)
     positions: torch.Tensor,  # (b, s) or (sections, b, s) for M-RoPE
@@ -113,7 +126,7 @@ def apply_rope(
     """Rotary embedding; with ``mrope_sections`` the frequency bands are
     split across (t, h, w) position streams (Qwen2-VL M-RoPE)."""
     hd = x.shape[-1]
-    freqs = torch.tensor(rope_freqs(hd, theta), dtype=torch.float32, device=x.device)
+    freqs = _rope_freqs_on(hd, float(theta), x.device)
     pos = positions.to(torch.float32)
     if mrope_sections:
         if sum(mrope_sections) != hd // 2:
@@ -139,14 +152,15 @@ _Q_CHUNK = 1024
 
 
 def _sdpa_block(q, k, v, causal: bool, q_offset: int, kv_len: int | None):
-    """One dense attention block: scores in q's type, masked with that
-    type's finfo.min, softmax in float32, probabilities cast back to q's
-    type before the product with v."""
+    """One dense attention block: q . k in q's type (one rounding), scaled
+    in float32 as the reference's division by the float64 ``np.sqrt(hd)``
+    promotes it, masked with float32's finfo.min, softmax in float32,
+    probabilities cast back to q's type before the product with v."""
     b, sq, h, hd = q.shape
     kv = k.shape[2]
     rep = h // kv
     qg = q.reshape(b, sq, kv, rep, hd)
-    scores = torch.einsum("bqkrh,bskh->bkrqs", qg, k) / math.sqrt(hd)
+    scores = torch.einsum("bqkrh,bskh->bkrqs", qg, k).float() / math.sqrt(hd)
     sk = k.shape[1]
     mask = None
     if causal:
@@ -158,7 +172,7 @@ def _sdpa_block(q, k, v, causal: bool, q_offset: int, kv_len: int | None):
         mask = valid if mask is None else (mask & valid)
     if mask is not None:
         scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
-    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkrqs,bskh->bqkrh", probs, v)
     return out.reshape(b, sq, h, v.shape[-1])
 
@@ -218,7 +232,7 @@ def gqa_fwd(p: GQAttention, cfg: ModelConfig, x, positions, cache: dict | None =
     q = apply_rope(q, positions, a.rope_theta, a.mrope_sections)
     k = apply_rope(k, positions, a.rope_theta, a.mrope_sections)
     if cache is None:
-        out = flash_attention_op(q, k, v, causal=a.causal)
+        out = flash_attention_op(q, k, v, causal=a.causal, round_scores=True)
         new_cache = None
     else:
         start = int(cache["len"])
@@ -234,7 +248,7 @@ def gqa_fwd(p: GQAttention, cfg: ModelConfig, x, positions, cache: dict | None =
         if start == 0:
             # a whole prompt from position 0: the reference's masked _sdpa
             # over the cache is exactly attention over the s new tokens
-            out = flash_attention_op(q, k, v, causal=a.causal)
+            out = flash_attention_op(q, k, v, causal=a.causal, round_scores=True)
         else:
             # positions past new_len are masked in the reference; they add
             # exp(finfo.min - max) = 0 to the softmax, so they are cut here

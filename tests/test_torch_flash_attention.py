@@ -115,6 +115,30 @@ def test_grouped_plain_matches_model_sdpa(group, dtype, causal):
     _close(got[:, :, h], one.float().numpy(), dtype)
 
 
+def test_round_scores_plain_matches_model_sdpa():
+    """F6 closed: with ``round_scores`` the plain version rounds q . k to
+    bf16 before the float32 scale, as the reference model's _sdpa_block
+    does; what is left is the reference rounding its normalised
+    probabilities.  (2, 200, 12 q / 2 kv heads, 128), N(0, 2^2), causal."""
+    rng = np.random.default_rng(0)
+    q = (rng.standard_normal((2, 200, 12, 128)) * 2).astype(np.float32)
+    k, v = ((rng.standard_normal((2, 200, 2, 128)) * 2).astype(np.float32) for _ in range(2))
+    want = np.asarray(rlayers._sdpa(*(_jax(a, "bfloat16") for a in (q, k, v)), True), np.float32)
+    got = flash_attention_op_ref(*(_torch(a, "bfloat16") for a in (q, k, v)), True, round_scores=True)
+    diff = np.abs(got.float().numpy() - want)
+    assert (diff <= 2.0 ** -6 * np.maximum(1.0, np.abs(want))).all(), float(diff.max())
+    # the op takes the keyword on the host too
+    assert torch.equal(tops.flash_attention_op(*(_torch(a, "bfloat16") for a in (q, k, v)), causal=True,
+                                               round_scores=True), got)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_round_scores_changes_nothing_in_float32(causal):
+    q, k, v = (_torch(a, "float32") for a in _qkv((2, 33, 4, 16), seed=5))
+    assert torch.equal(flash_attention_op(q, k[:, :, :2], v[:, :, :2], causal=causal, round_scores=True),
+                       flash_attention_op(q, k[:, :, :2], v[:, :, :2], causal=causal))
+
+
 def test_checks():
     q = torch.zeros((2, 8, 4, 16))
     with pytest.raises(ValueError, match="multiple of the kv heads"):
@@ -191,3 +215,63 @@ def test_grouped_kernel_on_card():
         assert flash_attention.launches == before + 1
         want = flash_attention_op_ref(q, k, v, causal)
         torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+def test_hopper_kernel_groups_on_card(hd):
+    """The bf16 wgmma kernel at head dims 64 and 128 with groups of 1, 6
+    and 16 (two query heads of a group share a block), causal and not,
+    with and without the rounding of the scores, against the plain version
+    with the same keyword.  Unit-scale inputs, as the reference's tolerance
+    assumes: rounding the scores is not continuous, and where the kernel's
+    and the plain version's float32 sums of a score fall on two sides of a
+    bf16 rounding boundary the two round it one step apart, a step that
+    grows with the scores."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    rng = np.random.default_rng(hd)
+    for group in (1, 6, 16):
+        for s in (77, 200, 1024):
+            q = _torch(rng.standard_normal((2, s, 2 * group, hd)).astype(np.float32), "bfloat16").cuda()
+            k, v = (_torch(rng.standard_normal((2, s, 2, hd)).astype(np.float32), "bfloat16").cuda()
+                    for _ in range(2))
+            for causal in (True, False):
+                for rounded in (False, True):
+                    got = tops.flash_attention_op(q, k, v, causal=causal, round_scores=rounded)
+                    torch.cuda.synchronize()
+                    want = flash_attention_op_ref(q, k, v, causal, round_scores=rounded)
+                    torch.testing.assert_close(got.float(), want.float(), rtol=TOL["bfloat16"],
+                                               atol=TOL["bfloat16"])
+
+
+def _step_share(got, want):
+    """The share of entries more than one bf16 step, 2^-7 of 1 + |want|,
+    from ``want``."""
+    d = (got.float() - want.float()).abs()
+    return float((d > 2.0 ** -7 * (1 + want.float().abs())).float().mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+def test_round_scores_told_apart_on_card(hd):
+    """At N(0, 2^2) inputs the rounding of the scores moves about a tenth of
+    the outputs by more than a bf16 step, so the wgmma kernel with either
+    keyword must be within a step of the plain version with the same one at
+    all but 1e-3 of the entries, and farther than a step at 1e-2 or more
+    from the other one.  A share, not a maximum: where the kernel's and the
+    plain version's float32 sums of a large score round to neighbouring bf16
+    values, a few outputs move by more than the tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    rng = np.random.default_rng(10 + hd)
+    for s in (200, 1024):
+        q = _torch(2 * rng.standard_normal((2, s, 12, hd)).astype(np.float32), "bfloat16").cuda()
+        k, v = (_torch(2 * rng.standard_normal((2, s, 2, hd)).astype(np.float32), "bfloat16").cuda()
+                for _ in range(2))
+        want = {r: flash_attention_op_ref(q, k, v, True, round_scores=r) for r in (False, True)}
+        for rounded in (False, True):
+            got = tops.flash_attention_op(q, k, v, causal=True, round_scores=rounded)
+            torch.cuda.synchronize()
+            assert _step_share(got, want[rounded]) <= 1e-3
+            assert _step_share(got, want[not rounded]) >= 1e-2

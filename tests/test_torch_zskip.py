@@ -242,6 +242,25 @@ def test_zero_tiles_counts_skipped_tiles():
     assert zero_tiles(a, bm=64, bk=64) == (14, 16)
 
 
+def test_tma_copies_only_what_it_must():
+    """bf16 operands go to the Hopper kernel through TMA, which reads rows
+    that start on 16 bytes: an aligned operand is passed as it is; a row
+    stride off 8 elements (N = 6100) or a base off 16 bytes is copied, with
+    zero columns added up to a multiple of 8."""
+    from repro_torch.kernels.zskip_matmul import _for_tma, _tma_ready
+
+    b = torch.randn(64, 6144).to(torch.bfloat16)
+    assert _tma_ready(b) and _for_tma(b) is b
+    ragged = torch.randn(64, 6100).to(torch.bfloat16)
+    padded = _for_tma(ragged)
+    assert not _tma_ready(ragged) and _tma_ready(padded)
+    assert padded.shape == (64, 6104) and torch.equal(padded[:, :6100], ragged)
+    assert not padded[:, 6100:].any()
+    base = torch.randn(129, 128).to(torch.bfloat16)
+    view = torch.as_strided(base, (128, 128), (128, 1), 1)  # a base 2 bytes off
+    assert not _tma_ready(view) and torch.equal(_for_tma(view)[:, :128], view)
+
+
 # ------------------------------------------------------------ on the card
 
 
@@ -298,3 +317,29 @@ def test_op_ragged_on_card(dtype):
         got = tops.zskip_matmul_op(a, b)
         want = zskip_matmul_op_ref(a, b)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_hopper_kernel_shapes_on_card():
+    """The bf16 kernel's own cases: bm = 64, where the two consumer
+    warpgroups of a 128-row block read different mask rows (random masks);
+    M spanning many persistent waves with ragged M and N (B copied for
+    TMA); and Nemotron-4-15B's decode shape, K split across blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    rng = np.random.default_rng(2)
+    tol = CARD_TOL["bfloat16"]
+    for density in (0.3, 0.7):
+        a, b, mask = _card_case(rng, 448, 512, 320, "bfloat16", density, 64, 64)
+        got = zskip_matmul(a, b, mask, bm=64, bn=64, bk=64)
+        torch.testing.assert_close(got.float(), zskip_matmul_ref(a, b, mask, 64, 64).float(), rtol=tol, atol=tol)
+    for M, K, N in ((4000, 24576, 6100), (4, 24576, 6144)):
+        a = torch.square(torch.relu(torch.randn(M, K, device="cuda"))).to(torch.bfloat16)
+        b = (torch.randn(K, N, device="cuda") / K ** 0.5).to(torch.bfloat16)
+        before = zskip_matmul.launches
+        got = tops.zskip_matmul_op(a, b)
+        torch.cuda.synchronize()
+        assert zskip_matmul.launches == before + 1 and got.shape == (M, N)
+        want = zskip_matmul_op_ref(a, b).float()
+        err = ((got.float() - want).abs() / (1 + want.abs())).max()
+        assert err <= tol, (M, K, N, float(err))
