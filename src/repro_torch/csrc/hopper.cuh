@@ -1,12 +1,13 @@
-// Hopper (sm_90a) building blocks shared by K3 (zskip_matmul.cu) and K4
-// (flash_attention.cu): mbarriers, TMA tile loads, wgmma descriptors and
-// products, register reallocation, and the host-side encoding of a TMA
-// tensor map.
+// Hopper (sm_90a) building blocks shared by K3 (zskip_matmul.cu), K4
+// (flash_attention.cu) and K5 (ssd_chunk.cu): mbarriers, TMA tile loads and
+// stores, wgmma descriptors and products, register reallocation, and the
+// host-side encoding of a TMA tensor map.
 //
-// Every tile these kernels stage is bf16 with 64 elements (128 bytes) in its
-// contiguous dimension, loaded by TMA with the 128-byte swizzle and read by
-// wgmma through a descriptor of the same swizzle; so each staged box starts
-// on 1024 bytes (one swizzle atom: 8 rows of 128 bytes).
+// Every tile these kernels stage has 128 bytes in its contiguous dimension
+// (64 bf16 elements, or 32 float32 ones for K5's state), moved by TMA with
+// the 128-byte swizzle and read by wgmma through a descriptor of the same
+// swizzle; so each staged box starts on 1024 bytes (one swizzle atom: 8 rows
+// of 128 bytes).
 //
 // The tensor map is encoded with the driver's cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint (no -lcuda at link time: the
@@ -86,6 +87,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
                                             int c2, int c3) {
   asm volatile(
@@ -93,6 +103,44 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// box at coordinates (c0 innermost, ...) written from shared memory, tracked
+// in this thread's bulk groups (commit with bulk_commit, wait with
+// bulk_wait_read / bulk_wait)
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0, int c1, int c2,
+                                             int c3) {
+  asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// waits until at most N of this thread's committed stores still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// waits until at most N of this thread's committed stores are still in flight
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// makes this thread's shared-memory writes visible to the async proxy
+// (wgmma's shared operands, TMA stores); a barrier follows before the reader
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------- registers
@@ -199,6 +247,23 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
+// d (64 x 64) += A (64 x 16, shared) B (16 x 64, shared), float32 sums; scale_d 0 overwrites d.
+// TRANS_A / TRANS_B 1: that operand is MN-major (its M or N dimension contiguous)
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+}
+
 // d (64 x 128) += A (64 x 16, registers) B (16 x 128, shared), float32 sums; scale_d 0 overwrites d
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
@@ -299,20 +364,30 @@ inline EncodeTiled encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions (dims[0] contiguous; strides[i] is
-// the byte stride of dimension i + 1), read in boxes of `box` elements with
-// the 128-byte swizzle; reads outside the tensor fill zeros.  Returns 0 or a
+// A tensor map of `rank` dimensions (dims[0] contiguous; strides[i] is the
+// byte stride of dimension i + 1), moved in boxes of `box` elements with the
+// 128-byte swizzle; reads outside the tensor fill zeros.  Returns 0 or a
 // CUDA error code.
-inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                           const uint64_t* strides, const uint32_t* box) {
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank, const uint64_t* dims,
+                      const uint64_t* strides, const uint32_t* box) {
   EncodeTiled fn = encode_tiled_fn();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base),
+  CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base),
                   reinterpret_cast<const cuuint64_t*>(dims), reinterpret_cast<const cuuint64_t*>(strides),
                   reinterpret_cast<const cuuint32_t*>(box), elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                   CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                           const uint64_t* strides, const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box);
+}
+
+inline int encode_f32_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                          const uint64_t* strides, const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, rank, dims, strides, box);
 }
 
 }  // namespace hopper

@@ -21,6 +21,14 @@ plain PyTorch version ``fused_alloc_eval_ref`` on CPU tensors.  Both take
 the reference's arguments and return its outputs in its order, all
 float64.  The one-hot unit map is turned into a per-cell unit index, so
 the scatter is an index read in both, never a matrix product.
+
+The kernel runs one warp per config in persistent blocks of 16 warps that
+take configs from a counter.  ``kernel_plan`` makes its two host-side
+choices: the units a lane holds in registers (``ceil(N / 32)`` up to 8;
+above 256 units they are read from memory at every step), and whether the
+eval's tables (the bank stacks, per-layer vectors and the cells' unit
+index and mask) are staged in shared memory, which they are when they fit
+beside the warps' replica rows.
 """
 
 from __future__ import annotations
@@ -35,9 +43,10 @@ from ..core.alloc.greedy import greedy_batch_kernel
 from ..core.cim.simulate import _eval_kernel
 from . import _build
 
-__all__ = ["fused_alloc_eval", "fused_alloc_eval_ref"]
+__all__ = ["fused_alloc_eval", "fused_alloc_eval_ref", "kernel_plan"]
 
 _F64 = torch.float64
+MAX_SMEM = 232_448  # the most shared memory one block may use on the card
 
 
 @functools.cache
@@ -45,12 +54,38 @@ def _launcher():
     fn = _build.load("fused_alloc_eval").fused_alloc_eval_launch
     fn.argtypes = (
         [ctypes.c_void_p] * 23
-        + [ctypes.c_longlong] + [ctypes.c_int] * 3
+        + [ctypes.c_longlong] + [ctypes.c_int] * 5
         + [ctypes.c_double] * 2
-        + [ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
+
+
+class KernelPlan(NamedTuple):
+    units_per_lane: int  # units a lane keeps in registers; 0: read from memory (N > 256)
+    warps: int  # configs in flight per block, one a warp
+    staged: bool  # the eval's tables are staged in shared memory
+    smem_bytes: int  # dynamic shared memory a block takes
+
+
+def kernel_plan(N: int, V: int, L: int, B: int) -> KernelPlan:
+    """K2's host-side choices for N units and (V, L, B) banks, as
+    ``csrc/fused_alloc_eval.cu`` makes them: units a lane holds
+    (``ceil(N / 32)`` for N <= 256, else 0); warps a block (32 where a lane
+    holds one unit, else 16); and whether the eval's tables fit in
+    shared memory beside the warps' replica rows (N doubles each, register
+    path only).  The tables: mean and max (V, L, B), pm_mean, pm_max and
+    busy (V, L), ppi, width and layer_arrays (L) as float64; the cells' unit
+    index (L, B) int32 and mask (L, B) uint8.  ResNet18's rows-128 block
+    family (N 247; V 16, L 20, B 36) needs 196,080 B of tables and 31,616 B
+    of rows: 227,696 of the 232,448 a block may use."""
+    upl = -(-N // 32) if N <= 256 else 0
+    warps = 32 if upl == 1 else 16
+    rows = 8 * warps * N if upl else 0
+    tables = 8 * (2 * V * L * B + 3 * V * L + 3 * L) + 5 * L * B
+    staged = rows + tables <= MAX_SMEM
+    return KernelPlan(upl, warps, staged, rows + (tables if staged else 0))
 
 
 class _Problem(NamedTuple):
@@ -115,23 +150,30 @@ def _prepare(
     r0 = f64(torch.broadcast_to(r0, (C, N)))
 
     umap = unit_map.reshape(N, L * B)
-    if not bool(((umap == 0) | (umap == 1)).all()) or bool((umap.sum(dim=0) > 1).any()):
+    covered = umap.sum(dim=0)
+    # the map's shape and the indices and loop bounds the kernel trusts, read
+    # back from the device in one transfer
+    ok = torch.stack([
+        ((umap == 0) | (umap == 1)).all() & (covered <= 1).all(),
+        ((a_idx >= 0) & (a_idx < A)).all(),
+        ((sel >= 0) & (sel < V)).all(),
+        (cost > 0).all(),
+        torch.isfinite(budgets).all() & torch.isfinite(base).all(),
+        (r0 >= 1).all(),
+    ]).tolist()
+    if not ok[0]:
         raise ValueError("unit_map must be one-hot: each cell covered by at most one unit")
-    cell_unit = torch.where(
-        umap.sum(dim=0) > 0, umap.argmax(dim=0), -1
-    ).to(torch.int32).contiguous()
-
-    # indices and loop bounds the kernel trusts
-    if C and (int(a_idx.min()) < 0 or int(a_idx.max()) >= A):
+    if not ok[1]:
         raise ValueError(f"a_idx out of range for {A} allocation variants")
-    if C and (int(sel.min()) < 0 or int(sel.max()) >= V):
+    if not ok[2]:
         raise ValueError(f"sel out of range for {V} bank slots")
-    if not bool((cost > 0).all()):
+    if not ok[3]:
         raise ValueError("cost must be strictly positive")
-    if not bool(torch.isfinite(budgets).all()) or not bool(torch.isfinite(base).all()):
+    if not ok[4]:
         raise ValueError("budgets and base must be finite")
-    if C and not bool((r0 >= 1).all()):
+    if not ok[5]:
         raise ValueError("every unit needs at least one replica")
+    cell_unit = torch.where(covered > 0, umap.argmax(dim=0), -1).to(torch.int32).contiguous()
     return _Problem(base, cost, cell_unit, banks, b_mask.to(torch.bool).contiguous(),
                     ppi, width, layer_arrays, budgets, a_idx, sel, layerwise, r0)
 
@@ -166,10 +208,16 @@ def _launch(p: _Problem, n_images: int, clock_hz: float):
     ins = (p.base, p.cost, p.cell_unit, *p.banks, p.b_mask, p.ppi, p.width,
            p.layer_arrays, p.budgets, p.a_idx, p.sel, p.layerwise, p.r0)
     outs = (T, ips, layer_T, util, r, rem)
+    V = p.banks[0].shape[0]
+    plan = kernel_plan(N, V, L, B)
+    if plan.smem_bytes > MAX_SMEM:
+        raise ValueError(f"K2 at N={N} needs {plan.smem_bytes} B of shared memory for its replica rows "
+                         f"(at most {MAX_SMEM})")
+    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _launcher()(
-        *(t.data_ptr() for t in ins + outs), C, N, L, B,
+        *(t.data_ptr() for t in ins + outs), C, N, L, B, V, int(plan.staged),
         float(n_images), float(clock_hz),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        _build.work_queue(dev, stream).data_ptr(), dev.index, stream,
     )
     if rc != 0:
         raise RuntimeError(f"fused_alloc_eval kernel launch failed: CUDA error {rc}")
@@ -212,10 +260,11 @@ def fused_alloc_eval(
     ``(C,)/(C,)/(C, L)/(C, L)/(C, N)/(C,)``, float64, on the inputs' device.
 
     CUDA tensors launch the kernel on the current stream (no
-    synchronisation) and add one to ``fused_alloc_eval.launches``; CPU
+    synchronisation; its choices are ``kernel_plan``'s) and add one to
+    ``fused_alloc_eval.launches``; CPU
     tensors run ``fused_alloc_eval_ref``.  Inputs are checked first (shapes,
     one-hot map, index ranges, positive costs, finite budgets), which reads
-    a few scalars back from the device."""
+    six flags back from the device in one transfer."""
     p = _prepare(base, cost, unit_map, banks, b_mask, ppi, width, layer_arrays,
                  budgets, a_idx, sel, layerwise, r0)
     if p.base.device.type == "cpu":

@@ -14,11 +14,20 @@ reference's ``kernels/ref.py::ssd_chunk_ref``.  The kernel keeps the
 Pallas kernel's types: float32 scores, decays and sums, y in xdt's type, S
 in float32, and the decayed B of the state rounded to B's type.
 
-The source holds one kernel per type: bf16 runs its three products on the
-tensor cores (``mma.sync``; y's float32 weights split into two tf32 parts)
-at the shapes the configs give (Q <= 128, Q and N multiples of 16, P of 8,
-P <= 128) and refuses others; float32 runs on the CUDA cores at any shape
-that fits in shared memory.
+The source holds three kernels, chosen by type and shape:
+
+* bf16 at the models' shapes (Q 128, P 64, N 64 or 128: Zamba2-1.2B and
+  Mamba2-370M): the Hopper kernel, ``wgmma`` fed by TMA, one persistent
+  block per SM with a producer warp and two consumer warpgroups, taking
+  (cell, head group) work items from a work queue; y's float32 weights go
+  to the tensor cores as two bf16 pieces (16 bits of the weight);
+* bf16 at other shapes with Q <= 128, Q and N multiples of 16, P of 8 and
+  P <= 128 (the SMOKE configs, the tests' small shapes): the ``mma.sync``
+  kernel (y's weights as two tf32 parts); other bf16 shapes raise;
+* float32: the CUDA-core kernel at any shape that fits in shared memory.
+
+``head_group`` picks the heads of one work item (one block of the other
+kernels) for the card's SM count.
 """
 
 from __future__ import annotations
@@ -30,11 +39,10 @@ import torch
 
 from . import _build
 
-__all__ = ["ssd_chunk", "ssd_chunk_ref"]
+__all__ = ["head_group", "ssd_chunk", "ssd_chunk_ref"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM = 232_448  # the most shared memory one block may use on the card
-TARGET_BLOCKS = 264  # two blocks per SM of the H100's 132
 
 
 @functools.cache
@@ -43,8 +51,8 @@ def _lib():
     lib.ssd_chunk_launch.argtypes = (
         [ctypes.c_void_p] * 6
         + [ctypes.c_int, ctypes.c_longlong]
-        + [ctypes.c_int] * 6
-        + [ctypes.c_void_p]
+        + [ctypes.c_int] * 5
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     )
     lib.ssd_chunk_launch.restype = ctypes.c_int
     lib.ssd_chunk_smem_bytes.argtypes = [ctypes.c_int] * 4
@@ -87,24 +95,57 @@ def _check(cum, xdt, B, C):
         raise ValueError("ssd_chunk: every input must lie on one device")
 
 
-def default_head_block(nc: int, H: int) -> int:
-    """Heads per block: 4, as the Pallas kernel's default, halved while the
-    grid would hold fewer than two blocks per SM."""
-    hb = min(4, H)
-    while hb > 1 and nc * -(-H // hb) < TARGET_BLOCKS:
-        hb //= 2
-    return hb
+@functools.lru_cache(maxsize=256)
+def head_group(nc: int, H: int, sms: int) -> int:
+    """Heads of one work item (a cell's B, C and scores serve them all):
+    the size that finishes soonest on ``sms`` SMs when every item costs its
+    heads plus one (its scores and its B and C), the larger on a tie.  The
+    items, ``nc * ceil(H / group)``, then run in ``ceil(items / sms)`` waves.
+    Zamba2-1.2B's prefill (32 cells x 64 heads) takes groups of 16 on the
+    H100's 132 SMs (128 items, one wave), Mamba2-370M's (8 x 32) groups of 2."""
+    if nc < 1 or H < 1 or sms < 1:
+        raise ValueError(f"head_group needs nc, H and sms >= 1, got {nc}, {H}, {sms}")
+    best, group = None, 1
+    for hg in range(1, H + 1):
+        cost = -(-(nc * -(-H // hg)) // sms) * (hg + 1)
+        if best is None or cost <= best:
+            best, group = cost, hg
+    return group
 
 
-def ssd_chunk(cum, xdt, B, C, *, head_block: int | None = None):
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=64)
+def _smem_bytes(dtype: int, Q: int, N: int, P: int) -> int:
+    return _lib().ssd_chunk_smem_bytes(dtype, Q, N, P)
+
+
+def _launch_args(cum, xdt, B, C, y, S) -> tuple:
+    """The arguments of ``ssd_chunk_launch`` for checked, contiguous, 16-byte
+    aligned CUDA tensors of one type, writing y and S on the current stream."""
+    nc, Q, H, P = xdt.shape
+    N = B.shape[-1]
+    dev = xdt.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return (
+        cum.data_ptr(), xdt.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(), S.data_ptr(),
+        _DTYPES[xdt.dtype], nc, Q, H, P, N, head_group(nc, H, _sm_count(dev.index)),
+        _build.work_queue(dev, stream).data_ptr(), dev.index, stream,
+    )
+
+
+def ssd_chunk(cum, xdt, B, C):
     """K5 over nc cells -> (y_intra (nc, Q, H, P) in xdt's type, S_chunk
     (nc, H, N, P) float32).
 
-    CUDA tensors (float32, or bfloat16 at the tensor-core kernel's shapes,
+    CUDA tensors (float32, or bfloat16 at a tensor-core kernel's shapes,
     all four of one type) launch the kernel once on the current stream (no
-    synchronisation), ``head_block`` heads per block (by default
-    ``default_head_block``), and add one to ``ssd_chunk.launches``; other
-    bfloat16 shapes raise.  CPU tensors run ``ssd_chunk_ref``."""
+    synchronisation), ``head_group`` heads per work item, and add one to
+    ``ssd_chunk.launches``; other bfloat16 shapes raise.  CPU tensors run
+    ``ssd_chunk_ref``."""
     _check(cum, xdt, B, C)
     if cum.device.type == "cpu":
         return ssd_chunk_ref(cum, xdt, B, C)
@@ -118,8 +159,7 @@ def ssd_chunk(cum, xdt, B, C, *, head_block: int | None = None):
         )
     nc, Q, H, P = xdt.shape
     N = B.shape[-1]
-    lib = _lib()
-    smem = lib.ssd_chunk_smem_bytes(_DTYPES[dtype], Q, N, P)
+    smem = _smem_bytes(_DTYPES[dtype], Q, N, P)
     if smem < 0:
         raise ValueError(
             f"K5 in bfloat16 takes Q <= 128, Q and N multiples of 16, P a multiple of 8 up to 128; "
@@ -127,19 +167,12 @@ def ssd_chunk(cum, xdt, B, C, *, head_block: int | None = None):
         )
     if smem > MAX_SMEM:
         raise ValueError(f"K5 at Q={Q}, N={N}, P={P} needs {smem} B of shared memory (at most {MAX_SMEM})")
-    hb = default_head_block(nc, H) if head_block is None else int(head_block)
-    if hb < 1:
-        raise ValueError(f"head_block must be >= 1, got {hb}")
-    # contiguous and 16-byte aligned (the bf16 kernel's loads): else a fresh copy
+    # contiguous and 16-byte aligned (the bf16 kernels' loads): else a fresh copy
     cum, xdt, B, C = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
                       else t.clone(memory_format=torch.contiguous_format) for t in (cum, xdt, B, C))
-    dev = xdt.device
-    y = torch.empty((nc, Q, H, P), dtype=dtype, device=dev)
-    S = torch.empty((nc, H, N, P), dtype=torch.float32, device=dev)
-    rc = lib.ssd_chunk_launch(
-        cum.data_ptr(), xdt.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(), S.data_ptr(),
-        _DTYPES[dtype], nc, Q, H, P, N, hb, dev.index, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    y = torch.empty((nc, Q, H, P), dtype=dtype, device=xdt.device)
+    S = torch.empty((nc, H, N, P), dtype=torch.float32, device=xdt.device)
+    rc = _lib().ssd_chunk_launch(*_launch_args(cum, xdt, B, C, y, S))
     if rc != 0:
         raise RuntimeError(f"ssd_chunk kernel launch failed: CUDA error {rc}")
     ssd_chunk.launches += 1

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.fused_alloc_eval import fused_alloc_eval, fused_alloc_eval_ref
+from repro_torch.kernels.fused_alloc_eval import MAX_SMEM, fused_alloc_eval, fused_alloc_eval_ref, kernel_plan
 
 RTOL = 1e-12
 FLOATS = ("T", "ips", "layer_T", "util")
@@ -170,8 +170,35 @@ def test_wrapper_rejects_non_tensors_and_mixed_devices():
         fused_alloc_eval(*t)
 
 
+@pytest.mark.parametrize(
+    "n,banks,want",
+    [
+        # ResNet18's rows-128 block family: 8 units a lane, the tables just fit beside 16 rows
+        (247, (16, 20, 36), (8, 16, True, 227_696)),
+        (159, (16, 8, 36), (5, 16, True, 98_784)),  # VGG11's rows-128 block family
+        (20, (16, 20, 36), (1, 32, True, 201_200)),  # ResNet18's layer family: 32 warps
+        (33, (4, 5, 10), (2, 16, True, 8 * 16 * 33 + 8 * (2 * 200 + 3 * 20 + 3 * 5) + 5 * 50)),
+        (257, (16, 20, 36), (0, 16, True, 196_080)),  # above 256 units: read from memory, no rows
+        (247, (16, 20, 40), (8, 16, False, 31_616)),  # the tables do not fit: read from global memory
+        (3000, (64, 40, 40), (0, 16, False, 0)),
+    ],
+)
+def test_kernel_plan(n, banks, want):
+    """K2's host-side choices: units a lane holds, warps a block, and
+    whether the eval's tables are staged in shared memory beside the warps'
+    replica rows."""
+    plan = kernel_plan(n, *banks)
+    assert tuple(plan) == want
+    assert plan.smem_bytes <= MAX_SMEM
+    assert plan.units_per_lane * 32 >= n or plan.units_per_lane == 0
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,c,warm,ties", CASES + [(247, 4096, True, False), (20, 4096, True, True)])
+@pytest.mark.parametrize(
+    "n,c,warm,ties",
+    CASES + [(247, 4096, True, False), (20, 4096, True, True), (159, 4096, True, False),
+             (300, 2048, True, False), (600, 1024, False, True)],
+)
 def test_kernel_equals_plain_on_card(n, c, warm, ties):
     """K2 against its plain version on the card: replicas and leftover
     exactly, floats within rtol 1e-12."""
@@ -183,4 +210,26 @@ def test_kernel_equals_plain_on_card(n, c, warm, ties):
     torch.cuda.synchronize()
     assert fused_alloc_eval.launches == before + 1
     want = fused_alloc_eval_ref(*args, n_images=64, clock_hz=1e8)
+    assert_k2_equal([t.cpu().numpy() for t in got], [t.cpu().numpy() for t in want])
+
+
+@pytest.mark.cuda
+def test_kernel_mixed_chunk_on_card():
+    """One chunk whose configs mix every allocation variant and bank slot
+    (both zero-skip halves) with both eval families (layer-wise barrier and
+    independent blocks), budgets from 0 to far past the warm start (some
+    fractional, some above 2^26), at ResNet18's 247 block units: equal to the
+    plain version as above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    args = list(problem(11, 247, 4096, True, False))
+    a, v = args[0].shape[0], args[3][0].shape[0]
+    idx = np.arange(4096)
+    args[9] = (idx % a).astype(np.int32)
+    args[10] = ((idx // a) % v).astype(np.int32)
+    args[11] = (idx // (a * v)) % 2 == 0
+    args[8] = np.concatenate([np.zeros(512), np.linspace(0, 5000, 3072).round(), np.linspace(0.5, 999.5, 256),
+                              np.linspace(2.0 ** 26 - 8, 2.0 ** 27, 256)])
+    got = fused_alloc_eval(*tensors(tuple(args), "cuda"), n_images=64, clock_hz=1e8)
+    want = fused_alloc_eval_ref(*tensors(tuple(args), "cuda"), n_images=64, clock_hz=1e8)
     assert_k2_equal([t.cpu().numpy() for t in got], [t.cpu().numpy() for t in want])

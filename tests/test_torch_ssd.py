@@ -12,8 +12,9 @@
   ``test_torch_lm.py`` for why the model's bf16 drifts further).
 
 Inputs are made with numpy from a seed and handed to both packages.  The
-card-only tests hold the CUDA kernel against its plain version at the
-Zamba2 and Mamba2-370M prefill shapes and at small ragged ones.
+card-only tests hold the CUDA kernels against their plain version at the
+Zamba2 and Mamba2-370M prefill shapes (the Hopper kernel), at shapes whose
+work queue is ragged, and at small ones (the mma.sync and float32 kernels).
 """
 
 import jax
@@ -26,7 +27,7 @@ from repro.configs import get_config as ref_config
 from repro.kernels.ssd_scan import ssd_chunk as pallas_ssd
 from repro.models import ssm as rssm
 from repro_torch.configs import get_config
-from repro_torch.kernels.ssd_scan import default_head_block, ssd_chunk, ssd_chunk_ref
+from repro_torch.kernels.ssd_scan import head_group, ssd_chunk, ssd_chunk_ref
 from repro_torch.models import ssm as tssm
 
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
@@ -69,10 +70,17 @@ def test_plain_matches_pallas_kernel(Q, H, P, N, dtype):
     np.testing.assert_allclose(s.numpy(), np.asarray(s_want, np.float32), rtol=tol, atol=tol)
 
 
-def test_head_block_fills_the_card():
-    assert default_head_block(32, 64) == 4  # Zamba2 prefill: 512 blocks
-    assert default_head_block(8, 32) == 1  # Mamba2-370M at 2 x 512: 256 blocks
-    assert default_head_block(1, 3) == 1
+def test_head_group_fills_the_card():
+    """The work split: heads per item for (cells, heads, SMs), the fewest
+    waves of items, each item costing its heads plus one."""
+    assert head_group(32, 64, 132) == 16  # Zamba2 prefill: 128 items, one wave on the H100
+    assert head_group(8, 32, 132) == 2  # Mamba2-370M at 2 x 512: 128 items
+    assert head_group(140, 7, 132) == 4  # groups of 4 and 3, 280 items: the queue hands out 2 or 3 a block
+    assert head_group(45, 37, 132) == 8  # four groups of 8 and one of 5, 225 items
+    assert head_group(1, 3, 132) == 1  # one cell: a head an item, three SMs in parallel
+    assert head_group(300, 1, 132) == 1
+    with pytest.raises(ValueError, match="head_group"):
+        head_group(0, 4, 132)
 
 
 def _scan_inputs(b, s, h, p, n, seed):
@@ -163,6 +171,8 @@ def test_mamba2_fwd_and_step_match_reference(mamba_layer):
 CARD_SHAPES = [
     (32, 128, 64, 64, 64),  # Zamba2-1.2B prefill, 4 x 1024 tokens
     (8, 128, 32, 64, 128),  # Mamba2-370M prefill, 2 x 512 tokens
+    (140, 128, 7, 64, 64),  # the Hopper kernel's work queue ragged: groups of 4 and 3, 280 items
+    (45, 128, 37, 64, 128),  # and at N 128: groups of 8 and 5, 225 items
     (3, 32, 4, 16, 32),
     (5, 16, 3, 16, 16),
     (3, 48, 5, 24, 48),
@@ -187,10 +197,11 @@ def test_kernel_equals_plain_on_card(dtype):
                 ssd_chunk(*ins)
             continue
         y_w, s_w = ssd_chunk_ref(*ins)
-        for hb in (None, 2):  # the default head block, and one that leaves a tail
+        for _ in range(2):  # twice: the work queue is left at zero for the next launch
             before = ssd_chunk.launches
-            y, s = ssd_chunk(*ins, head_block=hb)
+            y, s = ssd_chunk(*ins)
             torch.cuda.synchronize()
             assert ssd_chunk.launches == before + 1
+            # y and S apart, each of 1 + |plain|
             torch.testing.assert_close(y.float(), y_w.float(), rtol=tol, atol=tol)
             torch.testing.assert_close(s, s_w, rtol=tol, atol=tol)
