@@ -10,24 +10,30 @@ sources.  Phases, each of which fails the run on any mismatch:
   1. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
      source, all started together), print ``ptxas -v``'s report and check
      that no Hopper (wgmma) kernel of K3, K4 or K5 spills, print K2's
-     registers a thread, and hold each kernel
-     against its plain PyTorch version on edge-case inputs;
+     registers a thread and K1's SASS instruction counts, and hold each
+     kernel against its plain PyTorch version on edge-case inputs (K1 on
+     both its entries: the (B, S, r) block entry and the grouped derive
+     entry over ragged tables);
   2. the main path on ResNet18 at full width (20 conv layers, 224x224):
      ``capture_activations`` -> ``derive_profile`` (kernel engine: K1, one
-     launch per layer) -> ``allocate`` + ``simulate`` for the five Fig 8
-     policies -> ``run_batch`` over 5 policies x 64 PE counts, with K1's
-     launch count read before and after; then K1 against its plain
-     version at the path's shapes (sample 256 and 8192), the ``"torch"``
-     engine on the card against the ``"vectorized"`` engine on the host,
-     and ``run_batch`` against the scalar ``simulate``;
-  3. the same path on VGG11 at 64 images;
+     grouped launch for all 20 layers) -> ``allocate`` + ``simulate`` for
+     the five Fig 8 policies -> ``run_batch`` over 5 policies x 64 PE
+     counts, with K1's launch counts read before and after; then K1
+     against its plain versions at the path's shapes (sample 256 and
+     8192), the ``"torch"`` engine on the card against the
+     ``"vectorized"`` engine on the host, the per-layer route against the
+     grouped derive, and ``run_batch`` against the scalar ``simulate``;
+  3. the same path on VGG11 at 64 images (one K1 launch for 8 layers);
   4. the card against the host path on a small VGG11 input;
-  5. timings with CUDA events after warm-up;
+  5. timings with CUDA events after warm-up: the stages, and K1 per derive
+     at 256 and 8192 samples through its wrapper, alone (L2 flushed, and
+     L2-resident), through the per-layer route, beside its bound and its
+     plain version, and ``derive_profile`` grouped and per layer;
   6. K2 (the fused allocate + eval kernel) against its plain version on
      random problems (ties, warm starts, budget-0 rows, N not a multiple
      of 32);
   7. the fused DSE sweep on ResNet18 at full width: ``run_fused_sweep``
-     (``engine="kernel"``: one K1 launch per geometry group, then K2 per
+     (``engine="kernel"``: one K1 block-entry launch per geometry group, then K2 per
      chunk) over array rows 128 and 256 x ADC bits 1-8 x four policies x
      4,400 PE budgets from 1.0 to 2.5x the minimum (281,600 configs), with
      K1's and K2's launch counts set to 0 before and read after; then the
@@ -103,6 +109,13 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 LANE_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores, taken per integer op
+# integer instruction rates a clock an SM for compute capability 9.0 (CUDA C++
+# Programming Guide, "Arithmetic Instructions" throughput table): 32-bit
+# integer add, shift and logic (LOP3, IADD3, SHF, LEA), and population count;
+# times H100_SMS and the SM clock nvidia-smi reports (clocks.max.sm)
+INT_OPS_PER_CLK_SM = 64
+POPC_PER_CLK_SM = 16
+H100_SMS = 132
 FP64_OPS_PER_S = 34e12  # H100 SXM float64 rate outside the tensor cores (K2 uses no tensor core)
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (K4's and K5's inputs on the path)
 TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor-core rate (K5's float32 weights of y, in bf16)
@@ -162,20 +175,44 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def timed(fn, reps=1, warmup=1):
-    """Mean ms per call by CUDA events, after ``warmup`` calls."""
+def timed(fn, reps=1, warmup=1, host_ahead=False):
+    """Mean ms per call by CUDA events, after ``warmup`` calls.  With
+    ``host_ahead`` the card first sleeps about a millisecond, so that the
+    host has queued every call before the first runs and the time is the
+    device's alone, not the host's cost per call."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if host_ahead:
+        torch.cuda._sleep(2_000_000)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cold_ms(fn, reps, device):
+    """Mean ms of one call by CUDA events around it, the L2 cache flushed
+    before each: a sum over 256 MB (5x the L2) leaves it full of clean lines,
+    so the call pays no write-back of the flush."""
+    import torch
+
+    flush = torch.ones(32 << 20, dtype=torch.int64, device=device)
+    total = torch.empty((), dtype=torch.int64, device=device)
+    fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for a, b in events:
+        torch.sum(flush, 0, out=total)
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / reps
 
 
 def k2_problem(seed, n, c, warm, ties=True):
@@ -253,6 +290,166 @@ def k2_bound(args):
     nbytes = sum(t.numel() * t.element_size() for t in ins) + C * 8 * (3 + 2 * L + N)
     ops_ms, bytes_ms = ops / FP64_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), ops, nbytes
+
+
+# K1's grouped edge tables: (block rows, ((S, rows), ...)).  Rows 147 are not
+# 16-byte aligned (ResNet18's conv1), 64 < 128 is one short block, 256 and 384
+# exact multiples, 27 VGG11's conv1; S differs between entries and is 1 in some
+K1_TABLES = (
+    (128, ((37, 147), (1, 64), (130, 256), (5, 300), (3, 27))),
+    (256, ((20, 147), (9, 600), (1, 256), (129, 384))),
+    (64, ((300, 147), (257, 576))),
+)
+# K1's instructions, from ``cuobjdump -sass`` of the built kernel (int64
+# cycles; LOP3, IADD3, IMAD, SHF, LEA and the like counted as integer ops):
+# the copy of one 16-byte unit into shared memory (address arithmetic and
+# the cp.async), the 16-word loop body (a full adder tree, 8 masked POPC and
+# the sums), one leftover 16-byte unit, and the per-row tail (the per-plane
+# counts, the zero-skip cost and the store).  (integer ops, POPC)
+K1_SASS_STAGE = (17, 0)
+K1_SASS_GROUP = (45, 8)
+K1_SASS_UNIT = (22, 8)
+K1_SASS_ROW = (140, 32)
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def k1_ops(qs, brs):
+    """(integer ops, POPC) K1 executes on these (S, rows) matrices, from its
+    SASS counts per staged 16-byte unit, per 16-word group, per leftover
+    16-byte unit and per row (the aligned path; ResNet18's conv1 realigns
+    its words too, about 1% of the bytes, not counted)."""
+    n_int = n_popc = 0
+    for q, br in zip(qs, brs):
+        s, rows = q.shape
+        for b in range(-(-rows // br)):
+            units = -(-min(br, rows - b * br) // 16)
+            groups, rest = divmod(units, 4)
+            for i in range(2):
+                per_row = (units * K1_SASS_STAGE[i] + groups * K1_SASS_GROUP[i] + rest * K1_SASS_UNIT[i]
+                           + K1_SASS_ROW[i])
+                if i == 0:
+                    n_int += s * per_row
+                else:
+                    n_popc += s * per_row
+    return n_int, n_popc
+
+
+def k1_bound(qs, brs, clock_hz, out_bytes=8):
+    """(bound ms, bound_by, bytes, int ops, POPC) of one grouped K1 launch:
+    every input byte read once, one cycle count of ``out_bytes`` written a
+    (sample, block) row; the operations priced at the integer rates, each
+    type on its own unit (the larger of the two times)."""
+    n_int, n_popc = k1_ops(qs, brs)
+    rows = sum(q.shape[0] * -(-q.shape[1] // br) for q, br in zip(qs, brs))
+    nbytes = sum(q.numel() for q in qs) + out_bytes * rows
+    ops_s = max(n_int / (INT_OPS_PER_CLK_SM * H100_SMS * clock_hz),
+                n_popc / (POPC_PER_CLK_SM * H100_SMS * clock_hz))
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops_s * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), nbytes, n_int, n_popc
+
+
+def k1_vs_plain_grouped(qs, brs, rows_per_read=8):
+    """Max |kernel - plain| of K1's grouped entry, launches not counted."""
+    from repro_torch.kernels.bitplane_profile import bitplane_grouped_cycles as k1g, bitplane_grouped_cycles_ref
+
+    saved = k1g.launches
+    got = k1g(qs, brs, rows_per_read=rows_per_read)
+    want = bitplane_grouped_cycles_ref(qs, brs, rows_per_read=rows_per_read)
+    k1g.launches = saved
+    check(got.shape == want.shape, f"K1 grouped: {tuple(got.shape)} cycles, plain {tuple(want.shape)}")
+    return int((got - want).abs().max()) if got.numel() else 0
+
+
+def k1_edge_checks(dev):
+    """K1's grouped entry against its plain version on the edge tables at
+    rows_per_read 4, 8 and 16, random (half zeros), all 0 and all 0xFF."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(1)
+    err = 0
+    for br, shapes in K1_TABLES:
+        for fill in (None, 0, 0xFF):
+            qs = []
+            for s, rows in shapes:
+                q = (rng.integers(0, 256, (s, rows), dtype=np.uint8) if fill is None
+                     else np.full((s, rows), fill, np.uint8))
+                if fill is None:
+                    q[rng.random((s, rows)) < 0.5] = 0
+                qs.append(torch.from_numpy(q).to(dev))
+            for rpr in (4, 8, 16):
+                err = max(err, k1_vs_plain_grouped(qs, [br] * len(qs), rpr))
+    torch.cuda.synchronize()
+    check(err == 0, f"K1 grouped != plain on the edge tables: max err {err}")
+    return err
+
+
+def per_layer_derive(cap, spec):
+    """``derive_profile``'s per-layer route before the grouped one: per
+    layer, a padded transposed copy through K1's block entry, its output
+    permuted and widened, and the densities and means layer by layer (20
+    launches of K1 for ResNet18).  For timing beside the grouped derive."""
+    from repro_torch.core.cim.profile import NetworkProfile, _block_density, _profile, _slice_bounds
+    from repro_torch.kernels.bitplane_profile import bitplane_profile
+
+    array = spec.layers[0].array
+    layers = []
+    for lc, layer in zip(cap.layers, spec.layers):
+        starts, stops = _slice_bounds(layer)
+        _, cyc = bitplane_profile(lc.sampled_q, block_rows=layer.array.rows,
+                                  rows_per_read=array.rows_per_read, cycles_per_read=array.cycles_per_read)
+        layers.append(_profile(layer, array, _block_density(lc, starts, stops), cyc, starts, stops))
+    return NetworkProfile(spec.name, tuple(layers))
+
+
+def k1_numbers(cap, spec, clock_hz, reps):
+    """K1 per derive on this capture: through the grouped wrapper (L2 warm,
+    as the derive meets it), alone (a prebuilt call on a cached table and a
+    preallocated output) with L2 flushed before every launch and back to
+    back with the host ahead, an int64 sum over as many bytes after the same
+    flush (the card's streaming read rate in this run), the plain version, K1 through the per-layer route
+    (a block launch a layer, with its padded copy), the bound, and ``derive_profile`` grouped and per layer.
+    Launch counts are restored."""
+    import torch
+
+    import repro_torch as T
+    from repro_torch.kernels.bitplane_profile import (
+        bitplane_block_profile as k1,
+        bitplane_grouped_cycles as k1g,
+        bitplane_grouped_cycles_ref,
+        bitplane_profile,
+        grouped_plan,
+        launch_plan,
+    )
+
+    qs = [lc.sampled_q for lc in cap.layers]
+    brs = [l.array.rows for l in spec.layers]
+    saved = (k1.launches, k1g.launches)
+    plan = grouped_plan(qs, brs)
+    out = torch.empty(plan.total, dtype=torch.int64, device=qs[0].device)
+    n = {"ms": timed(lambda: k1g(qs, brs), reps=reps, warmup=3),
+         "alone_l2_ms": timed(lambda: launch_plan(plan, out, None, 8, 8), reps=reps, warmup=3, host_ahead=True)}
+    n["kernel_ms"] = cold_ms(lambda: launch_plan(plan, out, None, 8, 8), reps, out.device)
+    # the card's streaming read rate in this run: one int64 sum over as many
+    # bytes, after the same flush
+    stream = torch.zeros(sum(q.numel() for q in qs) // 8, dtype=torch.int64, device=qs[0].device)
+    n["stream_ms"] = cold_ms(lambda: stream.sum(), reps, out.device)
+    del stream
+    n["plain_ms"] = timed(lambda: bitplane_grouped_cycles_ref(qs, brs), reps=3)
+    n["per_layer_ms"] = timed(lambda: [bitplane_profile(q, block_rows=br) for q, br in zip(qs, brs)], reps=reps)
+    n["derive_ms"] = timed(lambda: T.derive_profile(cap, spec), reps=reps, warmup=2)
+    n["derive_per_layer_ms"] = timed(lambda: per_layer_derive(cap, spec), reps=reps, warmup=2)
+    k1.launches, k1g.launches = saved
+    n["bound_ms"], n["bound_by"], n["nbytes"], n["int_ops"], n["popc"] = k1_bound(qs, brs, clock_hz)
+    n["samples"] = qs[0].shape[0]
+    return n
 
 
 def device_busy(fn):
@@ -335,7 +532,7 @@ def drive_fused(network, n_budgets, max_mult, label):
 
     import repro_torch.dse.fused as fused_mod
     from repro_torch.dse import clear_caches, clear_fused_caches, get_fused_pipeline, run_fused_sweep, run_sweep
-    from repro_torch.kernels.bitplane_profile import bitplane_block_profile as k1
+    from repro_torch.kernels.bitplane_profile import bitplane_block_profile as k1, bitplane_grouped_cycles as k1g
     from repro_torch.kernels.fused_alloc_eval import fused_alloc_eval as k2, fused_alloc_eval_ref as k2_plain
 
     clear_caches()
@@ -343,16 +540,17 @@ def drive_fused(network, n_budgets, max_mult, label):
     pts = fused_grid(network, n_budgets, max_mult)
     out = {"configs": len(pts)}
 
-    k1.launches = 0
+    k1.launches = k1g.launches = 0
     k2.launches = 0
     t0 = time.perf_counter()
     res_k = run_fused_sweep(pts, engine="kernel")
     torch.cuda.synchronize()
     out["kernel_cold_s"] = time.perf_counter() - t0
-    out["k1_launches"], out["k2_launches"] = k1.launches, k2.launches
+    out["k1_launches"], out["k2_launches"] = k1.launches + k1g.launches, k2.launches
     groups = len(FUSED_ROWS)
-    check(out["k1_launches"] == groups,
-          f"{label}: K1 launched {out['k1_launches']} times on the fused path, want {groups} (one per geometry)")
+    check(out["k1_launches"] == groups and k1g.launches == 0,
+          f"{label}: K1 launched {out['k1_launches']} times on the fused path ({k1g.launches} grouped), "
+          f"want {groups} (one block-entry launch per geometry)")
     check(out["k2_launches"] > 0, f"{label}: K2 never launched on the fused path")
     print(f"{label}: fused main path ran over {len(pts)} configs, K1 launches {out['k1_launches']}, "
           f"K2 launches {out['k2_launches']} ({out['kernel_cold_s']:.3f} s with capture and derive)")
@@ -1281,6 +1479,7 @@ def main() -> int:
     from repro_torch.kernels.bitplane_profile import (
         bitplane_block_profile as k1,
         bitplane_block_profile_ref as k1_plain,
+        bitplane_grouped_cycles as k1g,
     )
     from repro_torch.kernels.fused_alloc_eval import (
         fused_alloc_eval as k2,
@@ -1292,6 +1491,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_line()
     print(gpu)
+    clock_hz = sm_clock_hz()
+    print(f"SM clock (clocks.max.sm) {clock_hz / 1e6:.0f} MHz: integer ops "
+          f"{INT_OPS_PER_CLK_SM * H100_SMS * clock_hz / 1e12:.2f} T/s, POPC {POPC_PER_CLK_SM * H100_SMS * clock_hz / 1e12:.2f} T/s")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     # ---- 1. build, and the kernel against its plain version on edge cases
@@ -1327,7 +1529,28 @@ def main() -> int:
                     max_err = max(max_err, int((g.long() - w.long()).abs().max()))
     torch.cuda.synchronize()
     check(max_err == 0, f"K1 != plain on edge cases: max err {max_err}")
-    print(f"K1 vs plain, r in (128, 64, 37) x rows_per_read in (4, 8, 16) x (random, 0, 0xFF): max |err| 0")
+    print(f"K1 block entry vs plain, r in (128, 64, 37) x rows_per_read in (4, 8, 16) x (random, 0, 0xFF): max |err| 0")
+    max_err = max(max_err, k1_edge_checks(dev))
+    print(f"K1 grouped entry vs plain on {len(K1_TABLES)} ragged tables (block rows 128, 256, 64; rows 147, 27, "
+          f"64, 300, 600, 576; S 1 to 300) x rows_per_read (4, 8, 16) x (random, 0, 0xFF): max |err| 0")
+    sass = subprocess.run(["cuobjdump", "-sass", str(_build.library_path("bitplane_profile"))],
+                          capture_output=True, text=True, timeout=120)
+    ops = {}
+    for fn in sass.stdout.split("Function : ")[1:]:
+        name = fn.split()[0]
+        counts = {}
+        for line in fn.splitlines():
+            parts = line.split("*/")
+            if len(parts) > 1 and parts[1].strip():
+                op = parts[1].split()[0].split(".")[0]
+                if op.startswith("@"):
+                    op = parts[1].split()[1].split(".")[0]
+                counts[op] = counts.get(op, 0) + 1
+        ops[name] = counts
+    check(sass.returncode == 0 and ops, f"cuobjdump -sass of K1 failed: {sass.stderr[:500]}")
+    for name, counts in ops.items():
+        top = sorted(counts.items(), key=lambda kv: -kv[1])[:14]
+        print(f"K1 SASS {name}: {sum(counts.values())} instructions; " + ", ".join(f"{k} {v}" for k, v in top))
 
     def blocks_of(cap, spec):
         out = []
@@ -1357,13 +1580,14 @@ def main() -> int:
                 check(torch.equal(getattr(x, f).cpu(), getattr(y, f).cpu()), f"{what}: {x.name}.{f}")
 
     def drive(spec, n_images, label):
-        """The main path, with K1's count set to 0 before and read after."""
+        """The main path, with K1's counts (its grouped entry and its block
+        entry) set to 0 before and read after."""
         L = len(spec.layers)
         m = spec.min_pes()
-        k1.launches = 0
+        k1.launches = k1g.launches = 0
         cap = T.capture_activations(spec, n_images=n_images, batch_images=8, sample_patches=256, device=dev)
         prof = T.derive_profile(cap, spec)  # engine None on the card: the kernel
-        after_derive = k1.launches
+        after_derive = k1g.launches + k1.launches
         pes2 = m * 2
         sims = {p: T.simulate(spec, prof, T.allocate(spec, prof, p, pes2)) for p in T.POLICIES}
         pes_grid = np.unique(np.linspace(m, int(m * FIG8_MAX_MULT), 64).round().astype(np.int64))
@@ -1371,11 +1595,12 @@ def main() -> int:
         n_pes = np.tile(pes_grid, len(T.POLICIES))
         batch, res = run_batch(spec, prof, policies, n_pes)
         torch.cuda.synchronize()
-        launches = k1.launches
+        launches = k1g.launches + k1.launches
         check(pes_grid.size == 64, f"{label}: {pes_grid.size} PE counts")
-        check(after_derive == L and launches == L,
-              f"{label}: K1 launched {after_derive} times in derive, {launches} on the path, want {L}")
-        print(f"{label}: main path ran, K1 launches {launches} (one per layer)")
+        check(after_derive == 1 and launches == 1 and k1.launches == 0,
+              f"{label}: K1 launched {after_derive} times in derive, {launches} on the path "
+              f"({k1.launches} by its block entry), want 1 (one grouped launch for {L} layers)")
+        print(f"{label}: main path ran, K1 launches {launches} (one grouped launch for {L} layers)")
 
         # what came out: shapes, finiteness, the paper's ordering
         for lp, layer in zip(prof.layers, spec.layers):
@@ -1425,12 +1650,15 @@ def main() -> int:
     spec = T.resnet18_imagenet()
     check((spec.n_arrays, spec.n_blocks, spec.min_pes()) == (5472, 247, 86), "ResNet18 tiling")
     cap, prof, r18_launches = drive(spec, 16, "resnet18")
-    err256 = k1_vs_plain(blocks_of(cap, spec))
+    brs = [l.array.rows for l in spec.layers]
+    err256 = max(k1_vs_plain(blocks_of(cap, spec)), k1_vs_plain_grouped([lc.sampled_q for lc in cap.layers], brs))
     cap8k = T.capture_activations(spec, n_images=16, batch_images=8, sample_patches=8192, device=dev)
-    err8k = k1_vs_plain(blocks_of(cap8k, spec))
+    err8k = max(k1_vs_plain(blocks_of(cap8k, spec)), k1_vs_plain_grouped([lc.sampled_q for lc in cap8k.layers], brs))
     torch.cuda.synchronize()
     check(err256 == 0 and err8k == 0, f"K1 != plain at the path's shapes: {err256}, {err8k}")
-    print("resnet18: K1 == plain on every layer's blocks at sample 256 and 8192 (max |err| 0)")
+    print("resnet18: K1 == plain at sample 256 and 8192, grouped over all 20 layers and by the block entry "
+          "on every layer's blocks (max |err| 0)")
+    same_profile(per_layer_derive(cap, spec), prof, "per-layer route vs grouped derive")
     same_profile(T.derive_profile(cap, spec, engine="torch"),
                  T.derive_profile(to_host(cap), spec, engine="vectorized"), "torch on card vs vectorized on host")
     same_profile(prof, T.derive_profile(cap, spec, engine="torch"), "kernel vs torch engine")
@@ -1438,8 +1666,15 @@ def main() -> int:
 
     # ---- 3. VGG11
     vspec = T.vgg11_cifar10()
-    vcap, vprof, _ = drive(vspec, 64, "vgg11")
+    vcap, vprof, vgg_launches = drive(vspec, 64, "vgg11")
     check(k1_vs_plain(blocks_of(vcap, vspec)) == 0, "vgg11: K1 != plain")
+    check(k1_vs_plain_grouped([lc.sampled_q for lc in vcap.layers], [l.array.rows for l in vspec.layers]) == 0,
+          "vgg11: K1 grouped != plain")
+    same_profile(T.derive_profile(vcap, vspec, engine="torch"),
+                 T.derive_profile(to_host(vcap), vspec, engine="vectorized"), "vgg11 torch on card vs vectorized on host")
+    same_profile(vprof, T.derive_profile(vcap, vspec, engine="torch"), "vgg11 kernel vs torch engine")
+    print("vgg11: K1 == plain (grouped and block entry); kernel engine == torch engine on the card == "
+          "vectorized engine on the host")
 
     # ---- 4. the card against the host path on a small input (same seed ->
     # same host-drawn images and weights)
@@ -1489,24 +1724,19 @@ def main() -> int:
     }
     print(f"{gpu}: resnet18 stage ms: " + json.dumps(stage_ms))
 
-    def k1_numbers(blocks, reps):
-        saved = k1.launches
-        ms = timed(lambda: [k1(b) for b in blocks], reps=reps)
-        plain_ms = timed(lambda: [k1_plain(b) for b in blocks], reps=reps)
-        k1.launches = saved
-        nbytes = sum(b.numel() + 36 * b.shape[0] * b.shape[1] for b in blocks)
-        ops = sum(6 * b.numel() for b in blocks)  # and + popc + add per 4-byte word and plane
-        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / LANE_OPS_PER_S * 1e3
-        return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-                    bound_by="bytes" if bytes_ms >= ops_ms else "operations", nbytes=nbytes)
-
-    main = k1_numbers(blocks_of(cap, spec), reps=50)
-    big = k1_numbers(blocks_of(cap8k, spec), reps=10)
+    main = k1_numbers(cap, spec, clock_hz, reps=50)
+    big = k1_numbers(cap8k, spec, clock_hz, reps=10)
+    del cap8k
     for tag, n in (("sample 256 (main path)", main), ("sample 8192", big)):
-        print(f"{gpu}: K1 per derive (20 launches), {tag}: {n['ms']:.4f} ms "
-              f"({n['ms'] / 20 * 1e3:.2f} us/launch), plain {n['plain_ms']:.4f} ms, "
-              f"bound {n['bound_ms']:.4f} ms ({n['bound_by']}, {n['nbytes']} B), "
-              f"{n['nbytes'] / (n['ms'] * 1e-3) / 1e9:.1f} GB/s")
+        print(f"{gpu}: K1 per ResNet18 derive (1 launch, 20 layers), {tag}: {n['ms']:.4f} ms through the wrapper; "
+              f"alone {n['kernel_ms']:.4f} ms with L2 flushed before each launch "
+              f"({n['nbytes'] / (n['kernel_ms'] * 1e-3) / 1e12:.3f} TB/s; an int64 sum over its input's bytes after "
+              f"the same flush {n['stream_ms']:.4f} ms), {n['alone_l2_ms']:.4f} ms back to back (L2 warm); "
+              f"plain {n['plain_ms']:.4f} ms; bound {n['bound_ms']:.4f} ms ({n['bound_by']}: {n['nbytes']} B at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {n['int_ops']} integer ops at {INT_OPS_PER_CLK_SM}/clk/SM, "
+              f"{n['popc']} POPC at {POPC_PER_CLK_SM}/clk/SM), alone at {n['bound_ms'] / n['kernel_ms']:.3f} of it; "
+              f"K1 through the per-layer route (20 block launches with their copies) {n['per_layer_ms']:.4f} ms; "
+              f"derive_profile {n['derive_ms']:.4f} ms grouped, {n['derive_per_layer_ms']:.4f} ms per layer")
     print("K1 library_ms: null (no single PyTorch call computes bit-plane popcounts)")
 
     # ---- 6. K2 against its plain version on random problems
@@ -1633,11 +1863,15 @@ def main() -> int:
         "replaces": "src/repro/kernels/bitplane_profile.py:37",
         "launches": r18_launches,
         "max_abs_err": max(max_err, err256, err8k),
-        "ms": main["ms"],
+        "ms": main["ms"],  # per ResNet18 derive at 256 samples, through the grouped wrapper
+        "kernel_ms": main["kernel_ms"],  # the kernel alone, L2 flushed before each launch
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": None,
+        "ms_8192": big["ms"],
+        "kernel_ms_8192": big["kernel_ms"],
+        "bound_ms_8192": big["bound_ms"],
     }, {
         "name": "fused_alloc_eval",
         "route": "cuda",

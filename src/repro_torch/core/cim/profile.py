@@ -10,9 +10,10 @@
   * **derive** — ``derive_profile`` turns one capture into a
     ``NetworkProfile`` for any ``ArrayConfig``.  Four engines give
     bit-identical integers: ``"reference"`` (per-block numpy loop) and
-    ``"vectorized"`` (numpy ``unpackbits`` + ``reduceat``) run on the host;
-    ``"torch"`` (K1's plain version) and ``"kernel"`` (K1, the CUDA kernel)
-    run on the capture's device.
+    ``"vectorized"`` (numpy ``unpackbits`` + ``reduceat``) run on the host,
+    layer by layer; ``"torch"`` (K1's plain version) and ``"kernel"`` (K1,
+    the CUDA kernel, one launch per derive) derive the whole network in one
+    pass on the capture's device.
 
 Tensors stay on the device they were made on: a capture on the card derives
 and simulates on the card.  The forward is im2col (``F.unfold``) and
@@ -23,17 +24,14 @@ convolution goes to cuDNN.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ... import resolve_device
-from ...kernels.bitplane_profile import (
-    bitplane_block_profile,
-    bitplane_block_profile_ref,
-    bitplane_profile,
-)
+from ...kernels.bitplane_profile import bitplane_grouped_cycles, bitplane_grouped_cycles_ref
 from .cost import ArrayConfig, baseline_cycles, zskip_cycles, zskip_cycles_from_ones
 from .network import LayerSpec, NetworkSpec
 
@@ -392,31 +390,112 @@ def _derive_layer_vectorized(cap, layer, array) -> LayerProfile:
     return _profile(layer, array, _block_density(cap, starts, stops), cyc, starts, stops)
 
 
-def _derive_layer_popcount(block_fn):
-    """Cycle samples through K1 (``block_fn=bitplane_block_profile``) or its
-    plain version, on the capture's device."""
+class _DeriveTables(NamedTuple):
+    """What a grouped derive needs besides the capture's tensors, for one
+    (layer geometry, array, sample counts, patch counts, device).  Columns
+    are every layer's blocks, one layer after another."""
 
-    def derive(cap, layer, array) -> LayerProfile:
+    block_rows: tuple[int, ...]
+    n_blocks: tuple[int, ...]
+    cyc_sizes: tuple[int, ...]  # each layer's S * B cycles in the flat buffer
+    bounds: torch.Tensor  # (columns + 1,) int64 row bounds in the concatenated rowbits
+    counts: torch.Tensor  # (columns,) float64 bits each block's density divides by
+    col_ids: torch.Tensor  # (cycles,) int64 column of every flat cycle
+    s_count: torch.Tensor  # (columns,) float64 samples of each column's layer
+    baseline: torch.Tensor  # (columns,) int64 cycles without zero-skip
+
+
+_TABLES: dict = {}
+_TABLES_SIZE = 32
+
+
+def _derive_tables(capture, spec, array, device) -> _DeriveTables:
+    """Built once on the host, copied once from pinned memory, cached."""
+    samples = tuple(c.sampled_q.shape[0] for c in capture.layers)
+    patches = tuple(c.n_patches for c in capture.layers)
+    key = (tuple((l.rows, l.array.rows) for l in spec.layers), array, samples, patches, device)
+    tables = _TABLES.get(key)
+    if tables is not None:
+        return tables
+    bounds, counts, col_ids, s_count, base = [np.zeros(1, np.int64)], [], [], [], []
+    row = col = 0
+    for layer, s, p in zip(spec.layers, samples, patches):
         starts, stops = _slice_bounds(layer)
-        _, cyc = bitplane_profile(
-            cap.sampled_q,
-            block_rows=layer.array.rows,
-            rows_per_read=array.rows_per_read,
-            cycles_per_read=array.cycles_per_read,
-            block_fn=block_fn,
+        nb = layer.n_blocks
+        bounds.append(row + stops)
+        counts.append(p * (stops - starts) * 8.0)
+        col_ids.append(np.tile(np.arange(col, col + nb), s))
+        s_count.append(np.full(nb, float(s)))
+        base.append(baseline_cycles(stops - starts, array).astype(np.int64))
+        row, col = row + layer.rows, col + nb
+
+    def on_dev(parts, dtype):
+        host = torch.as_tensor(np.concatenate(parts), dtype=dtype)
+        if device.type == "cuda":
+            host = host.pin_memory()
+        return host.to(device, non_blocking=True)
+
+    tables = _TABLES[key] = _DeriveTables(
+        tuple(l.array.rows for l in spec.layers),
+        tuple(l.n_blocks for l in spec.layers),
+        tuple(s * l.n_blocks for s, l in zip(samples, spec.layers)),
+        on_dev(bounds, torch.int64),
+        on_dev(counts, torch.float64),
+        on_dev(col_ids, torch.int64),
+        on_dev(s_count, torch.float64),
+        on_dev(base, torch.int64),
+    )
+    if len(_TABLES) > _TABLES_SIZE:
+        del _TABLES[next(iter(_TABLES))]
+    return tables
+
+
+def _derive_grouped(capture, spec, array, engine) -> tuple[LayerProfile, ...]:
+    """The whole network in one pass on the capture's device: cycles from
+    K1's grouped entry (``engine="kernel"``: one launch) or its plain
+    version (``"torch"``); densities from one cumsum of the concatenated
+    rowbits, differenced at every block bound (int64, exact); mean cycles
+    from one ``index_add_`` of the cycles over their columns, divided by the
+    sample count (a sum of integers below 2^53, so exact in any order).
+    Each ``LayerProfile`` holds contiguous views of the flat buffers."""
+    dev = capture.device
+    t = _derive_tables(capture, spec, array, dev)
+    cycles_fn = bitplane_grouped_cycles if engine == "kernel" else bitplane_grouped_cycles_ref
+    flat = cycles_fn(
+        [c.sampled_q for c in capture.layers],
+        t.block_rows,
+        rows_per_read=array.rows_per_read,
+        cycles_per_read=array.cycles_per_read,
+    )
+    rowbits = torch.cat([c.rowbits for c in capture.layers])
+    cum = rowbits.new_zeros(rowbits.numel() + 1)
+    torch.cumsum(rowbits, 0, out=cum[1:])
+    density = torch.diff(cum[t.bounds]).to(torch.float64) / t.counts
+    sums = torch.zeros(t.counts.numel(), dtype=torch.float64, device=dev)
+    mean = sums.index_add_(0, t.col_ids, flat.to(torch.float64)) / t.s_count
+    return tuple(
+        LayerProfile(
+            name=layer.name,
+            block_density=d,
+            mean_cycles=m,
+            cycles_sample=cyc.view(-1, nb),
+            baseline_block_cycles=base,
+            patches_per_image=layer.patches_per_image,
         )
-        return _profile(
-            layer, array, _block_density(cap, starts, stops), cyc, starts, stops
+        for layer, nb, d, m, cyc, base in zip(
+            spec.layers,
+            t.n_blocks,
+            density.split(t.n_blocks),
+            mean.split(t.n_blocks),
+            flat.split(t.cyc_sizes),
+            t.baseline.split(t.n_blocks),
         )
+    )
 
-    return derive
 
-
-_DERIVE = {
+_DERIVE_LAYER = {
     "reference": _derive_layer_reference,
     "vectorized": _derive_layer_vectorized,
-    "torch": _derive_layer_popcount(bitplane_block_profile_ref),
-    "kernel": _derive_layer_popcount(bitplane_block_profile),
 }
 
 
@@ -441,7 +520,9 @@ def derive_profile(
     if spec.name != capture.network:
         raise ValueError(f"capture is for {capture.network!r}, spec is {spec.name!r}")
     array = _resolve_array(spec, array)
-    derive = _DERIVE[engine]
+    if engine in ("torch", "kernel"):
+        return NetworkProfile(spec.name, _derive_grouped(capture, spec, array, engine))
+    derive = _DERIVE_LAYER[engine]
     layers = tuple(
         derive(cap, layer, array) for cap, layer in zip(capture.layers, spec.layers)
     )

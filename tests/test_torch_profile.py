@@ -98,6 +98,33 @@ def test_derive_geometry_views_are_exact(ref_capture, variant):
     _assert_profiles_equal(tprof, rprof)
 
 
+@pytest.mark.parametrize("variant", [None, dict(rows=256, cols=256)])
+def test_grouped_derive_equals_vectorized_and_reference(ref_capture, variant):
+    """The torch engine (the grouped derive: every layer in one pass, K1's
+    plain grouped version) equals the layer-by-layer vectorized engine field
+    by field and the reference's derive; every field is a contiguous view
+    of one flat buffer, and a second derive (cached tables) is the same."""
+    _, rspec, tspec, rcap = ref_capture
+    rarr = tarr = None
+    if variant is not None:
+        rarr, tarr = R.DEFAULT_ARRAY.variant(**variant), T.DEFAULT_ARRAY.variant(**variant)
+        rspec, tspec = R.with_array(rspec, rarr), T.with_array(tspec, tarr)
+    tcap = capture_from_numpy(rcap, device="cpu")
+    grouped = T.derive_profile(tcap, tspec, array=tarr, engine="torch")
+    vectorized = T.derive_profile(tcap, tspec, array=tarr, engine="vectorized")
+    fields = ("block_density", "mean_cycles", "cycles_sample", "baseline_block_cycles")
+    for g, v in zip(grouped.layers, vectorized.layers, strict=True):
+        for f in fields:
+            a, b = getattr(g, f), getattr(v, f)
+            assert a.dtype == b.dtype and torch.equal(a, b), (g.name, f)
+            assert a.is_contiguous(), (g.name, f)
+    _assert_profiles_equal(grouped, R.derive_profile(rcap, rspec, array=rarr, engine="reference"))
+    for f in fields:
+        assert len({getattr(g, f).untyped_storage().data_ptr() for g in grouped.layers}) == 1, f
+    again = T.derive_profile(tcap, tspec, array=tarr, engine="torch")
+    _assert_profiles_equal(again, R.derive_profile(rcap, rspec, array=rarr, engine="vectorized"))
+
+
 def _shared_inputs(rspec, n_images, hw, seed=0):
     """The reference's images and weights, with ``capture_activations``'s
     key splits."""
