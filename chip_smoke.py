@@ -9,8 +9,9 @@ sources.  Phases, each of which fails the run on any mismatch:
 
   1. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
      source, all started together), print ``ptxas -v``'s report and check
-     that no Hopper (wgmma) kernel of K3, K4 or K5 spills, print K2's
-     registers a thread and K1's SASS instruction counts, and hold each
+     that no Hopper (wgmma) kernel of K3, K4 or K5 spills and no VT kernel
+     spills, print K2's and VT's registers a thread and K1's SASS
+     instruction counts, and hold each
      kernel against its plain PyTorch version on edge-case inputs (K1 on
      both its entries: the (B, S, r) block entry and the grouped derive
      entry over ragged tables);
@@ -91,7 +92,21 @@ sources.  Phases, each of which fails the run on any mismatch:
      qkv bias: K4 28), with the zero tiles K3 met on the path;
  16. Nemotron-4-15B in float32, kernels against plain versions end to end
      as in 13, and the five dense SMOKE configs on the card against the
-     host.
+     host;
+ 17. the fabric engines (VT, the virtual-time scan kernel): VGG11 and
+     ResNet18 profiled by K1; the reference's fabric_tail grid (VGG11 at
+     twice the minimum PEs, weight_based, blockwise and
+     provision_latency_aware at 5 loads: 15 configs x 400 Poisson
+     requests) through one run_batch, cold and warm, equal to FabricSim on
+     the host; ResNet18's five policies in ClosedLoop(120, 40), each within
+     10% of the analytic img/s, and blockwise in ClosedLoop(30, 12) equal to
+     FabricSim; the fused sweep's fabric stage over 1,024 configs of the
+     VGG11 half of the headline grid, equal to the staged sweep on the card
+     and on 8 rows to the host scalar sweep; VT against its plain version
+     (stats, transfers, fractional cycles); VT's times beside its bound (a
+     one-thread FP64 add + min chain measured here, or the bytes), the
+     device's busy share over the fused sweep, and VT's cycles a job by
+     pool width and a (request, layer) on synthetic one-pool problems.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's launches
 on the main path, max |kernel - plain|, times and bound); the last line is
@@ -160,6 +175,23 @@ NEMOTRON_DOWN = (4096, 24576, 6144)  # Nemotron-4-15B's prefill down-projection:
 DENSE_HEADS = {"nemotron-4-15b": (48, 8), "glm4-9b": (32, 2), "qwen2-vl-2b": (12, 2)}  # q and kv heads, hd 128
 NEMOTRON_PEAK_GB = 69.0  # the reckoning of a bf16 prefill of 4 x 1024 on float32 parameters
 E2E = dict(batch=2, prompt_len=200, gen=4)  # a ragged prompt: 200 = 128 + 72
+# the fabric phase: the reference's fabric_tail (benchmarks/run.py:349-379: VGG11
+# profiled at 2 images, 128 samples; 2x the minimum PEs; 400 Poisson requests at
+# 5 loads, arrival seed 5, service seed 3; latency-aware provisioning calibrated
+# on 150 requests, no grants), its ResNet18 acceptance (tests/test_fabric_resnet18.py:
+# 1 image, 64 samples; ClosedLoop(120, 40) within 10% of analytic;
+# ClosedLoop(30, 12) equal to FabricSim) and 1,024 configs of the VGG11 half of
+# the headline grid (benchmarks/run.py:782-798: 11,250 budgets from 1 to 6x)
+FABRIC_VGG_PROFILE = dict(n_images=2, sample_patches=128)
+FABRIC_R18_PROFILE = dict(n_images=1, sample_patches=64)
+FABRIC_LOADS = (0.3, 0.5, 0.6, 0.7, 0.85)
+FABRIC_TAIL_REQUESTS = 400
+FABRIC_CALIB = 150
+FABRIC_R18_LOOP = (120, 40)
+FABRIC_R18_EQUAL = (30, 12)
+FABRIC_VGG_HALF_BUDGETS = 11250
+FABRIC_FUSED_CONFIGS = 1024
+FABRIC_CHECK_REQUESTS = 40
 
 
 def check(cond, msg):
@@ -1458,6 +1490,375 @@ def k4_grouped_checks(gpu):
     return worst
 
 
+# ---------------------------------------------------------------- the fabric
+class VTRecorder:
+    """Keeps the arguments of every VT call the fabric's entry points make
+    (``fabric.vtime`` and ``dse.fused`` bind ``vtime_scan`` by name), so the
+    kernel can be timed on the path's own inputs afterwards.  The calls go
+    through unchanged."""
+
+    def __enter__(self):
+        import repro_torch.dse.fused as fused_mod
+        import repro_torch.fabric.vtime as vtime_mod
+        from repro_torch.kernels.vtime_scan import vtime_scan
+
+        self.mods, self.real, self.calls = (fused_mod, vtime_mod), vtime_scan, []
+
+        def recording(*args, **kw):
+            self.calls.append((args, kw))
+            return vtime_scan(*args, **kw)
+
+        for mod in self.mods:
+            mod.vtime_scan = recording
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self.mods:
+            mod.vtime_scan = self.real
+
+
+def vt_chain_ns(device, with_min=True, iters=1 << 22) -> float:
+    """ns a step of one thread's dependent chain x <- min(x + s, y) in FP64,
+    VT's min (a compare and a select), or of x <- x + s alone
+    (``vtime_chain_probe_launch``, built with VT), by CUDA events."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import _build
+
+    fn = _build.load("vtime_scan").vtime_chain_probe_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double, ctypes.c_double, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    x = torch.zeros(1, dtype=torch.float64, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    check(fn(x.data_ptr(), 1024, 1.0, float("inf"), int(with_min), stream) == 0, "VT chain probe: launch failed")
+    ms = timed(lambda: fn(x.data_ptr(), iters, 1.0, float("inf"), int(with_min), stream), reps=3)
+    return ms * 1e6 / iters
+
+
+def vt_work(args, kw):
+    """(serial job steps of the longest config, bytes a call must move, FP64
+    operations this run's data needs) for one VT call: a config's chain is
+    N x sum_l P_l jobs; the bytes are the sample indices, the tables, the
+    lanes, variants, arrivals and transfers read once and the outputs
+    written once; the operations are, per job and pool with d servers, one
+    add and d max + d min (pools without servers do none)."""
+    tables, idx, variant, lanes = args
+    n = kw["n_requests"]
+    C = variant.shape[0]
+    patches = [int(i.shape[1]) for i in idx]
+    steps = n * sum(patches)
+    nbytes = sum(t.numel() * 8 for t in tables) + sum(i.numel() * 4 for i in idx) + lanes.numel() * 4 + C * 4
+    for key in ("arrivals", "xfer"):
+        if kw.get(key) is not None:
+            nbytes += kw[key].numel() * 8
+    nbytes += 2 * C * n * 8 + (2 * C * len(idx) * 8 if kw.get("collect_stats") else 0)
+    ops, off = 0, 0
+    ln = lanes.cpu().long()
+    for t, p in zip(tables, patches):
+        b = t.shape[2]
+        d = ln[:, off : off + b]
+        off += b
+        ops += n * p * int(((1 + 2 * d) * (d > 0)).sum())
+    return steps, nbytes, ops
+
+
+def vt_numbers(call, chain_ns, reps):
+    """VT on one recorded call's inputs: ms through the wrapper (with its
+    checks) and alone (the packed problem, CUDA events), and its bound: the
+    larger of the chain (the longest config's serial jobs x one dependent
+    FP64 add + min) and the bytes at the memory's rate."""
+    from repro_torch.kernels import vtime_scan as vtk
+
+    args, kw = call
+    saved = vtk.vtime_scan.launches
+    ms = timed(lambda: vtk.vtime_scan(*args, **kw), reps=reps)
+    packed = vtk._pack(vtk._prepare(*args, kw["n_requests"], kw.get("arrivals"), kw.get("concurrency"),
+                                    kw.get("xfer")))
+    kernel_ms = timed(lambda: vtk._launch(packed, kw.get("collect_stats", False)), reps=reps)
+    vtk.vtime_scan.launches = saved
+    steps, nbytes, ops = vt_work(args, kw)
+    chain_ms = steps * chain_ns * 1e-6
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(ms=ms, kernel_ms=kernel_ms, steps=steps, nbytes=nbytes, ops=ops, chain_ms=chain_ms,
+                bytes_ms=bytes_ms, ops_ms=ops / FP64_OPS_PER_S * 1e3, bound_ms=max(chain_ms, bytes_ms),
+                bound_by="operations" if chain_ms >= bytes_ms else "bytes", configs=args[2].shape[0],
+                plan=packed.plan)
+
+
+def vt_line(gpu, label, n, cold_s=None, warm_s=None):
+    extra = ""
+    if warm_s is not None:
+        extra = f"; run_batch {warm_s * 1e3:.3f} ms warm, {cold_s * 1e3:.3f} ms cold (host clock, synchronised)"
+    print(f"{gpu}: VT {label}: {n['configs']} configs, {n['steps']} serial job steps each "
+          f"({n['plan'].threads} threads, {n['plan'].consumer_warps} warps on the pools, KMAX {n['plan'].kmax}, "
+          f"chunks of {n['plan'].chunk}, "
+          f"{n['plan'].state_stride} lanes of state in "
+          f"{'shared' if n['plan'].smem_state else 'global'} memory): {n['kernel_ms']:.4f} ms alone, "
+          f"{n['ms']:.4f} ms through the wrapper; {n['steps'] / (n['kernel_ms'] * 1e-3):.4e} job steps/s a config; "
+          f"bound {n['bound_ms']:.4f} ms ({n['bound_by']}: chain {n['chain_ms']:.4f} ms, bytes "
+          f"{n['bytes_ms']:.4f} ms for {n['nbytes']} B, all FP64 work {n['ops_ms']:.4f} ms for {n['ops']:.4e} ops "
+          f"at {FP64_OPS_PER_S / 1e12:.0f} TFLOP/s), alone at {n['kernel_ms'] / n['bound_ms']:.2f}x the bound{extra}")
+
+
+def vt_lane_costs(gpu, dev, clock_hz):
+    """VT's cost by path on synthetic problems (random integer cycles, one
+    config, 100 Poisson requests): cycles a job for one pool of d servers
+    and 1,024 jobs a request (a thread runs d <= 8, a warp more), and
+    cycles a (request, layer) for 20 layers of one one-job pool."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import vtime_scan as vtk
+
+    rng = np.random.default_rng(7)
+
+    def ms_of(L, P, d, n=100):
+        tables = [torch.as_tensor(rng.integers(20, 400, (1, 128, 1)).astype(np.float64), device=dev)
+                  for _ in range(L)]
+        idx = [torch.as_tensor(rng.integers(0, 128, (n, P)), dtype=torch.int32, device=dev) for _ in range(L)]
+        lanes = torch.full((1, L), d, dtype=torch.int32, device=dev)
+        arr = torch.as_tensor(np.cumsum(rng.exponential(1e4, (1, n)), axis=1), device=dev)
+        saved = vtk.vtime_scan.launches
+        packed = vtk._pack(vtk._prepare(tables, idx, torch.zeros(1, dtype=torch.int32, device=dev), lanes, n, arr,
+                                        None, None))
+        ms = timed(lambda: vtk._launch(packed, False), reps=3)
+        vtk.vtime_scan.launches = saved
+        return ms * 1e-3 * clock_hz / n
+
+    per_job = {d: ms_of(1, 1024, d) / 1024 for d in (1, 2, 4, 8, 32, 64, 128, 256)}
+    per_layer = ms_of(20, 1, 1) / 20
+    print(f"{gpu}: VT cycles a job by servers in the pool (one 1,024-job pool; a thread runs <= 8, a warp more): "
+          + ", ".join(f"{d}: {c:.1f}" for d, c in per_job.items())
+          + f"; a (request, layer) of one job costs {per_layer:.0f} cycles (staging, barrier, completion)")
+    return per_job, per_layer
+
+
+def fabric_phase(gpu, dev):
+    """The fabric engines on the card (slice 8): profiles by K1, then (1) the
+    reference's fabric_tail grid on VGG11, (2) ResNet18's closed loop, (3)
+    the fused sweep's fabric stage over 1,024 VGG11 configs, (4) VT against
+    its plain version, (5) VT's numbers and its cost by path.  Each path's
+    VT count is set to 0 just before it and read just after."""
+    import numpy as np
+    import torch
+
+    import repro_torch as T
+    from repro_torch.dse import FabricEval, clear_caches, clear_fused_caches, design_grid, run_fused_sweep, run_sweep
+    from repro_torch.fabric import (
+        ClosedLoop, FabricSim, PoissonOpen, VirtualTimeFabric, provision_latency_aware, shift_profile,
+    )
+    from repro_torch.kernels.vtime_scan import vtime_scan as vt, vtime_scan_ref as vt_plain
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+    chain_ns = vt_chain_ns(dev)
+    print(f"{gpu}: one thread's dependent FP64 add + min: {chain_ns:.3f} ns a step; add alone "
+          f"{vt_chain_ns(dev, with_min=False):.3f} ns")
+
+    profiles = {}
+    for name, fn, kw in (("vgg11", T.vgg11_cifar10, FABRIC_VGG_PROFILE), ("resnet18", T.resnet18_imagenet, FABRIC_R18_PROFILE)):
+        spec = fn()
+        profiles[name] = (spec, T.derive_profile(T.capture_activations(spec, device=dev, **kw), spec))
+
+    # ---- (1) fabric_tail: VGG11 at 2x the minimum PEs, 15 configs x 400 Poisson requests
+    spec, prof = profiles["vgg11"]
+    pes = spec.min_pes() * 2
+    wb = T.allocate(spec, prof, "weight_based", pes)
+    bw = T.allocate(spec, prof, "blockwise", pes)
+    cap = T.simulate(spec, prof, bw, n_images=64).images_per_sec
+    vt.launches = 0
+    t0 = time.perf_counter()
+    vt_prov = VirtualTimeFabric(spec, prof, lane_quantum=8, device=dev)
+    las = {f: provision_latency_aware(spec, prof, pes, offered_ips=f * cap, calib_requests=FABRIC_CALIB,
+                                      grants=0, vt=vt_prov) for f in FABRIC_LOADS}
+    torch.cuda.synchronize()
+    prov_s = time.perf_counter() - t0
+    out["launches"]["provision"] = vt.launches
+    check(vt.launches == 2 * len(FABRIC_LOADS),
+          f"provision_latency_aware: VT launched {vt.launches} times, want {2 * len(FABRIC_LOADS)}")
+    allocs, procs, labels = [], [], []
+    for f in FABRIC_LOADS:
+        proc = PoissonOpen(FABRIC_TAIL_REQUESTS, f * cap / 1e8, seed=5)
+        for pol, a in (("weight_based", wb), ("blockwise", bw), ("latency_aware", las[f])):
+            allocs.append(a)
+            procs.append(proc)
+            labels.append((pol, f))
+    lanes_max = max(int(np.max(a.layer_dups if a.layer_dups is not None else np.concatenate(a.block_dups)))
+                    for a in allocs)
+    vtf = VirtualTimeFabric(spec, prof, device=dev)
+    vt.launches = 0
+    with VTRecorder() as rec:
+        t0 = time.perf_counter()
+        cold = vtf.run_batch(allocs, procs, seed=3)
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = vtf.run_batch(allocs, procs, seed=3)
+        warm_s = time.perf_counter() - t0
+    out["launches"]["fabric_tail"] = vt.launches
+    check(vt.launches == 2, f"fabric_tail: VT launched {vt.launches} times, want 2 (cold and warm)")
+    check(np.array_equal(cold.completions, res.completions), "fabric_tail: cold != warm")
+    t0 = time.perf_counter()
+    host = [FabricSim(spec, prof, a, seed=3).run(p) for a, p in zip(allocs, procs)]
+    host_s = time.perf_counter() - t0
+    for i, r in enumerate(host):
+        check(np.array_equal(res.completions[i], r.completions) and np.array_equal(res.arrivals[i], r.arrivals),
+              f"fabric_tail {labels[i]}: VT != FabricSim")
+        check(np.isfinite(res.completions[i]).all() and res.completions.shape[1] == FABRIC_TAIL_REQUESTS,
+              f"fabric_tail {labels[i]}: completions")
+    p99 = {pol: res.latency(i).p99 * 1e3 / 1e8 for i, (pol, f) in enumerate(labels) if f == 0.7}
+    print(f"fabric_tail (vgg11 @ {pes} PEs, {len(allocs)} configs x {FABRIC_TAIL_REQUESTS} Poisson requests, "
+          f"loads {FABRIC_LOADS}): VT == FabricSim on every config (arrivals and completions equal); "
+          f"largest lanes a pool {lanes_max}; p99 @ 0.7 load: " + " ".join(f"{k}={v:.4f} ms" for k, v in p99.items())
+          + f"; host FabricSim {host_s:.3f} s for the 15 configs, VT run_batch {warm_s:.4f} s warm "
+          f"({cold_s:.4f} s cold); provisioning {prov_s:.3f} s (10 VT launches)")
+    tail = vt_numbers(rec.calls[-1], chain_ns, reps=5)
+    vt_line(gpu, "fabric_tail", tail, cold_s, warm_s)
+    out["tail"] = tail
+
+    # ---- (2) ResNet18: five policies in a closed loop, and blockwise equal to FabricSim
+    spec, prof = profiles["resnet18"]
+    pes = spec.min_pes() * 2
+    r_allocs = [T.allocate(spec, prof, p, pes) for p in T.POLICIES]
+    lanes_max = max(int(np.max(a.layer_dups if a.layer_dups is not None else np.concatenate(a.block_dups)))
+                    for a in r_allocs)
+    vtr = VirtualTimeFabric(spec, prof, device=dev)
+    vt.launches = 0
+    with VTRecorder() as rec:
+        t0 = time.perf_counter()
+        res = vtr.run_batch(r_allocs, ClosedLoop(*FABRIC_R18_LOOP), seed=1)
+        r18_s = time.perf_counter() - t0
+    out["launches"]["resnet18_loop"] = vt.launches
+    check(vt.launches == 1, f"resnet18 closed loop: VT launched {vt.launches} times, want 1")
+    worst = 0.0
+    for k, a in enumerate(r_allocs):
+        ana = T.simulate(spec, prof, a, n_images=64).images_per_sec
+        rel = abs(res.images_per_sec[k] / ana - 1.0)
+        worst = max(worst, rel)
+        check(rel <= 0.10, f"resnet18 {a.policy}: closed loop {res.images_per_sec[k]:.1f} img/s vs analytic "
+                           f"{ana:.1f} (off {rel:.3f}, limit 0.10)")
+        print(f"resnet18 {a.policy:16s} closed loop {FABRIC_R18_LOOP}: {res.images_per_sec[k]:12.3f} img/s, "
+              f"analytic {ana:12.3f} ({rel * 100:.3f}% apart)")
+    r18 = vt_numbers(rec.calls[-1], chain_ns, reps=2)
+    vt_line(gpu, f"resnet18 five policies, ClosedLoop{FABRIC_R18_LOOP}, largest lanes a pool {lanes_max}", r18,
+            r18_s, r18_s)
+    out["r18"] = r18
+    bwr = r_allocs[T.POLICIES.index("blockwise")]
+    vt.launches = 0
+    got = vtr.run_batch([bwr], ClosedLoop(*FABRIC_R18_EQUAL), seed=1)
+    out["launches"]["resnet18_equal"] = vt.launches
+    t0 = time.perf_counter()
+    want = FabricSim(spec, prof, bwr, seed=1).run(ClosedLoop(*FABRIC_R18_EQUAL))
+    r18_host_s = time.perf_counter() - t0
+    check(np.array_equal(got.completions[0], want.completions) and np.array_equal(got.arrivals[0], want.arrivals),
+          "resnet18 blockwise: VT != FabricSim")
+    print(f"resnet18 blockwise ClosedLoop{FABRIC_R18_EQUAL}: VT == FabricSim (host {r18_host_s:.3f} s); "
+          f"every policy's closed loop within {worst * 100:.3f}% of analytic (limit 10%)")
+
+    # ---- (3) the fused sweep's fabric stage over 1,024 VGG11 configs
+    arrays = tuple(T.DEFAULT_ARRAY.variant(rows=r, cols=r, adc_bits=a) for r in FUSED_ROWS for a in FUSED_ADC_BITS)
+    half = design_grid(networks=("vgg11",), policies=FUSED_POLICIES, arrays=arrays,
+                       pe_multipliers=tuple(np.linspace(1.0, 6.0, FABRIC_VGG_HALF_BUDGETS)))
+    step = len(half) // FABRIC_FUSED_CONFIGS
+    pts = half[::step][:FABRIC_FUSED_CONFIGS]
+    del half
+    clear_caches()
+    clear_fused_caches()
+    fe = FabricEval()
+    run_fused_sweep(pts[:8], fabric=fe, device=dev)  # capture, derive and tables outside the count
+    vt.launches = 0
+    with VTRecorder() as rec:
+        t0 = time.perf_counter()
+        fused = run_fused_sweep(pts, fabric=fe, device=dev)
+        torch.cuda.synchronize()
+        fused_s = time.perf_counter() - t0
+    out["launches"]["fused"] = vt.launches
+    check(vt.launches == len(FUSED_ROWS), f"fused fabric stage: VT launched {vt.launches} times, want {len(FUSED_ROWS)}")
+    vt.launches = 0
+    t0 = time.perf_counter()
+    staged = run_sweep(pts, fabric=fe, engine="batch", device=dev)
+    staged_s = time.perf_counter() - t0
+    out["launches"]["staged"] = vt.launches
+    for col in ("arrays_used", "images_per_sec", "p50_cycles", "p95_cycles", "p99_cycles"):
+        x, y = getattr(fused, col), getattr(staged, col)
+        check(np.array_equal(x, y), f"fused fabric stage != staged sweep on {col}")
+        check(bool(np.isfinite(x).all()), f"fused fabric stage: {col} not finite")
+    pick = []
+    for pol in FUSED_POLICIES:
+        rows = [i for i, p in enumerate(pts) if p.policy == pol]
+        pick += [rows[0], rows[-1]] if rows else []
+    check(len(pick) == 2 * len(FUSED_POLICIES), f"fused grid: {len(pick)} rows spread over the policies")
+    t0 = time.perf_counter()
+    scalar = run_sweep([pts[i] for i in pick], fabric=fe, engine="scalar", device=dev)
+    scalar_s = time.perf_counter() - t0
+    for col in ("p50_cycles", "p95_cycles", "p99_cycles"):
+        check(np.array_equal(getattr(fused, col)[pick], getattr(scalar, col)), f"fused != host scalar on {col}")
+    share, win_ms, by_name = device_busy(lambda: run_fused_sweep(pts, fabric=fe, device=dev))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    print(f"fused fabric stage (vgg11, {len(pts)} configs, every {step}th point of the {FABRIC_VGG_HALF_BUDGETS}-budget "
+          f"VGG11 half of the headline grid, load 0.7, 200 requests, seed 0): p50/p95/p99 == staged run_sweep "
+          f"(batch, VT on the card, {out['launches']['staged']} launches) on every row, and == the host scalar "
+          f"sweep (FabricSim) on {len(pick)} rows spread over the policies; run_fused_sweep {fused_s:.3f} s, "
+          f"staged {staged_s:.3f} s, host scalar {scalar_s:.3f} s for {len(pick)} rows")
+    print(f"{gpu}: fused sweep with its fabric stage under torch.profiler: window {win_ms:.3f} ms, device busy "
+          f"{share:.4f} (idle {1 - share:.4f}); top device time: " + "; ".join(f"{n[:50]} {t:.3f} ms" for n, t in top))
+    fused_n = vt_numbers(max(rec.calls, key=lambda c: c[0][2].shape[0]), chain_ns, reps=5)
+    vt_line(gpu, "fused fabric stage (largest group)", fused_n)
+    out["fused"] = fused_n
+    out["fused_busy"] = share
+
+    # ---- (4) VT against its plain version on the card: stats, transfers, fractional cycles
+    spec, prof = profiles["vgg11"]
+    pes = spec.min_pes() * 2
+    trio = [wb, bw, las[0.7]]
+    rng = np.random.default_rng(0)
+
+    class Placement:
+        def __init__(self, x):
+            self.stage_transfer = x
+
+    places = [Placement(rng.random(len(spec.layers)) * 300.0) for _ in trio]
+    live = shift_profile(prof, {2: 1.3, 3: 1.7})
+    cases = (
+        ("open loop, stats, transfers", VirtualTimeFabric(spec, prof, device=dev),
+         PoissonOpen(FABRIC_CHECK_REQUESTS, 0.6 * cap / 1e8, seed=2), places),
+        ("closed loop, stats", VirtualTimeFabric(spec, prof, device=dev), ClosedLoop(FABRIC_CHECK_REQUESTS, 8), None),
+        ("fractional cycles, stats", VirtualTimeFabric(spec, prof, live_prof=live, device=dev),
+         PoissonOpen(FABRIC_CHECK_REQUESTS, 0.6 * cap / 1e8, seed=2), None),
+    )
+    err, plain_ms, check_n = 0.0, None, None
+    for label, vtc, proc, pl in cases:
+        saved = vt.launches
+        with VTRecorder() as rec:
+            vtc.run_batch(trio, proc, seed=4, placements=pl, collect_stats=True)
+        args, kw = rec.calls[-1]
+        got = vt(*args, **kw)
+        t0 = time.perf_counter()
+        want = vt_plain(*args, **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        vt.launches = saved
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), f"VT != plain ({label})")
+        for g, w in zip(got[2:], want[2:]):
+            rel = float(((g - w).abs() / w.abs().clamp_min(1e-300)).max())
+            check(rel <= 1e-12, f"VT busy/wait vs plain ({label}): rel err {rel}")
+            err = max(err, float((g - w).abs().max()))
+        if plain_ms is None:
+            plain_ms = plain_s * 1e3
+            check_n = vt_numbers((args, kw), chain_ns, reps=5)
+        print(f"VT vs plain on the card, vgg11 {len(trio)} configs x {FABRIC_CHECK_REQUESTS} requests, {label}: "
+              f"arrivals and completions equal, busy and wait within rtol 1e-12 (max abs diff {err:.3e})")
+    print(f"{gpu}: VT at the check's size (open loop, stats, transfers): {check_n['kernel_ms']:.4f} ms alone, "
+          f"{check_n['ms']:.4f} ms through the wrapper; plain version {plain_ms:.3f} ms (host clock, one call)")
+    out.update(max_abs_err=err, plain_ms=plain_ms, check=check_n)
+    out["lane_costs"] = vt_lane_costs(gpu, dev, sm_clock_hz())
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"{gpu}: fabric phase {out['phase_s']:.3f} s; VT launches by path: {json.dumps(out['launches'])}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1498,8 +1899,9 @@ def main() -> int:
 
     # ---- 1. build, and the kernel against its plain version on edge cases
     t0 = time.perf_counter()
-    logs = _build.build("bitplane_profile", "fused_alloc_eval", "zskip_matmul", "flash_attention", "ssd_chunk")
-    print(f"build: K1, K2, K3, K4 and K5 in {time.perf_counter() - t0:.3f} s (wall, five nvcc processes together)")
+    logs = _build.build("bitplane_profile", "fused_alloc_eval", "zskip_matmul", "flash_attention", "ssd_chunk",
+                        "vtime_scan")
+    print(f"build: K1, K2, K3, K4, K5 and VT in {time.perf_counter() - t0:.3f} s (wall, six nvcc processes together)")
     for name, log in logs.items():
         print(f"[nvcc {name}]\n{log.strip()}")
     # the Hopper kernels of K3, K4 and K5 keep their accumulators in registers
@@ -1516,6 +1918,14 @@ def main() -> int:
     check(k2_regs, "fused_alloc_eval: no ptxas report of its kernels in the build log")
     print("ptxas: K2's registers a thread (bytes spilled), by units a lane (0: from memory): "
           + ", ".join(f"{u}: {r} ({sp})" for u, r, sp in sorted(k2_regs)))
+    vt_regs = [(b.split("vtime_scan_kernelILi")[1].split("EEEv")[0].replace("ELb", ", stats "),
+                b.split("Used ", 1)[1].split(" registers")[0])
+               for b in logs["vtime_scan"].split("Function properties for ")[1:] if "vtime_scan_kernel" in b.split()[0]]
+    check(len(vt_regs) == 6, f"vtime_scan: {len(vt_regs)} kernels in the ptxas report, want 6")
+    for block in logs["vtime_scan"].split("Function properties for ")[1:]:
+        check("0 bytes spill stores, 0 bytes spill loads" in block, f"vtime_scan: a kernel spills:\n{block}")
+    print("ptxas: VT's registers a thread by (KMAX, stats), none spilling: "
+          + "; ".join(f"{k}: {r}" for k, r in sorted(vt_regs)))
     max_err = 0
     rng = np.random.default_rng(0)
     for r in (128, 64, 37):
@@ -1854,6 +2264,10 @@ def main() -> int:
     for arch in DENSE_SMOKE:
         smoke_card_vs_host(arch)
 
+    # ---- 17. the fabric engines: fabric_tail, ResNet18's closed loop, the
+    # fused sweep's fabric stage, VT against its plain version
+    fab = fabric_phase(gpu, dev)
+
     nnum = dnum["nemotron-4-15b"]
     print(gpu)
     print(json.dumps({"kernels": [{
@@ -1926,6 +2340,25 @@ def main() -> int:
         "bound_ms": znum["k5"]["bound_ms"],
         "bound_by": znum["k5"]["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "vtime_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/vtime_scan.cu",
+        "replaces": "src/repro/fabric/vtime.py:629",  # the jitted scan (:629-674), no Pallas kernel
+        "launches": sum(fab["launches"].values()),
+        "max_abs_err": fab["max_abs_err"],
+        "ms": fab["tail"]["ms"],  # fabric_tail, 15 configs x 400 requests, through the wrapper
+        "kernel_ms": fab["tail"]["kernel_ms"],
+        "plain_ms": fab["plain_ms"],  # at the check's size: 3 configs x 40 requests
+        "ms_at_check": fab["check"]["kernel_ms"],
+        "bound_ms": fab["tail"]["bound_ms"],
+        "bound_by": fab["tail"]["bound_by"],
+        "library_ms": None,
+        "resnet18_kernel_ms": fab["r18"]["kernel_ms"],
+        "resnet18_bound_ms": fab["r18"]["bound_ms"],
+        "fused_kernel_ms": fab["fused"]["kernel_ms"],
+        "fused_bound_ms": fab["fused"]["bound_ms"],
+        "fused_device_busy": fab["fused_busy"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

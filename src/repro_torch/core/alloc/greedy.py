@@ -14,8 +14,12 @@ reference ``core/alloc/greedy.py``:
     as one sorted grant-event table that answers every budget, numpy on the
     host (the fused sweep's ``"torch"`` engine).
 
-Not yet ported: the placement-aware, release and queueing allocators
-(their callers are in later slices).
+  * ``erlang_c`` / ``queueing_delay`` / ``queueing_allocate`` — the
+    ``latency_aware`` policy's tail-weighted queueing allocator, numpy
+    float64 on the host, verbatim.
+
+Not yet ported: the placement-aware and release allocators (their callers
+are in the topology slice).
 """
 
 from __future__ import annotations
@@ -37,12 +41,15 @@ __all__ = [
     "AllocationResult",
     "BatchAllocationResult",
     "GreedyEventSchedule",
+    "erlang_c",
     "greedy_allocate",
     "greedy_allocate_batch",
     "greedy_batch_kernel",
     "greedy_event_schedule",
     "proportional_allocate",
     "proportional_allocate_batch",
+    "queueing_allocate",
+    "queueing_delay",
 ]
 
 
@@ -395,6 +402,213 @@ def greedy_event_schedule(
             break
         K = np.minimum(np.where(short, K * 2, K), cap)
     return GreedyEventSchedule(units[:stop], key[:stop], cum[:stop], r0, W, base)
+
+
+def erlang_c(replicas: np.ndarray, offered: np.ndarray) -> np.ndarray:
+    """Erlang-C wait probability P(wait) for M/M/c units, vectorized.
+
+    ``replicas``: (N,) int servers per unit; ``offered``: (N,) offered load
+    in erlangs (a = lambda * mean_service).  Units at or beyond saturation
+    (a >= c) return 1.0 (the delay formula turns infinite there anyway).
+    Computed through the numerically stable Erlang-B recurrence
+    ``B(k) = a B(k-1) / (k + a B(k-1))``, run lock-step across units and
+    frozen at each unit's own replica count.
+    """
+    c = np.asarray(replicas, dtype=np.int64)
+    a = np.asarray(offered, dtype=np.float64)
+    if np.any(c < 1):
+        raise ValueError("every unit needs at least one replica")
+    B = np.ones_like(a)
+    for k in range(1, int(c.max()) + 1):
+        aB = a * B
+        B = np.where(k <= c, aB / (k + aB), B)
+    rho = a / c
+    out = B / np.maximum(1.0 - rho * (1.0 - B), 1e-300)
+    return np.where(rho >= 1.0, 1.0, np.minimum(out, 1.0))
+
+
+def queueing_delay(
+    replicas: np.ndarray,
+    job_rate: np.ndarray,
+    mean_service: np.ndarray,
+    service_scv: np.ndarray,
+    arrival_scv: np.ndarray | float = 1.0,
+) -> np.ndarray:
+    """Expected queueing wait per job for G/G/c units (Allen-Cunneen).
+
+    ``Wq = P(wait) / (c/s - lambda) * (Ca^2 + Cs^2) / 2`` with the per-unit
+    service squared-CV measured from the profile — the input-distribution
+    awareness the paper's throughput allocator does not have.  ``arrival_scv``
+    is the arrival-process dispersion: 1 for Poisson jobs, ~the batch size
+    for Poisson batch arrivals (requests dumping a whole patch batch at
+    once).  Saturated units (rho >= 1) return +inf.  Exact for M/M/c; the
+    standard approximation otherwise (M/D/c comes out as the familiar half
+    of the M/M/c wait).
+    """
+    c = np.asarray(replicas, dtype=np.float64)
+    lam = np.asarray(job_rate, dtype=np.float64)
+    s = np.asarray(mean_service, dtype=np.float64)
+    scv = np.asarray(service_scv, dtype=np.float64)
+    ca2 = np.asarray(arrival_scv, dtype=np.float64)
+    a = lam * s
+    slack = c / np.maximum(s, 1e-300) - lam  # (c - a) / s
+    pw = erlang_c(np.maximum(np.rint(c), 1).astype(np.int64), a)
+    wq = pw / np.maximum(slack, 1e-300) * (ca2 + scv) / 2.0
+    return np.where(a >= c, np.inf, wq)
+
+
+def queueing_allocate(
+    job_rate: np.ndarray,
+    mean_service: np.ndarray,
+    service_scv: np.ndarray,
+    unit_cost: np.ndarray,
+    budget: float,
+    *,
+    batch_size: np.ndarray | float = 1.0,
+    group: np.ndarray | None = None,
+    tail_weight: float = 4.6,
+    initial_replicas: np.ndarray | None = None,
+    extra_delay: np.ndarray | None = None,
+) -> AllocationResult:
+    """Greedy replica allocation by tail-weighted request delay at a load.
+
+    Where ``greedy_allocate`` equalizes expected *throughput* latencies (the
+    paper's objective — only the bottleneck matters), this allocator targets
+    the latency a *request* sees at an offered load.  Each unit is a FIFO
+    server pool receiving ``job_rate`` jobs per cycle in request-batches of
+    ``batch_size``; with ``c`` replicas its delay score is
+
+        D(c) = Shat + tail_weight * Wq(c),    Shat = s * max(batch / c, 1)
+
+    ``Shat`` is the drain of the request's own batch (nearly deterministic —
+    it concentrates over the batch), while ``Wq`` is the wait behind prior
+    requests — for batch >= c the pool serves one "super-job" per request
+    with no Erlang pooling gain (M/G/1 Pollaczek-Khinchine), below that the
+    job-level Erlang-C wait applies.  The queueing term is the *variable*
+    part of the delay, so a p99 objective weights it by roughly the tail
+    ratio of an exponential-like wait: ``tail_weight ~ -ln(1 - 0.99) = 4.6``.
+
+    The objective is ``sum over groups of max_in_group D`` — with ``group``
+    = pipeline stage, a stage's latency is its slowest pool's, and stages
+    add along the request path (contrast throughput, where only the global
+    bottleneck matters).  At high utilization the Wq guard pins the
+    allocation to the paper's utilization-equalizing greedy; at low
+    utilization it spends the slack bottleneck headroom on shortening the
+    whole request path instead.
+
+    ``extra_delay`` (per-unit, additive) folds a replica-count-independent
+    delay into the score — the communication penalty of the unit's placement
+    on a multi-chip fabric (the stage's entry transfer on its dataflow
+    edge).  A stage parked far from its data source scores slower, so the
+    wavefront spends replicas shortening the compute of the stages the
+    topology already taxes.  ``None`` leaves the score arithmetic untouched
+    (the flat single-chip special case, bit-identical to before the hook).
+
+    Greedy loop with *wavefront* moves: per group, the candidate is one
+    extra replica for every member within 5% of the group's max (granting
+    only the argmax of a near-tied wide stage would barely move its max, so
+    single-unit moves systematically starve wide stages).  Grants go to the
+    best positive gain per cost; a stabilization pre-phase first buys every
+    pool below saturation.  Stops when the budget is out, nothing gains, or
+    the best wavefront cannot be afforded (the paper's stopping rule).
+    Returns an ``AllocationResult`` whose ``latency`` is the per-unit score
+    ``D`` at the final replica counts.
+    """
+    lam = np.asarray(job_rate, dtype=np.float64)
+    s = np.asarray(mean_service, dtype=np.float64)
+    scv = np.asarray(service_scv, dtype=np.float64)
+    cost = np.asarray(unit_cost, dtype=np.float64)
+    if not (lam.shape == s.shape == scv.shape == cost.shape):
+        raise ValueError(
+            f"shape mismatch: rate {lam.shape}, service {s.shape}, "
+            f"scv {scv.shape}, cost {cost.shape}"
+        )
+    if np.any(cost <= 0):
+        raise ValueError("unit_cost must be strictly positive")
+    n = lam.size
+    batch = np.broadcast_to(np.asarray(batch_size, dtype=np.float64), (n,))
+    grp = np.arange(n) if group is None else np.asarray(group, dtype=np.int64)
+    if grp.shape != (n,):
+        raise ValueError(f"group has shape {grp.shape}, expected ({n},)")
+    replicas = (
+        np.ones(n, dtype=np.int64)
+        if initial_replicas is None
+        else np.asarray(initial_replicas, dtype=np.int64).copy()
+    )
+    if n == 0:
+        return AllocationResult(replicas, s.copy(), 0.0, float(budget))
+    if np.any(replicas < 1):
+        raise ValueError("every unit needs at least one replica")
+
+    if extra_delay is not None:
+        extra_delay = np.asarray(extra_delay, dtype=np.float64)
+        if extra_delay.shape != (n,):
+            raise ValueError(
+                f"extra_delay has shape {extra_delay.shape}, expected ({n},)"
+            )
+
+    def score(reps, mem=slice(None)):
+        """Delay score for the unit subset ``mem`` at replica counts
+        ``reps`` (shaped like the subset) — candidate moves only re-score
+        their own wave."""
+        reps = np.asarray(reps, dtype=np.float64)
+        s_, lam_, scv_, batch_ = s[mem], lam[mem], scv[mem], batch[mem]
+        shat = s_ * np.maximum(batch_ / reps, 1.0)
+        rho = lam_ * s_ / reps
+        cv2 = scv_ / np.maximum(batch_, 1.0)
+        wq = rho * shat * (1.0 + cv2) / 2.0 / np.maximum(1.0 - rho, 1e-300)
+        sub = batch_ < reps  # more lanes than a whole batch: Erlang pooling
+        if sub.any():
+            wq_er = queueing_delay(
+                np.maximum(np.rint(reps), 1).astype(np.int64), lam_, s_, scv_,
+                arrival_scv=batch_,  # jobs still land in request-bursts
+            )
+            wq = np.where(sub, wq_er, wq)
+        d = np.where(rho >= 1.0, np.inf, shat + float(tail_weight) * wq)
+        if extra_delay is not None:
+            d = d + extra_delay[mem]
+        return d
+
+    spent, remaining = 0.0, float(budget)
+
+    # pre-phase: buy stability (rho < 1) for the most overloaded unit first
+    while True:
+        rho = lam * s / replicas
+        i = int(np.argmax(rho))
+        if rho[i] < 1.0 or cost[i] > remaining:
+            break
+        replicas[i] += 1
+        remaining -= cost[i]
+        spent += cost[i]
+
+    members = [np.flatnonzero(grp == g) for g in np.unique(grp)]
+    d = score(replicas)  # updated incrementally: a grant only moves its wave
+    while True:
+        best_wave, best_gain = None, 0.0
+        for mem in members:
+            dm = d[mem]
+            mx = dm.max()
+            if not np.isfinite(mx):
+                in_wave = ~np.isfinite(dm)
+            else:
+                in_wave = dm >= 0.95 * mx
+            wave = mem[in_wave]
+            cst = float(cost[wave].sum())
+            if cst > remaining:
+                continue
+            rest = dm[~in_wave].max() if (~in_wave).any() else -np.inf
+            new_mx = max(float(score(replicas[wave] + 1, wave).max()), rest)
+            gain = (mx - new_mx) / cst if np.isfinite(mx) else np.inf
+            if gain > best_gain:
+                best_gain, best_wave = gain, wave
+        if best_wave is None:
+            break
+        replicas[best_wave] += 1
+        cst = float(cost[best_wave].sum())
+        remaining -= cst
+        spent += cst
+        d[best_wave] = score(replicas[best_wave], best_wave)
+    return AllocationResult(replicas, score(replicas), spent, remaining)
 
 
 def proportional_allocate(

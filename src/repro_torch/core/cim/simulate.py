@@ -18,6 +18,12 @@ Dataflow model (steady-state pipelined throughput), for N images:
   block-wise  T_l = max_b max( sum_p c[p,b] / d_b ,  max_p c[p,b] )
 and T = max_l T_l.  Utilization = busy array-cycles / (arrays alive x T).
 
+``latency_aware`` (the serving extension, block-wise dataflow) grants
+replicas by marginal queueing-delay reduction at a target offered load
+(``core.alloc.greedy.queueing_allocate``; ``fabric.vtime`` measures and
+refines it).  It needs an offered load, so sweeps take it explicitly
+(``ALL_POLICIES``).
+
 The profile is packed once (``pack_profile``) into float64 tensors on its
 device; ``_eval_kernel`` evaluates one allocation (``simulate``) or a batch
 of them (``BatchSimulator``) with the same tensor algebra.  The greedy
@@ -35,13 +41,19 @@ from typing import Literal
 import numpy as np
 import torch
 
-from ..alloc.greedy import SPARES_AND_AUDIT_NOT_PORTED, greedy_allocate, proportional_allocate
+from ..alloc.greedy import (
+    SPARES_AND_AUDIT_NOT_PORTED,
+    greedy_allocate,
+    proportional_allocate,
+    queueing_allocate,
+)
 from .network import NetworkSpec
 from .profile import NetworkProfile
 
 __all__ = [
     "Policy",
     "POLICIES",
+    "ALL_POLICIES",
     "Allocation",
     "SimResult",
     "SimTensors",
@@ -56,7 +68,12 @@ __all__ = [
 ]
 
 Policy = Literal[
-    "baseline", "weight_based", "perf_layerwise", "blockwise", "weight_blockflow"
+    "baseline",
+    "weight_based",
+    "perf_layerwise",
+    "blockwise",
+    "weight_blockflow",
+    "latency_aware",
 ]
 POLICIES: tuple[Policy, ...] = (
     "baseline",
@@ -65,12 +82,10 @@ POLICIES: tuple[Policy, ...] = (
     "blockwise",
     "weight_blockflow",
 )
+# the Fig 8 policies; "latency_aware" also needs an offered load
+ALL_POLICIES: tuple[Policy, ...] = POLICIES + ("latency_aware",)
 ARRAYS_PER_PE = 64
 CLOCK_HZ = 100e6
-LATENCY_AWARE_NOT_PORTED = (
-    "policy 'latency_aware' is not ported yet: it comes with fabric/ and the "
-    "queueing allocator (ROADMAP.md §1, work still to do)"
-)
 
 
 @dataclass(frozen=True)
@@ -95,6 +110,20 @@ class SimResult:
     def mean_utilization(self) -> float:
         u = self.layer_utilization
         return float(u.sum() / u.numel())
+
+
+def _layer_patch_cycles(prof: NetworkProfile, zskip: bool) -> list[np.ndarray]:
+    """Per-layer (S, B) per-patch per-block cycle samples as float64 numpy
+    on the host, the fabric engines' and the queueing allocator's input
+    (integer cycles convert exactly)."""
+    out = []
+    for lp in prof.layers:
+        if zskip:
+            out.append(lp.cycles_sample.detach().to("cpu", torch.float64).numpy())
+        else:
+            base = lp.baseline_block_cycles.detach().to("cpu", torch.float64).numpy()
+            out.append(np.broadcast_to(base, (lp.cycles_sample.shape[0], base.size)).copy())
+    return out
 
 
 def blockwise_units(
@@ -134,12 +163,13 @@ def allocate(
     audit=None,
 ) -> Allocation:
     """Pick replica counts.  ``free_budget`` caps the arrays spent on extra
-    replicas below the physical ``total - base``.  ``offered_ips`` and
-    ``load_frac`` (the ``latency_aware`` policy's target load) and ``audit``
-    take the reference's defaults, None, 0.7 and None; other values raise
-    ``NotImplementedError`` until their slices."""
-    if policy == "latency_aware" or offered_ips is not None or load_frac != 0.7:
-        raise NotImplementedError(LATENCY_AWARE_NOT_PORTED)
+    replicas below the physical ``total - base``.
+
+    The ``latency_aware`` policy needs a target offered load:
+    ``offered_ips`` (images/sec), or, when omitted, ``load_frac`` times the
+    analytic throughput of the ``blockwise`` allocation at the same budget.
+    ``audit`` takes the reference's default, None; another value raises
+    ``NotImplementedError`` until the observability slice."""
     if audit is not None:
         raise NotImplementedError(SPARES_AND_AUDIT_NOT_PORTED)
     total = n_pes * arrays_per_pe
@@ -185,7 +215,43 @@ def allocate(
         used = int(base_arrays + ((res.replicas - 1) * cost).sum())
         return Allocation(policy, None, block_dups, used, total)
 
+    if policy == "latency_aware":
+        if offered_ips is None:
+            bw = allocate(spec, prof, "blockwise", n_pes, arrays_per_pe, free_budget)
+            offered_ips = load_frac * simulate(spec, prof, bw).images_per_sec
+        if offered_ips <= 0:
+            raise ValueError(f"offered_ips must be positive, got {offered_ips}")
+        r_cyc = float(offered_ips) / CLOCK_HZ  # images per fabric cycle
+        cyc = _layer_patch_cycles(prof, True)
+        job_rate, mean, scv, cost, batch, group = _queueing_inputs(spec, cyc, r_cyc)
+        res = queueing_allocate(job_rate, mean, scv, cost, free, batch_size=batch, group=group)
+        block_dups = split_block_dups(spec, res.replicas)
+        used = int(base_arrays + ((res.replicas - 1) * cost).sum())
+        return Allocation(policy, None, block_dups, used, total)
+
     raise ValueError(policy)
+
+
+def _queueing_inputs(spec: NetworkSpec, cyc, r_cyc: float):
+    """Per-block queueing-model inputs for ``latency_aware``, flat over all
+    blocks: (job_rate, mean, scv, cost, batch, group).  Every patch of layer
+    ``l`` brings one job to each of its blocks, so a pool's job rate is
+    ``r * patches/image`` in request batches of ``patches_per_image``; a
+    layer (one pipeline stage) is a group.  numpy on the host, the
+    reference's arithmetic."""
+    mean, scv, job_rate, cost, batch, group = [], [], [], [], [], []
+    for i, layer in enumerate(spec.layers):
+        m = cyc[i].mean(axis=0)
+        v = cyc[i].var(axis=0)
+        mean.append(m)
+        scv.append(v / np.maximum(m, 1e-300) ** 2)
+        job_rate.append(np.full(layer.n_blocks, r_cyc * layer.patches_per_image))
+        cost.append(np.full(layer.n_blocks, float(layer.arrays_per_block)))
+        batch.append(np.full(layer.n_blocks, float(layer.patches_per_image)))
+        group.append(np.full(layer.n_blocks, i, dtype=np.int64))
+    return tuple(
+        np.concatenate(x) for x in (job_rate, mean, scv, cost, batch, group)
+    )
 
 
 def _block_means(spec: NetworkSpec, st: "SimTensors") -> list[np.ndarray]:

@@ -5,8 +5,10 @@ loop.
 but runs every config of a sweep at once: the proportional policies go
 through the numpy largest-remainder routine on the host, the greedy
 policies through the lock-step ``greedy_allocate_batch`` on the profile's
-device.  Replica vectors are element-wise those of the scalar allocator.
-``run_batch`` chains it into ``BatchSimulator``.
+device, and ``latency_aware`` points through the scalar ``allocate`` one
+config at a time (the queueing greedy is load-dependent).  Replica vectors
+are element-wise those of the scalar allocator.  ``run_batch`` chains it
+into ``BatchSimulator``.
 """
 
 from __future__ import annotations
@@ -20,14 +22,14 @@ from ..core.alloc.greedy import greedy_allocate_batch, proportional_allocate_bat
 from ..core.cim.network import NetworkSpec
 from ..core.cim.profile import NetworkProfile
 from ..core.cim.simulate import (
+    ALL_POLICIES,
     ARRAYS_PER_PE,
     CLOCK_HZ,
-    LATENCY_AWARE_NOT_PORTED,
-    POLICIES,
     Allocation,
     BatchSimResult,
     BatchSimulator,
     _block_means,
+    allocate,
     blockwise_units,
     pack_profile,
 )
@@ -88,16 +90,17 @@ def allocate_batch(
     policies,
     n_pes,
     arrays_per_pe: int = ARRAYS_PER_PE,
+    latency_load_frac: float = 0.7,
 ) -> AllocationBatch:
-    """Batched ``allocate``: one call for a whole (policy, PE-count) sweep."""
+    """Batched ``allocate``: one call for a whole (policy, PE-count) sweep.
+    ``latency_aware`` points are provisioned for ``latency_load_frac`` of
+    the blockwise throughput at their budget, as ``allocate``'s default."""
     policies = np.atleast_1d(np.asarray(policies, dtype=object))
     n_pes = np.atleast_1d(np.asarray(n_pes, dtype=np.int64))
     policies, n_pes = np.broadcast_arrays(policies, n_pes)
-    if np.any(policies == "latency_aware"):
-        raise NotImplementedError(LATENCY_AWARE_NOT_PORTED)
-    unknown = sorted({p for p in policies if p not in POLICIES})
+    unknown = sorted({p for p in policies if p not in ALL_POLICIES})
     if unknown:
-        raise ValueError(f"unknown policies {unknown}; choose from {POLICIES}")
+        raise ValueError(f"unknown policies {unknown}; choose from {ALL_POLICIES}")
     C = policies.shape[0]
     total = n_pes * arrays_per_pe
     base_arrays = spec.n_arrays
@@ -144,6 +147,15 @@ def allocate_batch(
         reps = res.replicas.cpu().numpy()
         used[block] = base_arrays + ((reps - 1) * cost).sum(axis=1).astype(np.int64)
 
+    for i in np.flatnonzero(policies == "latency_aware"):
+        a = allocate(
+            spec, prof, "latency_aware", int(n_pes[i]), arrays_per_pe,
+            load_frac=latency_load_frac,
+        )
+        for li, d in enumerate(a.block_dups):
+            dups_lb[i, li, : d.size] = torch.as_tensor(d, dtype=torch.float64, device=dev)
+        used[i] = a.arrays_used
+
     return AllocationBatch(
         policies=policies.astype(str),
         n_pes=n_pes.copy(),
@@ -179,9 +191,10 @@ def run_batch(
     clock_hz: float = CLOCK_HZ,
     arrays_per_pe: int = ARRAYS_PER_PE,
     simulator: BatchSimulator | None = None,
+    latency_load_frac: float = 0.7,
 ) -> tuple[AllocationBatch, BatchSimResult]:
     """allocate_batch + BatchSimulator in one call, on the profile's device."""
-    alloc = allocate_batch(spec, prof, policies, n_pes, arrays_per_pe)
+    alloc = allocate_batch(spec, prof, policies, n_pes, arrays_per_pe, latency_load_frac)
     sim = simulator if simulator is not None else BatchSimulator(spec, prof)
     res = sim(alloc.dups_lb, alloc.layerwise, alloc.zskip, n_images, clock_hz)
     return alloc, res

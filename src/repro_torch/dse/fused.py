@@ -32,9 +32,15 @@ integer-valued float64, so sums are exact in any order and each mean is one
 division, which makes the allocation bases bit-equal and the replicas
 exact; ``busy_sum`` sums rounded means, whose order may differ.
 
-Not ported yet: the fused fabric stage (``fabric_percentiles``, and
-``fabric=`` on ``run_fused_sweep``), the multi-chip sweep and ``shard=``;
-``latency_aware`` is load-coupled and stays on the staged path.
+The fused fabric stage (``fabric_percentiles``, ``fabric=`` on
+``run_fused_sweep``) runs every config's latency percentiles through one VT
+launch (``kernels.vtime_scan``): its variant table holds one service table
+per (ADC, zero-skip, dataflow) triple, built once per pipeline on the
+device from the derived banks, and each config picks its variant and its
+lanes.  Its columns equal the staged sweep's.
+
+Not ported yet: the multi-chip sweep and ``shard=``; ``latency_aware`` is
+load-coupled and stays on the staged path.
 """
 
 from __future__ import annotations
@@ -51,11 +57,12 @@ from ..core.cim.network import NetworkSpec
 from ..core.cim.profile import ActivationCapture
 from ..core.cim.simulate import ARRAYS_PER_PE, CLOCK_HZ, _eval_kernel
 from ..fabric.telemetry import get_telemetry
+from ..fabric.vtime import sample_service_indices, upload_indices, variant_table
 from ..kernels.bitplane_profile import bitplane_cycle_bank
 from ..kernels.fused_alloc_eval import fused_alloc_eval
+from ..kernels.vtime_scan import vtime_scan
 from .engine import flat_unit_map
 from .sweep import (
-    FABRIC_NOT_PORTED,
     SHARD_NOT_PORTED,
     FabricEval,
     SweepPoint,
@@ -131,6 +138,7 @@ class FusedPipeline:
         self._build_static()
         self._stats_cache = None
         self._sched_cache: dict[tuple, object] = {}
+        self._vt_tables = None
 
     # ------------------------------------------------------------ host prep
     def _build_static(self) -> None:
@@ -179,6 +187,7 @@ class FusedPipeline:
                 sl = layer.block_row_slices()
                 base = baseline_cycles(np.asarray([s.stop - s.start for s in sl]), v)
                 cyc0[ai, li, : self.S_l[li], : layer.n_blocks] = base
+        self.base0 = cyc0[:, :, 0, :]  # (A, L, B) baseline cycles per block
         self.mean0 = cyc0.sum(axis=2) / self.s_count[None, :, None]
         self.max0 = cyc0.max(axis=2)
         pmax0 = np.where(b_mask[None, :, None, :], cyc0, -np.inf).max(axis=3)
@@ -497,9 +506,72 @@ class FusedPipeline:
                         outs["dups_lb"][part] = d
         return used_f
 
-    def fabric_percentiles(self, *args, **kwargs):
-        """The fused virtual-time stage of the reference; not ported yet."""
-        raise NotImplementedError(FABRIC_NOT_PORTED)
+    # ----------------------------------------------------- fused fabric stage
+    def _fabric_tables(self) -> list[torch.Tensor]:
+        """VT's variant table: per layer (4A, S_l, B_l) float64 on the
+        device, variant ``(a * 2 + zskip) * 2 + layerwise``: the derived
+        bank (zero-skip) or the baseline cycles broadcast over the samples,
+        and for the layer-wise dataflow the per-patch barrier on pool 0."""
+        if self._vt_tables is None:
+            bank = self._stats()[-1]  # (A, L, S, B)
+            base = torch.as_tensor(self.base0, dtype=_F64, device=self.device)
+            tables = []
+            for li, layer in enumerate(self.spec.layers):
+                s, b = self.S_l[li], layer.n_blocks
+                per = []
+                for a in range(len(self.variants)):
+                    c1 = bank[a, li, :s, :b]
+                    c0 = base[a, li, :b].expand(s, b)
+                    for c in (c0, c1):
+                        per += [variant_table(c, False), variant_table(c, True)]
+                tables.append(torch.stack(per))
+            self._vt_tables = tables
+        return self._vt_tables
+
+    def fabric_percentiles(
+        self,
+        a_idx: np.ndarray,  # (C,)
+        dups_lb: np.ndarray,  # (C, L, B) from the analytic stage
+        layerwise: np.ndarray,  # (C,) bool
+        zskip: np.ndarray,  # (C,) bool
+        arrival_times: np.ndarray,  # (C, n) cycles
+        *,
+        seed: int = 0,
+        qs: tuple = (50.0, 95.0, 99.0),
+        xfer: np.ndarray | None = None,  # (C, L) stage entry transfers
+    ) -> np.ndarray:
+        """(C, len(qs)) latency percentiles through one VT launch: each
+        config picks its (ADC, zero-skip, dataflow) variant of the
+        pipeline's service tables and its lanes (a layer-wise config pools
+        its duplicates on block 0).  Bit-identical to routing each config
+        through the staged ``VirtualTimeFabric``; the percentiles are
+        ``np.percentile`` on the host over the exact latencies."""
+        dev = self.device
+        C, n = arrival_times.shape
+        a_idx = np.asarray(a_idx, dtype=np.int64)
+        lw = np.asarray(layerwise, dtype=bool)
+        z = np.asarray(zskip, dtype=bool)
+        dims = [(self.S_l[li], l.patches_per_image) for li, l in enumerate(self.spec.layers)]
+        idx = sample_service_indices(np.random.default_rng(seed), dims, n)
+        lanes = []
+        for li, layer in enumerate(self.spec.layers):
+            b = layer.n_blocks
+            d = np.asarray(dups_lb[:, li, :b]).astype(np.int64)
+            first = np.where(np.arange(b) == 0, d[:, :1], 0)
+            lanes.append(np.where(lw[:, None], first, d))
+        lanes = np.concatenate(lanes, axis=1).astype(np.int32)
+        variant = ((a_idx * 2 + z) * 2 + lw).astype(np.int32)
+        t_arr, comp, _, _ = vtime_scan(
+            self._fabric_tables(),
+            upload_indices(idx, dev),
+            torch.as_tensor(variant, device=dev),
+            torch.as_tensor(lanes, device=dev),
+            n_requests=n,
+            arrivals=torch.as_tensor(np.asarray(arrival_times, dtype=np.float64), device=dev),
+            xfer=None if xfer is None else torch.as_tensor(np.asarray(xfer, dtype=np.float64), device=dev),
+        )
+        lat = comp.cpu().numpy() - t_arr.cpu().numpy()
+        return np.percentile(lat, qs, axis=1).T
 
 
 def get_fused_pipeline(
@@ -570,10 +642,11 @@ def run_fused_sweep(
     per chunk (``chunk_size`` is an alias of ``chunk``).  Results are
     element-wise identical to the staged path on the discrete columns and
     within rtol 1e-12 on the floats.  ``engine="kernel"`` runs the
-    allocate + eval through K2.  ``latency_aware`` points raise, and so do
-    ``fabric=`` and ``shard_devices=True`` (not ported yet)."""
-    if fabric is not None:
-        raise NotImplementedError(FABRIC_NOT_PORTED)
+    allocate + eval through K2.  With ``fabric=FabricEval(...)`` the fused
+    fabric stage (``FusedPipeline.fabric_percentiles``, one VT launch per
+    group) fills the p50 / p95 / p99 columns from the same traces as the
+    staged ``run_sweep``.  ``latency_aware`` points raise, and so does
+    ``shard_devices=True`` (not ported yet)."""
     if shard_devices:
         raise NotImplementedError(SHARD_NOT_PORTED)
     dev = resolve_device(device)
@@ -586,6 +659,7 @@ def run_fused_sweep(
     }
     used = np.zeros(C, dtype=np.int64)
     total = np.zeros(C, dtype=np.int64)
+    pcts = np.full((C, 3), np.nan) if fabric is not None else None
 
     groups: dict[tuple, list[int]] = {}
     for i, p in enumerate(points):
@@ -610,13 +684,21 @@ def run_fused_sweep(
         pols = np.array([points[i].policy for i in rows], dtype=object)
         pes = np.array([points[i].n_pes for i in rows], dtype=np.int64)
         t0 = time.perf_counter()
-        res = pipe(a_idx, pols, pes, n_images=n_images, chunk=chunk, need_dups=False, engine=engine)
+        res = pipe(a_idx, pols, pes, n_images=n_images, chunk=chunk,
+                   need_dups=fabric is not None, engine=engine)
         util = res["layer_utilization"]
         out["total_cycles"][idx] = res["total_cycles"]
         out["images_per_sec"][idx] = res["images_per_sec"]
         out["mean_utilization"][idx] = util.sum(axis=1) / util.shape[1]
         used[idx] = res["arrays_used"]
         total[idx] = res["arrays_total"]
+        if fabric is not None:
+            gaps = np.random.default_rng(fabric.seed).exponential(1.0, size=fabric.n_requests)
+            rates = fabric.load_frac * res["images_per_sec"] / CLOCK_HZ
+            times = np.cumsum(gaps)[None, :] / rates[:, None]
+            pcts[idx] = pipe.fabric_percentiles(
+                a_idx, res["dups_lb"], res["layerwise"], res["zskip"], times, seed=fabric.seed
+            )
         elapsed += time.perf_counter() - t0
 
     return SweepResult(
@@ -628,4 +710,8 @@ def run_fused_sweep(
         arrays_total=total,
         elapsed_s=elapsed,
         engine="fused",
+        p50_cycles=pcts[:, 0] if fabric is not None else None,
+        p95_cycles=pcts[:, 1] if fabric is not None else None,
+        p99_cycles=pcts[:, 2] if fabric is not None else None,
+        fabric=fabric,
     )

@@ -13,12 +13,21 @@ import numpy as np
 
 from .sweep import SweepResult
 
-__all__ = ["pareto_mask", "pareto_frontier", "DEFAULT_OBJECTIVES"]
+__all__ = ["pareto_mask", "pareto_frontier", "DEFAULT_OBJECTIVES", "LATENCY_OBJECTIVES"]
 
 # (column, maximize?) — fewer arrays is better, more img/s and util are better
 DEFAULT_OBJECTIVES = (
     ("arrays_total", False),
     ("images_per_sec", True),
+    ("mean_utilization", True),
+)
+
+# serving-oriented frontier: what you serve, what users feel (tail latency at
+# the design's operating load, from a sweep run with ``FabricEval``), and how
+# busy the arrays stay
+LATENCY_OBJECTIVES = (
+    ("images_per_sec", True),
+    ("p99_cycles", False),
     ("mean_utilization", True),
 )
 

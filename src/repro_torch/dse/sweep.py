@@ -10,11 +10,13 @@ sweep runs the network forward once.  ``run_sweep`` groups points by
 (network, array), every group sharing one ``BatchSimulator``, and evaluates
 each group with ``run_batch`` on the device (``engine="batch"``) or with the
 per-config ``allocate`` / ``simulate`` loop (``engine="scalar"``, the
-equivalence reference).
+equivalence reference).  With ``fabric=FabricEval(...)`` every point also
+runs the virtual-time fabric for its p50 / p95 / p99 columns: one VT launch
+per group on the batch engine, one ``FabricSim`` per point on the scalar
+engine, bit-identical.
 
-Not ported yet: the serving-side latency columns (``fabric=``), sharding
-the batch over devices (``shard_devices=True``) and the multi-chip sweep;
-the first two raise ``NotImplementedError``.
+Not ported yet: sharding the batch over devices (``shard_devices=True``,
+which raises ``NotImplementedError``) and the multi-chip sweep.
 """
 
 from __future__ import annotations
@@ -36,13 +38,14 @@ from ..core.cim.profile import (
 )
 from ..core.cim.simulate import (
     ARRAYS_PER_PE,
+    CLOCK_HZ,
     POLICIES,
     BatchSimulator,
     allocate,
     simulate,
 )
 from ..fabric.telemetry import get_telemetry
-from .engine import run_batch
+from .engine import run_batch, to_allocation
 
 __all__ = [
     "FabricEval",
@@ -55,10 +58,6 @@ __all__ = [
     "clear_caches",
 ]
 
-FABRIC_NOT_PORTED = (
-    "the serving-side latency columns (fabric=) are not ported yet: they come "
-    "with fabric/ (ROADMAP.md §1, work still to do)"
-)
 SHARD_NOT_PORTED = (
     "splitting the config axis over devices (shard) is not ported yet "
     "(ROADMAP.md §1, distrib.sharding.shard_map_batch)"
@@ -68,6 +67,7 @@ _SPEC_FNS = {"resnet18": resnet18_imagenet, "vgg11": vgg11_cifar10}
 _CAPTURE_CACHE: dict[tuple, ActivationCapture] = {}
 _PROFILE_CACHE: dict[tuple, tuple[NetworkSpec, NetworkProfile]] = {}
 _SIMULATOR_CACHE: dict[tuple, BatchSimulator] = {}
+_VT_CACHE: dict[tuple, object] = {}  # VirtualTimeFabric per profiled group
 
 
 @dataclass(frozen=True)
@@ -82,9 +82,13 @@ class SweepPoint:
 
 @dataclass(frozen=True)
 class FabricEval:
-    """Serving-side evaluation attached to a sweep in the reference (the
-    virtual-time fabric at ``load_frac`` of each point's throughput).  The
-    port's sweeps refuse it until ``fabric/`` is ported."""
+    """Optional serving-side evaluation attached to a sweep.
+
+    Every design point additionally runs the virtual-time fabric under
+    open-loop Poisson traffic at ``load_frac`` of its own analytic
+    throughput, filling the sweep's latency-percentile columns.  Traces
+    share one normalized gap sequence (common random numbers), so latency
+    differences across designs are allocation effects, not trace noise."""
 
     load_frac: float = 0.7
     n_requests: int = 200
@@ -94,7 +98,8 @@ class FabricEval:
 @dataclass
 class SweepResult:
     """Columnar sweep outcome on the host; row i corresponds to
-    ``points[i]``."""
+    ``points[i]``.  The latency columns (``p50_cycles`` / ``p95_cycles`` /
+    ``p99_cycles``) are None unless the sweep ran with a ``FabricEval``."""
 
     points: list[SweepPoint]
     total_cycles: np.ndarray
@@ -104,13 +109,18 @@ class SweepResult:
     arrays_total: np.ndarray
     elapsed_s: float
     engine: str
+    p50_cycles: np.ndarray | None = None
+    p95_cycles: np.ndarray | None = None
+    p99_cycles: np.ndarray | None = None
+    fabric: FabricEval | None = None
 
     def __len__(self) -> int:
         return len(self.points)
 
     def rows(self) -> list[dict]:
-        return [
-            {
+        out = []
+        for i, p in enumerate(self.points):
+            row = {
                 "network": p.network,
                 "policy": p.policy,
                 "n_pes": p.n_pes,
@@ -122,17 +132,24 @@ class SweepResult:
                 "arrays_used": int(self.arrays_used[i]),
                 "arrays_total": int(self.arrays_total[i]),
             }
-            for i, p in enumerate(self.points)
-        ]
+            if self.p99_cycles is not None:
+                row["p50_ms"] = float(self.p50_cycles[i] / CLOCK_HZ * 1e3)
+                row["p95_ms"] = float(self.p95_cycles[i] / CLOCK_HZ * 1e3)
+                row["p99_ms"] = float(self.p99_cycles[i] / CLOCK_HZ * 1e3)
+            out.append(row)
+        return out
 
     def objectives(self, names: tuple[str, ...]) -> np.ndarray:
         """(C, len(names)) matrix of the named columns (pareto input)."""
         cols = []
         for n in names:
-            if n not in ("total_cycles", "images_per_sec", "mean_utilization",
-                         "arrays_used", "arrays_total"):
-                raise ValueError(f"no column {n!r} in the port's SweepResult ({FABRIC_NOT_PORTED})")
-            cols.append(np.asarray(getattr(self, n), dtype=np.float64))
+            v = getattr(self, n)
+            if v is None:
+                raise ValueError(
+                    f"column {n!r} was not computed: run the sweep with a "
+                    f"FabricEval to fill latency percentiles"
+                )
+            cols.append(np.asarray(v, dtype=np.float64))
         return np.stack(cols, axis=1)
 
 
@@ -210,6 +227,7 @@ def clear_caches() -> None:
     _CAPTURE_CACHE.clear()
     _PROFILE_CACHE.clear()
     _SIMULATOR_CACHE.clear()
+    _VT_CACHE.clear()
 
 
 def design_grid(
@@ -242,20 +260,28 @@ def run_sweep(
     arrays_per_pe: int = ARRAYS_PER_PE,
     engine: str = "batch",
     fabric: FabricEval | None = None,
+    latency_load_frac: float | None = None,
     shard_devices: bool = False,
     device: str | torch.device = "cuda",
 ) -> SweepResult:
     """Evaluate every point on ``device``; profiles are cached and excluded
     from timing.  ``engine="batch"`` runs one ``run_batch`` per (network,
     array) group; ``"scalar"`` loops ``allocate`` + ``simulate`` per point.
-    ``latency_aware`` points raise ``NotImplementedError`` (as in
-    ``allocate``), and so do ``fabric=`` and ``shard_devices=True``."""
-    if fabric is not None:
-        raise NotImplementedError(FABRIC_NOT_PORTED)
+
+    With ``fabric=FabricEval(...)`` every point also runs the virtual-time
+    fabric at ``load_frac`` of its own analytic throughput: one
+    ``VirtualTimeFabric`` call per group (VT on the card) on the batch
+    engine, one ``FabricSim`` run per point on the scalar engine, filling
+    the p50 / p95 / p99 columns.  ``latency_load_frac`` is the load
+    ``latency_aware`` points are provisioned for; it defaults to the load
+    they are evaluated at (``fabric.load_frac``, else 0.7).
+    ``shard_devices=True`` raises ``NotImplementedError``."""
     if shard_devices:
         raise NotImplementedError(SHARD_NOT_PORTED)
     if engine not in ("batch", "scalar"):
         raise ValueError(f"engine must be 'batch' or 'scalar', got {engine!r}")
+    if latency_load_frac is None:
+        latency_load_frac = fabric.load_frac if fabric is not None else 0.7
     dev = resolve_device(device)
     C = len(points)
     out = {
@@ -264,6 +290,7 @@ def run_sweep(
     }
     used = np.zeros(C, dtype=np.int64)
     total = np.zeros(C, dtype=np.int64)
+    pcts = np.full((C, 3), np.nan) if fabric is not None else None
 
     # group rows by (network, array): one packed profile per group
     groups: dict[tuple, list[int]] = {}
@@ -299,22 +326,34 @@ def run_sweep(
                     n_images=n_images,
                     arrays_per_pe=arrays_per_pe,
                     simulator=_SIMULATOR_CACHE[key],
+                    latency_load_frac=latency_load_frac,
                 )
                 out["total_cycles"][idx] = res.total_cycles.cpu().numpy()
                 out["images_per_sec"][idx] = res.images_per_sec.cpu().numpy()
                 out["mean_utilization"][idx] = res.mean_utilization.cpu().numpy()
                 used[idx] = alloc.arrays_used
                 total[idx] = alloc.arrays_total
+                allocs = [to_allocation(alloc, k, spec) for k in range(len(rows))]
             else:
+                allocs = []
                 for i in rows:
                     p = points[i]
-                    a = allocate(spec, prof, p.policy, p.n_pes, arrays_per_pe)
+                    a = allocate(
+                        spec, prof, p.policy, p.n_pes, arrays_per_pe,
+                        load_frac=latency_load_frac,
+                    )
                     s = simulate(spec, prof, a, n_images=n_images)
                     out["total_cycles"][i] = s.total_cycles
                     out["images_per_sec"][i] = s.images_per_sec
                     out["mean_utilization"][i] = s.mean_utilization
                     used[i] = a.arrays_used
                     total[i] = a.arrays_total
+                    allocs.append(a)
+            if fabric is not None:
+                pcts[idx] = _fabric_eval(
+                    spec, prof, allocs, out["images_per_sec"][idx], fabric, engine,
+                    (net, arr, profile_images, sample_patches, seed, str(dev)),
+                )
         elapsed += time.perf_counter() - t0
         done += len(rows)
         tel.gauge("dse.sweep.points_done", done)
@@ -328,4 +367,44 @@ def run_sweep(
         arrays_total=total,
         elapsed_s=elapsed,
         engine=engine,
+        p50_cycles=pcts[:, 0] if fabric is not None else None,
+        p95_cycles=pcts[:, 1] if fabric is not None else None,
+        p99_cycles=pcts[:, 2] if fabric is not None else None,
+        fabric=fabric,
     )
+
+
+def _fabric_eval(spec, prof, allocs, ips, fabric: FabricEval, engine: str, cache_key) -> np.ndarray:
+    """(C, 3) p50 / p95 / p99 in cycles for one sweep group.
+
+    Each design gets a Poisson trace at ``load_frac`` of its own analytic
+    throughput, built from one shared normalized gap sequence; the batch
+    engine evaluates the whole group in one virtual-time call (VT on the
+    profile's device), the scalar engine runs ``FabricSim`` per point.
+    Percentiles are ``np.percentile`` over the exact latencies in both, so
+    the two columns agree to the last bit."""
+    from ..fabric.arrivals import TraceReplay
+    from ..fabric.dispatch import FabricSim
+    from ..fabric.vtime import VirtualTimeFabric
+
+    rng = np.random.default_rng(fabric.seed)
+    gaps = rng.exponential(1.0, size=fabric.n_requests)
+    rates = fabric.load_frac * np.asarray(ips, dtype=np.float64) / CLOCK_HZ
+    procs = [TraceReplay(np.cumsum(gaps) / r) for r in rates]
+    qs = (50.0, 95.0, 99.0)
+    if engine == "batch":
+        tel = get_telemetry()
+        vt = _VT_CACHE.get(cache_key)
+        if vt is None:
+            tel.count("dse.vt.miss")
+            dev = prof.layers[0].cycles_sample.device
+            vt = _VT_CACHE[cache_key] = VirtualTimeFabric(spec, prof, device=dev)
+        else:
+            tel.count("dse.vt.hit")
+        res = vt.run_batch(allocs, procs, seed=fabric.seed, percentiles=qs)
+        return np.percentile(res.latencies, qs, axis=1).T
+    out = np.zeros((len(allocs), 3))
+    for k, (a, pr) in enumerate(zip(allocs, procs)):
+        r = FabricSim(spec, prof, a, seed=fabric.seed).run(pr)
+        out[k] = np.percentile(r.latencies, qs)
+    return out

@@ -5,6 +5,9 @@ K2 ``fused_alloc_eval``: CUDA C++ (``csrc/fused_alloc_eval.cu``).
 K3 ``zskip_matmul``: CUDA C++ (``csrc/zskip_matmul.cu``).
 K4 ``flash_attention``: CUDA C++ (``csrc/flash_attention.cu``).
 K5 ``ssd_scan``: CUDA C++ (``csrc/ssd_chunk.cu``).
+VT ``vtime_scan``: CUDA C++ (``csrc/vtime_scan.cu``), the fabric's
+virtual-time scan; no Pallas kernel of the reference, the counterpart of its
+jitted ``lax.scan``.
 All are built with nvcc on first use (``_build``); ``ops`` wraps K3, K4 and
 K5 for the models.  No kernel is built or loaded at import.
 """

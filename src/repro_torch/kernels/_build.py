@@ -1,7 +1,8 @@
 """Builds the port's CUDA sources into shared libraries and loads them.
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point.  ``build`` compiles
-it with ``nvcc`` for ``sm_90a`` into ``build/repro_torch/`` at the root of
+it with ``nvcc`` for ``sm_90a`` (``NVCC_FLAGS``, and a library's own
+``EXTRA_FLAGS``) into ``build/repro_torch/`` at the root of
 the checkout, one ``nvcc`` process per source, all started together; the
 library's file name carries a hash of its source and of every ``csrc/*.cuh``
 header it includes, so an edited source or header is rebuilt and an
@@ -33,6 +34,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills, kept in the log
 )
+# flags of one library on top of NVCC_FLAGS (part of its file name's hash)
+EXTRA_FLAGS = {
+    "vtime_scan": ("--fmad=false",),  # VT adds and compares only: no contraction anywhere
+}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 _QUEUES: dict[tuple[int, int], object] = {}
@@ -62,7 +67,7 @@ def _sources(name: str) -> list[Path]:
 
 
 def library_path(name: str) -> Path:
-    h = hashlib.sha256()
+    h = hashlib.sha256(" ".join(EXTRA_FLAGS.get(name, ())).encode())
     for path in _sources(name):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
@@ -82,7 +87,7 @@ def build(*names: str) -> dict[str, str]:
             logs[name] = log.read_text()
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )

@@ -183,10 +183,6 @@ def test_flat_unit_map_equal():
 
 def test_unported_and_invalid_policies_raise(shared):
     _, _, tspec, tprof = shared
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.allocate(tspec, tprof, "latency_aware", tspec.min_pes() * 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TE.run_batch(tspec, tprof, ["blockwise", "latency_aware"], tspec.min_pes() * 2)
     with pytest.raises(ValueError, match="unknown policies"):
         TE.run_batch(tspec, tprof, ["nope"], tspec.min_pes() * 2)
     with pytest.raises(ValueError, match="minimum"):
@@ -197,8 +193,8 @@ def test_unported_and_invalid_policies_raise(shared):
 
 def test_reference_keywords_take_their_defaults(shared):
     """``greedy_allocate``'s ``spare_fraction`` / ``audit`` and ``allocate``'s
-    ``offered_ips`` / ``load_frac`` / ``audit``: the reference's defaults
-    give the reference's result; any other value is refused by name."""
+    ``audit``: the reference's defaults give the reference's result; any
+    other value is refused by name."""
     rspec, rprof, tspec, tprof = shared
     base, cost = _units(3, 40)
     want = RG.greedy_allocate(base, cost, 100.0)
@@ -212,6 +208,5 @@ def test_reference_keywords_take_their_defaults(shared):
     a = T.allocate(tspec, tprof, "blockwise", pes, offered_ips=None, load_frac=0.7, audit=None)
     r = R.allocate(rspec, rprof, "blockwise", pes)
     assert a.arrays_used == r.arrays_used
-    for kw in (dict(offered_ips=100.0), dict(load_frac=0.5), dict(audit=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.allocate(tspec, tprof, "blockwise", pes, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.allocate(tspec, tprof, "blockwise", pes, audit=object())

@@ -1,0 +1,319 @@
+"""Parity of the port's fabric runtime (``repro_torch.fabric``) with the
+reference, on the host: arrival processes, the event core (``ServerPool``),
+the event engine (``FabricSim``), drift re-allocation, failure replay, the
+latency sketch and the flat tenancy path.
+
+Both packages start from the reference's VGG11 capture (2 images, 128
+samples, the ``tests/golden/vgg11_fabric_scalar.json`` parameters): the port
+derives its profile from ``convert.capture_from_numpy`` of it, which the
+derive parity tests hold bit-identical.  The engines' contract is the
+reference's: arrivals and completions exactly equal (``assert_array_equal``),
+the telemetry sums at rtol 1e-12.
+"""
+
+import json
+from pathlib import Path
+
+import jax
+import jax.experimental
+import numpy as np
+import pytest
+
+import repro.core.cim as R
+import repro.fabric as RF
+import repro_torch.core.cim as T
+import repro_torch.fabric as TF
+from repro_torch.convert import capture_from_numpy
+
+GOLDEN = Path(__file__).parent / "golden"
+CLOCK_HZ = 1e8
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _x64_shim():
+    """The reference imports ``jax.experimental.enable_x64``, which jax 0.9
+    removed; provide it for this module only."""
+    with pytest.MonkeyPatch.context() as mp:
+        if not hasattr(jax.experimental, "enable_x64"):
+            mp.setattr(
+                jax.experimental, "enable_x64", lambda: jax.enable_x64(True), raising=False
+            )
+        yield
+
+
+@pytest.fixture(scope="module")
+def vgg():
+    """(reference spec, profile, port spec, profile) from one capture."""
+    g = json.loads((GOLDEN / "vgg11_fabric_scalar.json").read_text())
+    rspec, tspec = R.vgg11_cifar10(), T.vgg11_cifar10()
+    rcap = R.capture_activations(rspec, **g["profile_params"])
+    rprof = R.derive_profile(rcap, rspec)
+    tprof = T.derive_profile(capture_from_numpy(rcap, device="cpu"), tspec)
+    return rspec, rprof, tspec, tprof
+
+
+@pytest.fixture(scope="module")
+def allocs(vgg):
+    """Reference and port allocations at twice the minimum PEs, and the
+    blockwise analytic img/s."""
+    rspec, rprof, tspec, tprof = vgg
+    pes = tspec.min_pes() * 2
+    cap = R.simulate(rspec, rprof, R.allocate(rspec, rprof, "blockwise", pes)).images_per_sec
+    out = {}
+    for pol in ("weight_based", "blockwise", "baseline"):
+        out[pol] = (R.allocate(rspec, rprof, pol, pes), T.allocate(tspec, tprof, pol, pes))
+    out["latency_aware"] = (
+        R.allocate(rspec, rprof, "latency_aware", pes, offered_ips=0.5 * cap),
+        T.allocate(tspec, tprof, "latency_aware", pes, offered_ips=0.5 * cap),
+    )
+    return out, cap
+
+
+def _same_alloc(r, t):
+    assert r.policy == t.policy and r.arrays_used == t.arrays_used
+    if r.layer_dups is not None:
+        np.testing.assert_array_equal(t.layer_dups, r.layer_dups)
+    else:
+        for a, b in zip(r.block_dups, t.block_dups, strict=True):
+            np.testing.assert_array_equal(b, a)
+
+
+def _same_run(r, t):
+    np.testing.assert_array_equal(t.arrivals, r.arrivals)
+    np.testing.assert_array_equal(t.completions, r.completions)
+    np.testing.assert_array_equal(t.layer_busy, r.layer_busy)
+    np.testing.assert_array_equal(t.layer_arrays, r.layer_arrays)
+    np.testing.assert_array_equal(t.layer_capacity, r.layer_capacity)
+
+
+# ------------------------------------------------------------- arrivals
+@pytest.mark.parametrize(
+    "kind",
+    ["closed", "poisson", "trace", "sinusoidal", "mmpp2"],
+)
+def test_arrival_times_equal(kind):
+    def make(m):
+        return {
+            "closed": m.ClosedLoop(20, 4),
+            "poisson": m.PoissonOpen(300, 1e-4, seed=3),
+            "trace": m.TraceReplay(np.cumsum(np.random.default_rng(1).exponential(5.0, 50))),
+            "sinusoidal": m.SinusoidalPoisson(200, 2e-4, 4e5, amplitude=0.6, seed=2),
+            "mmpp2": m.MMPP2(200, 5e-5, 8e-4, 2e5, 4e4, seed=9),
+        }[kind]
+
+    want = RF.arrival_times(make(RF))
+    got = TF.arrival_times(make(TF))
+    if want is None:
+        assert got is None
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+def test_non_monotone_trace_rejected():
+    with pytest.raises(ValueError, match="nondecreasing"):
+        TF.arrival_times(TF.TraceReplay(np.array([1.0, 4.0, 2.0])))
+
+
+# ----------------------------------------------------------- event core
+@pytest.mark.parametrize("servers", [1, 2, 5])
+def test_server_pool_equal(servers):
+    """Batches of jobs on one pool: batch completions, free-times, busy
+    cycles and the telemetry (starts, lanes, PoolStats) equal."""
+    rng = np.random.default_rng(servers)
+    pools = [
+        m.ServerPool(servers, width=3, record_starts=True, stats=True) for m in (RF, TF)
+    ]
+    t = 0.0
+    for _ in range(12):
+        t += float(rng.exponential(40.0))
+        svc = rng.integers(1, 90, int(rng.integers(0, 9))).astype(np.float64) + rng.random()
+        done = [p.dispatch(t, svc) for p in pools]
+        assert done[1] == done[0]
+    r, p = pools
+    assert p.avail == r.avail and p.busy == r.busy and p.jobs == r.jobs
+    for a, b in zip(r.starts, p.starts, strict=True):
+        np.testing.assert_array_equal(b, a)
+    for a, b in zip(r.servers, p.servers, strict=True):
+        np.testing.assert_array_equal(b, a)
+    assert vars(p.stats) == vars(r.stats)
+    np.testing.assert_array_equal(p.occupancy(50.0, t), r.occupancy(50.0, t))
+    p.grow(2, t + 5.0)
+    r.grow(2, t + 5.0)
+    assert p.kill(2, t + 1.0) == r.kill(2, t + 1.0)
+    assert p.avail == r.avail
+    assert p.capacity_cycles(t + 100.0) == r.capacity_cycles(t + 100.0)
+
+
+def test_event_calendar_order():
+    cal = TF.EventCalendar()
+    for t, r in ((5.0, 0), (1.0, 1), (5.0, 2), (0.5, 3)):
+        cal.push(t, r, 0)
+    assert [cal.pop()[1] for _ in range(len(cal))] == [3, 1, 0, 2]
+
+
+# --------------------------------------------------------------- engine
+@pytest.mark.parametrize("sampling", ["presample", "hash"])
+@pytest.mark.parametrize("loop", ["poisson", "closed"])
+@pytest.mark.parametrize("policy", ["weight_based", "blockwise", "latency_aware"])
+def test_fabric_sim_equal(vgg, allocs, policy, loop, sampling):
+    """FabricSim on VGG11: Poisson 40 requests at 0.6 of the blockwise
+    img/s, or ClosedLoop(30, 8); presampled or hashed service draws."""
+    rspec, rprof, tspec, tprof = vgg
+    (ra, ta), cap = allocs[0][policy], allocs[1]
+    _same_alloc(ra, ta)
+
+    def proc(m):
+        if loop == "closed":
+            return m.ClosedLoop(30, 8)
+        return m.PoissonOpen(40, 0.6 * cap / CLOCK_HZ, seed=5)
+
+    r = RF.FabricSim(rspec, rprof, ra, seed=3, service_sampling=sampling).run(proc(RF))
+    t = TF.FabricSim(tspec, tprof, ta, seed=3, service_sampling=sampling).run(proc(TF))
+    _same_run(r, t)
+    assert vars(t.latency) == vars(r.latency) and t.images_per_sec == r.images_per_sec
+
+
+def test_fabric_sim_stats_and_timeline_equal(vgg, allocs):
+    rspec, rprof, tspec, tprof = vgg
+    (ra, ta), cap = allocs[0]["blockwise"], allocs[1]
+    r = RF.FabricSim(rspec, rprof, ra, seed=2, stats=True, record_timeline=True).run(
+        RF.PoissonOpen(25, 0.6 * cap / CLOCK_HZ, seed=1))
+    t = TF.FabricSim(tspec, tprof, ta, seed=2, stats=True, record_timeline=True).run(
+        TF.PoissonOpen(25, 0.6 * cap / CLOCK_HZ, seed=1))
+    _same_run(r, t)
+    for f in ("layer_service", "layer_queue_wait", "layer_xfer", "layer_reprogram",
+              "layer_jobs", "stage_entry", "stage_exit", "layer_occupied"):
+        np.testing.assert_array_equal(getattr(t.stats, f), getattr(r.stats, f), err_msg=f)
+    np.testing.assert_array_equal(t.stats.replica_imbalance(), r.stats.replica_imbalance())
+
+
+def test_golden_vgg11_protocol(vgg):
+    """The protocol of ``tests/golden/vgg11_fabric_scalar.json`` (blockwise
+    and latency_aware at twice the minimum PEs, 120 Poisson requests at 0.6
+    of the blockwise img/s, arrival seed 7, service seed 3), run by both
+    packages from this session's capture: allocations, percentiles and
+    completion digests equal.  The fixture's own numbers date from another
+    jax: on this one the reference's capture gives other layer-1 replicas
+    (``[28, 28, 26, 27, 16]`` against the fixture's ``[27, 27, 27, 26,
+    15]``), so neither package can reproduce them from a capture here."""
+    rspec, rprof, tspec, tprof = vgg
+    g = json.loads((GOLDEN / "vgg11_fabric_scalar.json").read_text())
+    pes = tspec.min_pes() * 2
+    assert [int(r["n_pes"]) for r in g["results"]] == [pes, pes]
+    cap = R.simulate(rspec, rprof, R.allocate(rspec, rprof, "blockwise", pes)).images_per_sec
+    assert T.simulate(tspec, tprof, T.allocate(tspec, tprof, "blockwise", pes)).images_per_sec == cap
+    for pol in ("blockwise", "latency_aware"):
+        kw = {"offered_ips": 0.6 * cap} if pol == "latency_aware" else {}
+        ra = R.allocate(rspec, rprof, pol, pes, **kw)
+        ta = T.allocate(tspec, tprof, pol, pes, **kw)
+        _same_alloc(ra, ta)
+        rate = 0.6 * cap / CLOCK_HZ
+        r = RF.FabricSim(rspec, rprof, ra, seed=g["service_seed"]).run(
+            RF.PoissonOpen(g["n_requests"], rate, seed=g["arrival_seed"]))
+        t = TF.FabricSim(tspec, tprof, ta, seed=g["service_seed"]).run(
+            TF.PoissonOpen(g["n_requests"], rate, seed=g["arrival_seed"]))
+        _same_run(r, t)
+        pct = [np.percentile(x.latencies, [50.0, 95.0, 99.0]).tolist() for x in (r, t)]
+        assert pct[1] == pct[0]
+        assert float(t.completions.sum()) == float(r.completions.sum())
+
+
+# ---------------------------------------------------------------- drift
+def test_drift_reallocation_equal(vgg):
+    """A shifted live profile with the online re-allocator: the shifted
+    cycles, the re-allocation events and every completion equal."""
+    rspec, rprof, tspec, tprof = vgg
+    pes = tspec.min_pes() * 2
+    free = pes * 64 - tspec.n_arrays
+    scale = {4: 1.8, 5: 1.8, 6: 1.8}
+    rlive, tlive = RF.shift_profile(rprof, scale), TF.shift_profile(tprof, scale)
+    for a, b in zip(rlive.layers, tlive.layers, strict=True):
+        np.testing.assert_array_equal(b.cycles_sample.numpy(), a.cycles_sample)
+        np.testing.assert_array_equal(b.mean_cycles.numpy(), a.mean_cycles)
+    ra = R.allocate(rspec, rprof, "blockwise", pes, free_budget=free * 0.6)
+    ta = T.allocate(tspec, tprof, "blockwise", pes, free_budget=free * 0.6)
+    _same_alloc(ra, ta)
+    rl = RF.OnlineReallocator(rspec, rprof, reserve_arrays=free * 0.4)
+    tl = TF.OnlineReallocator(tspec, tprof, reserve_arrays=free * 0.4)
+    r = RF.FabricSim(rspec, rprof, ra, seed=2, live_prof=rlive, reallocator=rl).run(RF.ClosedLoop(60, 16))
+    t = TF.FabricSim(tspec, tprof, ta, seed=2, live_prof=tlive, reallocator=tl).run(TF.ClosedLoop(60, 16))
+    assert len(r.reallocations) >= 1
+    assert [vars(e) for e in t.reallocations] == [vars(e) for e in r.reallocations]
+    assert tl.budget == rl.budget
+    _same_run(r, t)
+
+
+# ------------------------------------------------------------- failures
+def test_degrade_plan_replay_equal(vgg, allocs):
+    """One seeded failure trace (kills, repairs, spare re-placement,
+    reprogramming stalls): the trace, the plan and the event engine's
+    replay of it equal."""
+    rspec, rprof, tspec, tprof = vgg
+    (ra, ta), cap = allocs[0]["blockwise"], allocs[1]
+    gaps = np.random.default_rng(7).exponential(1.0, size=60)
+    times = np.cumsum(gaps) / (0.6 * cap / CLOCK_HZ)
+    horizon = float(times[-1])
+    kw = dict(horizon=horizon, seed=5, rate_per_array=2e-9, repair_cycles=horizon / 4)
+    rtr = RF.generate_failure_trace(rspec, ra, **kw)
+    ttr = TF.generate_failure_trace(tspec, ta, **kw)
+    assert rtr.n_failures > 0
+    assert [(e.time, e.unit, e.lane, e.repair, e.chip) for e in ttr.events] == [
+        (e.time, e.unit, e.lane, e.repair, e.chip) for e in rtr.events
+    ]
+    rp = RF.degrade_plan(rspec, rprof, ra, rtr, spare_arrays=32.0)
+    tp = TF.degrade_plan(tspec, tprof, ta, ttr, spare_arrays=32.0)
+    assert tp.n_segments == rp.n_segments > 1
+    for f in ("boundaries", "arrays_added", "stall_cycles", "arrays_online"):
+        np.testing.assert_array_equal(getattr(tp, f), getattr(rp, f), err_msg=f)
+    assert tp.availability() == rp.availability()
+    r = RF.FabricSim(rspec, rprof, ra, seed=3, failures=rp).run(RF.TraceReplay(times))
+    t = TF.FabricSim(tspec, tprof, ta, seed=3, failures=tp).run(TF.TraceReplay(times))
+    _same_run(r, t)
+
+
+# ---------------------------------------------------------------- sketch
+def test_latency_sketch(vgg, allocs):
+    """The sketch's bucket counts equal the reference's, its quantiles are
+    within ``rel_error`` of ``np.percentile``, and streaming updates give
+    the vectorized counts."""
+    rng = np.random.default_rng(4)
+    lat = rng.lognormal(10.0, 0.7, size=2000)
+    cfg = TF.SketchConfig()
+    got = TF.LatencySketch.from_latencies(lat, cfg)
+    want = RF.LatencySketch.from_latencies(lat, RF.SketchConfig())
+    np.testing.assert_array_equal(got.counts, want.counts)
+    for q in (50.0, 95.0, 99.0):
+        assert got.quantile(q) == want.quantile(q)
+        assert abs(got.quantile(q) / np.percentile(lat, q) - 1.0) <= cfg.rel_error
+    from repro_torch.fabric.metrics import sketch_init, sketch_update
+
+    state = sketch_init(np, cfg)
+    for v in lat[:300]:
+        state = sketch_update(np, state, v, cfg)
+    streamed = TF.LatencySketch.from_state(cfg, state)
+    np.testing.assert_array_equal(streamed.counts, TF.LatencySketch.from_latencies(lat[:300], cfg).counts)
+    merged = streamed.merge(TF.LatencySketch.from_latencies(lat[300:], cfg))
+    np.testing.assert_array_equal(merged.counts, got.counts)
+
+
+# --------------------------------------------------------------- tenancy
+def test_tenancy_flat_path_equal(vgg):
+    """Two weighted tenants on one budget: the shared allocation, every
+    tenant's run and the fairness report equal; the placed path refuses."""
+    rspec, rprof, tspec, tprof = vgg
+    pes = tspec.min_pes() * 3
+    rt = [RF.Tenant("a", rspec, rprof, 2.0), RF.Tenant("b", rspec, rprof, 1.0)]
+    tt = [TF.Tenant("a", tspec, tprof, 2.0), TF.Tenant("b", tspec, tprof, 1.0)]
+    rs, ts = RF.allocate_shared(rt, pes), TF.allocate_shared(tt, pes)
+    assert ts.arrays_used == rs.arrays_used and ts.leftover == rs.leftover
+    for a, b in zip(rs.allocations, ts.allocations, strict=True):
+        _same_alloc(a, b)
+    rr = RF.run_tenants(rs, [RF.ClosedLoop(20, 8)] * 2, seed=1)
+    tr = TF.run_tenants(ts, [TF.ClosedLoop(20, 8)] * 2, seed=1)
+    for a, b in zip(rr, tr, strict=True):
+        _same_run(a, b)
+    assert TF.fairness_report(ts, tr) == RF.fairness_report(rs, rr)
+    with pytest.raises(NotImplementedError, match="topology"):
+        TF.allocate_shared(tt, pes, topology=object())
+    with pytest.raises(ValueError, match="weights"):
+        TF.allocate_shared([TF.Tenant("a", tspec, tprof, 0.0)], pes)

@@ -288,13 +288,9 @@ def _pipe():
         ("infeasible", ValueError, "arrays"),
         ("bad_a_idx", ValueError, "a_idx"),
         ("unknown_engine", ValueError, "engine"),
-        ("fabric", NotImplementedError, "fabric"),
         ("shard_devices", NotImplementedError, "shard"),
         ("shard_pipeline", NotImplementedError, "shard"),
-        ("fabric_percentiles", NotImplementedError, "fabric"),
-        ("staged_fabric", NotImplementedError, "fabric"),
         ("staged_shard", NotImplementedError, "shard"),
-        ("staged_latency_aware", NotImplementedError, "latency_aware"),
         ("duplicate_adc", ValueError, "duplicate"),
     ],
 )
@@ -306,13 +302,9 @@ def test_refusals(shared, case, err, match):
         "infeasible": lambda: _pipe()(np.zeros(1, np.int32), ["blockwise"], [1]),
         "bad_a_idx": lambda: _pipe()(np.array([1], np.int32), ["blockwise"], [pes * 2]),
         "unknown_engine": lambda: _pipe()(np.zeros(1, np.int32), ["blockwise"], [pes * 2], engine="pallas"),
-        "fabric": lambda: TF.run_fused_sweep(_sweep_grid(), fabric=TS.FabricEval(), device="cpu"),
         "shard_devices": lambda: TF.run_fused_sweep(_sweep_grid(), shard_devices=True, device="cpu"),
         "shard_pipeline": lambda: TF.FusedPipeline("vgg11", DEFAULT_ARRAY, (3,), shard=True, device="cpu"),
-        "fabric_percentiles": lambda: _pipe().fabric_percentiles(np.zeros(1, np.int32)),
-        "staged_fabric": lambda: TS.run_sweep(_sweep_grid(), fabric=TS.FabricEval(), device="cpu"),
         "staged_shard": lambda: TS.run_sweep(_sweep_grid(), shard_devices=True, device="cpu"),
-        "staged_latency_aware": lambda: TS.run_sweep(la, device="cpu"),
         "duplicate_adc": lambda: TF.FusedPipeline("vgg11", DEFAULT_ARRAY, (3, 3), device="cpu"),
     }
     with pytest.raises(err, match=match):
