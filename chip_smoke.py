@@ -106,7 +106,22 @@ sources.  Phases, each of which fails the run on any mismatch:
      (stats, transfers, fractional cycles); VT's times beside its bound (a
      one-thread FP64 add + min chain measured here, or the bytes), the
      device's busy share over the fused sweep, and VT's cycles a job by
-     pool width and a (request, layer) on synthetic one-pool problems.
+     pool width and a (request, layer) on synthetic one-pool problems;
+ 18. the multi-chip half (slice 9): F8, VT on VGG11 blockwise at 10x to 20x
+     the minimum PEs (pools wider than 512 servers) equal to FabricSim; the
+     reference's multi-chip sweep (VGG11, 1 to 8 chips x 16 to 256 Gb/s
+     links at equal silicon, placed by allocate_placed, 2 VT launches) with
+     two points equal to FabricSim(placement=) on the host; the fused
+     (placement x load) surface equal to the staged sweep at load 0.7; fleet
+     replay of FLEET_REQUESTS sinusoidal Poisson requests through the
+     streaming VT entry (the W=1 materialized baseline, the sketch within
+     its bound of the exact percentiles, the stream equal to the baseline,
+     the first requests equal to FabricSim(service_sampling="hash"), the
+     kernel against its plain version, the segmented hold / grow replay
+     with macro-jobs, each segment's launch beside its chain bound); the
+     fault sweep (spares x rates, 600 requests) equal to the host's
+     FabricSim(failures=) replays; the utilization report and the Perfetto
+     trace of a placed 4-chip run.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's launches
 on the main path, max |kernel - plain|, times and bound); the last line is
@@ -192,6 +207,29 @@ FABRIC_R18_EQUAL = (30, 12)
 FABRIC_VGG_HALF_BUDGETS = 11250
 FABRIC_FUSED_CONFIGS = 1024
 FABRIC_CHECK_REQUESTS = 40
+# the multi-chip and fleet phase (slice 9): the reference's fabric_multichip
+# (benchmarks/run.py:698-720: VGG11, chips 1, 2, 4, 8 x links 16, 64, 256 Gb/s
+# at 2x the minimum PEs, 200 requests, ClosedLoop(60, 24), 64 samples, seed 0),
+# its fused (placement x load) surface (:853-872: chips 1, 2, 4 x links 16, 64 x
+# loads 0.3 to 0.8, 120 requests, ClosedLoop(40, 24)), fabric_fleet (:918-1034:
+# VGG11 blockwise at 2x the minimum PEs, a two-cycle sinusoidal Poisson trace
+# at 0.6 of capacity, amplitude 0.5, seed 0; hold and grow by [64, 128] arrays
+# at n/3 and 2n/3; service seed 7; macro-jobs with tail_lanes 2; window 8) at
+# FLEET_REQUESTS requests, and fabric_faults (:1036-1080: spares 0, 0.1, 0.25
+# x rates 1e-9, 1e-8, 600 requests, seed 0); F8 at 10x to 20x the minimum PEs
+MC_CHIPS = (1, 2, 4, 8)
+MC_LINKS = (16.0, 64.0, 256.0)
+MC_RUN = dict(n_requests=200, closed_requests=60, concurrency=24, sample_patches=64, seed=0)
+MC_CHECK_REQUESTS = 40
+FUSED_CHIP = dict(chips=(1, 2, 4), link_gbps=(16.0, 64.0))
+FUSED_CHIP_LOADS = (0.3, 0.4, 0.5, 0.6, 0.7, 0.8)
+FUSED_CHIP_RUN = dict(n_requests=120, closed_requests=40, concurrency=24, seed=0)
+FLEET_REQUESTS = 500_000  # the reference bench replays 10^6; cut so that the phase stays near 300 s
+FLEET_HOST_REQUESTS = 2000  # the stream's first requests held against FabricSim on the host
+FLEET_PLAIN_REQUESTS = 500  # the kernel against its plain version (on the host): the stream and each replay segment
+FLEET_BUDGETS = (64, 128)
+FAULT_RUN = dict(n_requests=600, seed=0)
+F8_MULTS = (10, 12, 16, 20)
 
 
 def check(cond, msg):
@@ -1856,6 +1894,390 @@ def fabric_phase(gpu, dev):
     out["lane_costs"] = vt_lane_costs(gpu, dev, sm_clock_hz())
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"{gpu}: fabric phase {out['phase_s']:.3f} s; VT launches by path: {json.dumps(out['launches'])}")
+    out["chain_ns"], out["vgg11"] = chain_ns, profiles["vgg11"]
+    return out
+
+
+class StreamRecorder:
+    """Keeps the arguments of every streaming VT call ``fabric.fleet`` makes
+    (it binds ``vtime_stream`` by name) and times each by CUDA events,
+    through the wrapper and alone (``_stream_launch``, after the checks), so
+    that a long replay need not run twice to be timed.  The calls go
+    through unchanged; ``times()`` synchronises and returns both lists in
+    ms."""
+
+    def __enter__(self):
+        import torch
+
+        import repro_torch.fabric.fleet as fleet_mod
+        from repro_torch.kernels import vtime_scan as vtk
+
+        self.mod, self.vtk = fleet_mod, vtk
+        self.real, self.real_launch = vtk.vtime_stream, vtk._stream_launch
+        self.calls, self.events, self.launch_events = [], [], []
+
+        def pair():
+            return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+        def recording(*args, **kw):
+            self.calls.append((args, kw))
+            a, b = pair()
+            a.record()
+            out = self.real(*args, **kw)
+            b.record()
+            self.events.append((a, b))
+            return out
+
+        def launch(p, emit):
+            a, b = pair()
+            a.record()
+            out = self.real_launch(p, emit)
+            b.record()
+            self.launch_events.append((a, b))
+            return out
+
+        fleet_mod.vtime_stream, vtk._stream_launch = recording, launch
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.vtime_stream, self.vtk._stream_launch = self.real, self.real_launch
+
+    def times(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return ([a.elapsed_time(b) for a, b in self.events], [a.elapsed_time(b) for a, b in self.launch_events])
+
+
+def stream_work(args, kw):
+    """(serial job steps of one config, bytes, FP64 operations) of one
+    streaming VT call: a config's chain is N x sum_l (its layer's jobs:
+    macro-jobs, then the exact tail); the bytes are the tables, lanes and
+    arrivals read once, the carry (lanes, ring, sketch, moments, horizon)
+    read and written once, and the emitted (C, N) pairs written; the
+    operations are, per job and pool with d lanes, one add and d max + d
+    min."""
+    import numpy as np
+
+    tables, variant, lanes, carry = args
+    n = kw["n_requests"]
+    patches = [int(i.shape[1]) for i in kw["idx"]] if kw.get("idx") is not None else list(kw["patches"])
+    plans = np.ones((variant.shape[0], len(tables), 2), dtype=np.int64) * np.array([1, 0]) \
+        if kw.get("plans") is None else np.broadcast_to(np.asarray(kw["plans"]), (variant.shape[0], len(tables), 2))
+    jobs = plans[..., 1] + np.asarray(patches)[None, :] - plans[..., 1] * plans[..., 0]  # (C, L)
+    steps = int(n * jobs.sum(axis=1).max())
+    nbytes = sum(t.numel() * 8 for t in tables) + lanes.numel() * 4 + variant.numel() * 4
+    nbytes += 2 * sum(t.numel() * 8 for t in carry)
+    if kw.get("arrivals") is not None:
+        nbytes += variant.shape[0] * n * 8
+    if kw.get("emit"):
+        nbytes += 2 * variant.shape[0] * n * 8
+    ln = lanes.cpu().long().numpy()
+    ops, off = 0, 0
+    for li, t in enumerate(tables):
+        b = t.shape[2]
+        d = ln[:, off : off + b]
+        off += b
+        ops += int((n * jobs[:, li] * ((1 + 2 * d) * (d > 0)).sum(axis=1)).sum())
+    return steps, nbytes, ops
+
+
+def stream_numbers(call, chain_ns, ms, kernel_ms):
+    """One recorded streaming launch: its times (through the wrapper and
+    alone, from ``StreamRecorder``) beside its bound, the larger of the
+    chain (one config's serial job steps x one dependent FP64 add + min)
+    and the bytes at the memory's rate."""
+    args, kw = call
+    steps, nbytes, ops = stream_work(args, kw)
+    chain_ms, bytes_ms = steps * chain_ns * 1e-6, nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(ms=ms, kernel_ms=kernel_ms, steps=steps, nbytes=nbytes, ops=ops, chain_ms=chain_ms,
+                bytes_ms=bytes_ms, bound_ms=max(chain_ms, bytes_ms),
+                bound_by="operations" if chain_ms >= bytes_ms else "bytes", n=kw["n_requests"],
+                configs=args[1].shape[0])
+
+
+def stream_vs_plain(call, n):
+    """Re-run one recorded streaming call on its own carry, plans and
+    ``r0``, cut to its first ``n`` requests and with ``emit``: the kernel on
+    the card against its plain version on the host.  Every carried tensor
+    and the emitted arrivals and completions must be equal.  The launch
+    made here is not counted.  Returns (the kernel's completions, the
+    largest difference, the plain version's seconds)."""
+    import torch
+
+    from repro_torch.kernels.vtime_scan import vtime_stream as vs, vtime_stream_ref as vs_plain
+
+    args, kw = call
+    kw = dict(kw, n_requests=n, emit=True)
+    if kw.get("arrivals") is not None:
+        kw["arrivals"] = kw["arrivals"][:, :n]
+    if kw.get("idx") is not None:
+        kw["idx"] = [i[:n] for i in kw["idx"]]
+    saved = vs.launches
+    got_c, got_y = vs(*args, **kw)
+    vs.launches = saved
+    to_host = lambda x: [t.cpu() for t in x] if isinstance(x, list) else x.cpu()
+    args_h = [type(a)(*(t.cpu() for t in a)) if hasattr(a, "_fields") else to_host(a) for a in args]
+    kw_h = {k: to_host(v) if isinstance(v, torch.Tensor) or (isinstance(v, list) and k == "idx") else v
+            for k, v in kw.items()}
+    t0 = time.perf_counter()
+    want_c, want_y = vs_plain(*args_h, **kw_h)
+    plain_s = time.perf_counter() - t0
+    err = 0.0
+    for name, g, w in zip((*want_c._fields, "arrivals", "completions"), (*got_c, *got_y), (*want_c, *want_y)):
+        check(torch.equal(g.cpu(), w), f"vtime_stream != plain ({name}, r0 {kw.get('r0', 0)}, {n} requests)")
+        err = max(err, float((g.cpu() - w).abs().nan_to_num(0.0).max()))
+    return got_y[1].cpu().numpy(), err, plain_s
+
+
+def multichip_fleet_phase(gpu, dev, fab):
+    """The multi-chip half on the card (slice 9): (1) F8, VT on pools wider
+    than 512 servers; (2) the reference's multi-chip sweep; (3) its fused
+    (placement x load) surface; (4) fleet replay with the streaming VT
+    entry; (5) the fault sweep; (6) observability on a placed run.  Each
+    path's VT and streaming counts are set to 0 just before it and read
+    just after."""
+    import numpy as np
+    import torch
+
+    import repro_torch as T
+    from repro_torch.core.cim import FabricTopology, allocate_placed
+    from repro_torch.dse import (
+        MULTICHIP_OBJECTIVES, chip_grid, fault_grid, get_profiled, pareto_frontier, run_fault_sweep,
+        run_fused_multichip_sweep, run_multichip_sweep,
+    )
+    from repro_torch.fabric import (
+        CoarsenConfig, FabricSim, LatencySketch, PoissonOpen, SinusoidalPoisson, TraceReplay, VirtualTimeFabric,
+        arrival_times, degrade_plan, generate_failure_trace, run_stream, run_trace_segments, segment_growth_plan,
+    )
+    from repro_torch.fabric.vtime import pool_lanes
+    from repro_torch.kernels.vtime_scan import vtime_scan as vt, vtime_stream as vs
+    from repro_torch.obs import build_trace, utilization_report, validate_trace
+
+    t_phase = time.perf_counter()
+    chain_ns = fab["chain_ns"]
+    out = {"launches": {}, "stream_launches": {}}
+
+    # ---- (1) F8: VGG11 blockwise at 10x to 20x its minimum PEs through VT
+    spec, prof = fab["vgg11"]
+    allocs = [T.allocate(spec, prof, "blockwise", spec.min_pes() * m) for m in F8_MULTS]
+    widest = [int(pool_lanes(spec, a).max()) for a in allocs]
+    check(max(widest) > 512, f"F8: no pool wider than 512 servers at {F8_MULTS}x ({widest})")
+    cap = T.simulate(spec, prof, allocs[0]).images_per_sec
+    proc = PoissonOpen(FABRIC_CHECK_REQUESTS, 0.6 * cap / 1e8, seed=1)
+    vt.launches = 0
+    with VTRecorder() as rec:
+        res = VirtualTimeFabric(spec, prof, device=dev).run_batch(allocs, proc, seed=0)
+    out["launches"]["f8"] = vt.launches
+    check(vt.launches == 1, f"F8: VT launched {vt.launches} times, want 1")
+    for m, a, w, got in zip(F8_MULTS, allocs, widest, res.completions):
+        want = FabricSim(spec, prof, a, seed=0).run(proc)
+        check(np.array_equal(got, want.completions), f"F8 {m}x ({w} servers): VT != FabricSim")
+    f8 = vt_numbers(rec.calls[-1], chain_ns, reps=3)
+    print(f"F8: vgg11 blockwise at {F8_MULTS}x the minimum PEs (widest pool {widest} servers), "
+          f"{FABRIC_CHECK_REQUESTS} Poisson requests: VT (one launch) == FabricSim on every config")
+    vt_line(gpu, f"F8 (widest pool {max(widest)} servers)", f8)
+    out["f8"] = f8
+
+    # ---- (2) the multi-chip sweep: VGG11, chips x links at equal silicon
+    pts = chip_grid(networks=("vgg11",), chips=MC_CHIPS, link_gbps=MC_LINKS, pe_multiplier=2.0)
+    run_multichip_sweep(pts[:1], device=dev, **MC_RUN)  # capture and derive outside the count and the clock
+    vt.launches = 0
+    t0 = time.perf_counter()
+    mc = run_multichip_sweep(pts, device=dev, **MC_RUN)
+    torch.cuda.synchronize()
+    mc_s = time.perf_counter() - t0
+    out["launches"]["multichip"] = vt.launches
+    check(vt.launches == 2, f"multichip sweep: VT launched {vt.launches} times, want 2 (closed and open loop)")
+    for i, p in enumerate(mc.points):
+        check(np.isfinite(mc.images_per_sec[i]) and mc.images_per_sec[i] > 0 and mc.p99_cycles[i] >= mc.p50_cycles[i],
+              f"multichip {p.n_chips} chips @ {p.link_gbps}: columns")
+        print(f"multichip vgg11 {p.n_chips} chips @ {p.link_gbps:5.0f} Gb/s ({p.n_pes_total} PEs): "
+              f"{mc.images_per_sec[i]:12.3f} img/s, p99 {mc.p99_cycles[i] / 1e5:.4f} ms, "
+              f"max stage transfer {mc.max_stage_transfer[i]:.1f} cycles, {int(mc.n_crossings[i])} crossings")
+    frontier = pareto_frontier(mc, MULTICHIP_OBJECTIVES)
+    check(any(mc.points[i].n_chips == 1 for i in frontier), "multichip: no one-chip design on the frontier")
+    sspec, sprof = get_profiled("vgg11", T.DEFAULT_ARRAY, sample_patches=MC_RUN["sample_patches"], device=dev)
+    picks = [next(p for p in pts if p.n_chips == c and p.link_gbps == 16.0) for c in (1, 8)]
+    placed = [allocate_placed(sspec, sprof, "blockwise", p.topology()) for p in picks]
+    gaps = np.random.default_rng(0).exponential(1.0, size=MC_CHECK_REQUESTS)
+    procs = [TraceReplay(np.cumsum(gaps) / (0.7 * mc.images_per_sec[pts.index(p)] / 1e8)) for p in picks]
+    got = VirtualTimeFabric(sspec, sprof, lane_quantum=8, device=dev).run_batch(
+        [pa.allocation for pa in placed], procs, seed=0, placements=[pa.placement for pa in placed])
+    for k, (p, pa, pr) in enumerate(zip(picks, placed, procs)):
+        want = FabricSim(sspec, sprof, pa.allocation, seed=0, placement=pa.placement).run(pr)
+        check(np.array_equal(got.completions[k], want.completions), f"multichip {p.n_chips} chips: VT != FabricSim")
+    print(f"{gpu}: multichip sweep over {len(pts)} points ({MC_RUN['n_requests']} requests, "
+          f"ClosedLoop({MC_RUN['closed_requests']}, {MC_RUN['concurrency']})): {mc_s:.3f} s, 2 VT launches; "
+          f"frontier {[(mc.points[i].n_chips, mc.points[i].link_gbps) for i in frontier]}; 1 and 8 chips at 16 Gb/s "
+          f"== FabricSim(placement=) on the host at {MC_CHECK_REQUESTS} requests")
+
+    # ---- (3) the fused (placement x load) surface against the staged sweep at 0.7
+    cpts = chip_grid(networks=("vgg11",), **FUSED_CHIP)
+    run_fused_multichip_sweep(cpts[:1], load_fracs=(0.7,), device=dev, **FUSED_CHIP_RUN)
+    vt.launches = 0
+    t0 = time.perf_counter()
+    fused = run_fused_multichip_sweep(cpts, load_fracs=FUSED_CHIP_LOADS, device=dev, **FUSED_CHIP_RUN)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    out["launches"]["fused_multichip"] = vt.launches
+    check(vt.launches == 2, f"fused multichip surface: VT launched {vt.launches} times, want 2")
+    t0 = time.perf_counter()
+    staged = {lf: run_multichip_sweep(cpts, load_frac=lf, device=dev, **FUSED_CHIP_RUN) for lf in FUSED_CHIP_LOADS}
+    staged_s = time.perf_counter() - t0
+    s07, k07 = staged[0.7], FUSED_CHIP_LOADS.index(0.7)
+    want = np.stack([s07.p50_cycles, s07.p95_cycles, s07.p99_cycles], axis=1)
+    check(np.allclose(fused.pcts[:, k07, :], want, rtol=1e-12, atol=0)
+          and np.allclose(fused.images_per_sec, s07.images_per_sec, rtol=1e-12, atol=0),
+          "fused multichip surface != staged sweep at load 0.7")
+    print(f"{gpu}: fused multichip surface, {len(cpts)} points x {len(FUSED_CHIP_LOADS)} loads "
+          f"({fused.n_evaluations} evaluations, 2 VT launches): {fused_s:.3f} s; the staged sweep, one run per "
+          f"load: {staged_s:.3f} s; equal at load 0.7 within rtol 1e-12")
+
+    # ---- (4) fleet replay: the streaming VT entry
+    fspec = T.vgg11_cifar10()
+    fprof = T.profile_network(fspec, n_images=2, device=dev)
+    bw = T.allocate(fspec, fprof, "blockwise", fspec.min_pes() * 2)
+    cap = T.simulate(fspec, fprof, bw, n_images=64).images_per_sec
+    vtf = VirtualTimeFabric(fspec, fprof, device=dev)
+    plan = segment_growth_plan(fspec, fprof, bw, budgets=list(FLEET_BUDGETS))
+    n = FLEET_REQUESTS
+    rate = 0.6 * cap / 1e8
+    times = arrival_times(SinusoidalPoisson(n, base_rate=rate, period=n / rate / 2.0, amplitude=0.5, seed=0))
+    segs = [[bw, plan[0]], [bw, plan[1]], [bw, plan[2]]]
+    bounds = [float(times[n // 3]), float(times[2 * n // 3])]
+    coarsen = CoarsenConfig(tail_lanes=2)
+    vs.launches = 0
+    t0 = time.perf_counter()
+    base = run_stream(vtf, [bw, plan[0]], TraceReplay(times), seed=7, window=1, materialize=True)
+    base_s = time.perf_counter() - t0
+    out["stream_launches"]["baseline"] = vs.launches
+    check(vs.launches == 1, f"fleet baseline: {vs.launches} streaming launches, want 1")
+    check(base.completions.shape == (2, n) and np.isfinite(base.completions).all(), "fleet baseline: completions")
+    exact = base.exact_percentiles
+    sk_err = float(np.max(np.abs(base.percentiles - exact) / exact))
+    bound_rel = base.sketches[0].config.rel_error
+    check(sk_err <= bound_rel, f"fleet: sketch percentiles {sk_err:.4f} from exact (bound {bound_rel})")
+    vs.launches = 0
+    t0 = time.perf_counter()
+    with StreamRecorder() as rec_stream:
+        stream = run_stream(vtf, [bw, plan[0]], TraceReplay(times), seed=7)
+    stream_s = time.perf_counter() - t0
+    out["stream_launches"]["stream"] = vs.launches
+    check(vs.launches == 1, f"fleet stream: {vs.launches} streaming launches, want 1")
+    for a, b in zip(base.sketches, stream.sketches):
+        check(np.array_equal(a.counts, b.counts) and (a.n, a.min, a.max) == (b.n, b.min, b.max),
+              "fleet: stream sketch != materialized baseline")
+        check(abs(a.mean / b.mean - 1) <= 1e-12 and abs(a.m2 / b.m2 - 1) <= 1e-9, "fleet: moments")
+    check(np.array_equal(base.makespan, stream.makespan), "fleet: stream horizon != baseline")
+    h = FLEET_HOST_REQUESTS
+    t0 = time.perf_counter()
+    host = FabricSim(fspec, fprof, bw, seed=7, service_sampling="hash").run(TraceReplay(times[:h]))
+    host_s = time.perf_counter() - t0
+    check(np.array_equal(base.completions[0, :h], host.completions)
+          and np.array_equal(base.completions[1, :h], host.completions),
+          f"fleet: the first {h} requests != FabricSim(service_sampling='hash')")
+    # the kernel against its plain version from a fresh carry, with emit
+    m = FLEET_PLAIN_REQUESTS
+    got_comp, stream_err, plain_s = stream_vs_plain(rec_stream.calls[-1], m)
+    check(np.array_equal(got_comp, base.completions[:, :m]), "vtime_stream (emit) != the baseline's first requests")
+    vs.launches = 0
+    with StreamRecorder() as rec:
+        t0 = time.perf_counter()
+        fleet = run_trace_segments(vtf, segs, times, bounds, seed=7, window=8, coarsen=coarsen)
+        torch.cuda.synchronize()
+        fleet_s = time.perf_counter() - t0
+    out["stream_launches"]["replay"] = vs.launches
+    check(vs.launches == 3, f"fleet replay: {vs.launches} streaming launches, want 3 (one a segment)")
+    check(all(s.n == n for s in fleet.sketches) and np.isfinite(fleet.percentiles).all(), "fleet replay: sketches")
+    # every segment's launch against its plain version, on that segment's
+    # own carry (the previous launch's lanes after the boundary, +inf where a
+    # pool has fewer servers than slots) and macro-job plans
+    seg_plain_s = 0.0
+    for k, call in enumerate(rec.calls):
+        plans = call[1]["plans"]
+        check(plans is not None and int(np.asarray(plans)[..., 0].max()) > 1,
+              f"fleet segment {k}: no macro-jobs in its plans")
+        _, err, ps = stream_vs_plain(call, m)
+        stream_err, seg_plain_s = max(stream_err, err), seg_plain_s + ps
+    seg_nums = [stream_numbers(c, chain_ns, ms, kms) for c, ms, kms in zip(rec.calls, *rec.times())]
+    full = stream_numbers(rec_stream.calls[-1], chain_ns, *(t[-1] for t in rec_stream.times()))
+    rps = n / fleet_s
+    print(f"fleet (vgg11 blockwise @ {fspec.min_pes() * 2} PEs, {n} requests of a two-cycle sinusoidal Poisson trace "
+          f"at 0.6 of capacity, hold vs grow by {list(FLEET_BUDGETS)} arrays at n/3 and 2n/3): W=1 materialized "
+          f"baseline {base_s:.3f} s; sketch percentiles within {sk_err:.5f} of exact (bound {bound_rel}); the "
+          f"uncoarsened stream ({stream_s:.3f} s) == the baseline's buckets, n, min, max and horizon; the first {h} "
+          f"requests == FabricSim(service_sampling='hash') on the host ({host_s:.3f} s); the kernel == its plain "
+          f"version on {m} requests from a fresh carry (plain {plain_s:.3f} s on the host)")
+    print(f"fleet replay: each segment's launch == its plain version on the segment's own carry and macro-job "
+          f"plans, first {m} requests (plain {seg_plain_s:.3f} s on the host)")
+    print(f"{gpu}: fleet replay, 3 segments x 1 streaming launch, coarsened (tail_lanes 2), window 8: "
+          f"{fleet_s:.3f} s, {rps:.1f} requests replayed/s; stall cycles hold/grow "
+          f"{fleet.total_stall_cycles.tolist()}; p50/p95/p99 ms hold "
+          f"{(fleet.percentiles[0] / 1e5).round(4).tolist()}, grow {(fleet.percentiles[1] / 1e5).round(4).tolist()}")
+    for k, sn in enumerate(seg_nums):
+        print(f"{gpu}: fleet segment {k} ({sn['n']} requests, {sn['configs']} configs, {sn['steps']} serial job steps): "
+              f"launch alone {sn['kernel_ms']:.3f} ms, through the wrapper {sn['ms']:.3f} ms; chain bound "
+              f"{sn['chain_ms']:.3f} ms ({sn['steps']} steps x {chain_ns:.3f} ns), bytes {sn['bytes_ms']:.4f} ms; "
+              f"alone at {sn['kernel_ms'] / sn['bound_ms']:.2f}x the bound")
+    print(f"{gpu}: vtime_stream, uncoarsened, {n} requests x 2 configs ({full['steps']} steps): alone "
+          f"{full['kernel_ms']:.3f} ms, through the wrapper {full['ms']:.3f} ms, bound {full['bound_ms']:.3f} ms "
+          f"({full['bound_by']}), {full['steps'] / (full['kernel_ms'] * 1e-3):.4e} job steps/s a config")
+    out.update(stream=full, stream_plain_ms=plain_s * 1e3, stream_err=stream_err, fleet_s=fleet_s, segs=seg_nums,
+               plain_n=FLEET_PLAIN_REQUESTS)
+
+    # ---- (5) the fault sweep: spares x failure rates, replayed on the stream
+    fpts = fault_grid(networks=("vgg11",))
+    vs.launches = 0
+    t0 = time.perf_counter()
+    faults = run_fault_sweep(fpts, device=dev, **FAULT_RUN)
+    torch.cuda.synchronize()
+    faults_s = time.perf_counter() - t0
+    out["stream_launches"]["faults"] = vs.launches
+    # the host: the same plans replayed by the event engine at the same hash
+    gaps = np.random.default_rng(FAULT_RUN["seed"]).exponential(1.0, size=FAULT_RUN["n_requests"])
+    t0 = time.perf_counter()
+    for i, p in enumerate(fpts):
+        spec_p, prof_p = get_profiled(p.network, p.array, device=dev)
+        free = p.n_pes * 64 - spec_p.n_arrays
+        reserve = int(free * p.spare_fraction)
+        a = T.allocate(spec_p, prof_p, p.policy, p.n_pes, free_budget=free - reserve)
+        tms = np.cumsum(gaps) / (0.6 * T.simulate(spec_p, prof_p, a).images_per_sec / 1e8)
+        tr = generate_failure_trace(spec_p, a, horizon=float(tms[-1]), seed=FAULT_RUN["seed"],
+                                    rate_per_array=p.rate_per_array, repair_cycles=p.repair_cycles)
+        dp = degrade_plan(spec_p, prof_p, a, tr, spare_arrays=reserve)
+        r = FabricSim(spec_p, prof_p, a, seed=FAULT_RUN["seed"], failures=dp, service_sampling="hash").run(
+            TraceReplay(tms))
+        sk = LatencySketch.from_latencies(r.completions - tms)
+        check(dp.availability() == faults.availability[i], f"fault point {i}: availability")
+        check(np.array_equal(sk.percentiles((50.0, 99.0)), [faults.p50_cycles[i], faults.p99_cycles[i]]),
+              f"fault point {i}: p50 / p99 != the host's FabricSim replay")
+    fault_host_s = time.perf_counter() - t0
+    corner = max(range(len(fpts)), key=lambda i: (fpts[i].spare_fraction, fpts[i].rate_per_array))
+    print(f"{gpu}: fault sweep, {len(fpts)} points x {FAULT_RUN['n_requests']} requests: {faults_s:.3f} s, "
+          f"{vs.launches} streaming launches (one a segment); availability and p50 / p99 == FabricSim(failures=, "
+          f"hash) on the host ({fault_host_s:.3f} s); stress corner (spare {fpts[corner].spare_fraction}, rate "
+          f"{fpts[corner].rate_per_array}): availability {faults.availability[corner]:.6f}; killed "
+          f"{faults.n_killed.tolist()}")
+
+    # ---- (6) observability on a placed 4-chip run
+    pes = sspec.min_pes() * 2
+    topo = FabricTopology.split(4, pes + (-pes) % 4, link_gbps=16.0)
+    pa = allocate_placed(sspec, sprof, "blockwise", topo)
+    sim = FabricSim(sspec, sprof, pa.allocation, seed=3, record_timeline=True, stats=True, placement=pa.placement)
+    r = sim.run(PoissonOpen(12, 2000.0 / 1e8, seed=5))
+    rep = utilization_report(r)
+    trace = build_trace(sim, r, placement=pa.placement)
+    n_spans = validate_trace(trace)
+    chips = {e["args"]["name"] for e in trace["traceEvents"] if e["ph"] == "M" and e["name"] == "process_name"}
+    check(n_spans > 0 and len(chips - {"requests"}) > 1, "observability: trace")
+    check(np.allclose(rep.duty_cycle + rep.barrier_frac + rep.reprogram_frac + rep.starved_frac, 1.0),
+          "observability: utilization fractions do not sum to 1")
+    print(f"observability: 4-chip placed vgg11 run ({pa.placement.n_crossings} crossings): {n_spans} trace spans "
+          f"over {len(chips) - 1} chip processes, schema valid; mean duty cycle {rep.mean_duty_cycle:.4f}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"{gpu}: multichip and fleet phase {out['phase_s']:.3f} s; VT launches {json.dumps(out['launches'])}; "
+          f"streaming launches {json.dumps(out['stream_launches'])}")
     return out
 
 
@@ -1921,11 +2343,16 @@ def main() -> int:
     vt_regs = [(b.split("vtime_scan_kernelILi")[1].split("EEEv")[0].replace("ELb", ", stats "),
                 b.split("Used ", 1)[1].split(" registers")[0])
                for b in logs["vtime_scan"].split("Function properties for ")[1:] if "vtime_scan_kernel" in b.split()[0]]
-    check(len(vt_regs) == 6, f"vtime_scan: {len(vt_regs)} kernels in the ptxas report, want 6")
+    check(len(vt_regs) == 8, f"vtime_scan: {len(vt_regs)} kernels in the ptxas report, want 8")
     for block in logs["vtime_scan"].split("Function properties for ")[1:]:
         check("0 bytes spill stores, 0 bytes spill loads" in block, f"vtime_scan: a kernel spills:\n{block}")
     print("ptxas: VT's registers a thread by (KMAX, stats), none spilling: "
           + "; ".join(f"{k}: {r}" for k, r in sorted(vt_regs)))
+    vs_regs = [(b.split("vtime_stream_kernelILi")[1].split("EEEv")[0], b.split("Used ", 1)[1].split(" registers")[0])
+               for b in logs["vtime_scan"].split("Function properties for ")[1:] if "vtime_stream_kernel" in b.split()[0]]
+    check(len(vs_regs) == 4, f"vtime_scan: {len(vs_regs)} streaming kernels in the ptxas report, want 4")
+    print("ptxas: the streaming entry's registers a thread by KMAX, none spilling: "
+          + "; ".join(f"{k}: {r}" for k, r in sorted(vs_regs)))
     max_err = 0
     rng = np.random.default_rng(0)
     for r in (128, 64, 37):
@@ -2268,6 +2695,10 @@ def main() -> int:
     # fused sweep's fabric stage, VT against its plain version
     fab = fabric_phase(gpu, dev)
 
+    # ---- 18. the multi-chip half: F8, the multi-chip sweeps, fleet replay
+    # with the streaming VT entry, the fault sweep, observability
+    mcf = multichip_fleet_phase(gpu, dev, fab)
+
     nnum = dnum["nemotron-4-15b"]
     print(gpu)
     print(json.dumps({"kernels": [{
@@ -2345,7 +2776,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/vtime_scan.cu",
         "replaces": "src/repro/fabric/vtime.py:629",  # the jitted scan (:629-674), no Pallas kernel
-        "launches": sum(fab["launches"].values()),
+        "launches": sum(fab["launches"].values()) + sum(mcf["launches"].values()),
         "max_abs_err": fab["max_abs_err"],
         "ms": fab["tail"]["ms"],  # fabric_tail, 15 configs x 400 requests, through the wrapper
         "kernel_ms": fab["tail"]["kernel_ms"],
@@ -2359,6 +2790,24 @@ def main() -> int:
         "fused_kernel_ms": fab["fused"]["kernel_ms"],
         "fused_bound_ms": fab["fused"]["bound_ms"],
         "fused_device_busy": fab["fused_busy"],
+        "f8_kernel_ms": mcf["f8"]["kernel_ms"],
+        "f8_bound_ms": mcf["f8"]["bound_ms"],
+    }, {
+        "name": "vtime_stream",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/vtime_scan.cu",
+        "replaces": "src/repro/fabric/fleet.py:145",  # the jitted streaming scan (:104-210), no Pallas kernel
+        "launches": sum(mcf["stream_launches"].values()),
+        "max_abs_err": mcf["stream_err"],
+        "ms": mcf["stream"]["ms"],  # the uncoarsened stream, FLEET_REQUESTS x 2 configs, through the wrapper
+        "kernel_ms": mcf["stream"]["kernel_ms"],
+        "plain_ms": mcf["stream_plain_ms"],  # at FLEET_PLAIN_REQUESTS requests, on the host
+        "plain_requests": mcf["plain_n"],
+        "bound_ms": mcf["stream"]["bound_ms"],
+        "bound_by": mcf["stream"]["bound_by"],
+        "library_ms": None,
+        "segment_kernel_ms": [x["kernel_ms"] for x in mcf["segs"]],
+        "segment_bound_ms": [x["bound_ms"] for x in mcf["segs"]],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -18,8 +18,11 @@ reference ``core/alloc/greedy.py``:
     ``latency_aware`` policy's tail-weighted queueing allocator, numpy
     float64 on the host, verbatim.
 
-Not yet ported: the placement-aware and release allocators (their callers
-are in the topology slice).
+  * ``greedy_release`` — the reverse greedy that frees replicas (the fleet's
+    shrinking seams), ``greedy_allocate_placed`` / ``PlacedAllocationResult``
+    — the communication-aware greedy over a chip-partitioned fabric — and
+    ``place_extras`` (chips for counts fixed elsewhere), numpy on the host,
+    verbatim; ``core.cim.topology`` calls them.
 """
 
 from __future__ import annotations
@@ -32,20 +35,19 @@ import torch
 
 from ... import resolve_device
 
-SPARES_AND_AUDIT_NOT_PORTED = (
-    "spare_fraction and audit are not ported yet: they come with the fault and "
-    "observability slice (ROADMAP.md §1, work still to do)"
-)
-
 __all__ = [
     "AllocationResult",
     "BatchAllocationResult",
     "GreedyEventSchedule",
+    "PlacedAllocationResult",
     "erlang_c",
     "greedy_allocate",
     "greedy_allocate_batch",
+    "greedy_allocate_placed",
     "greedy_batch_kernel",
     "greedy_event_schedule",
+    "greedy_release",
+    "place_extras",
     "proportional_allocate",
     "proportional_allocate_batch",
     "queueing_allocate",
@@ -91,12 +93,14 @@ def greedy_allocate(
     cost available for *additional* replicas; ``initial_replicas``:
     optionally start from an existing allocation.  Stops when the current
     slowest unit can no longer be afforded, the paper's stopping rule.
-    ``spare_fraction`` (a hot-spare reserve) and ``audit`` (a decision log)
-    take the reference's defaults, 0.0 and None; other values raise
-    ``NotImplementedError`` until the fault and observability slice.
+    ``spare_fraction`` of ``budget`` is withheld as a hot-spare reserve
+    (``fabric.failures.degrade_plan`` spends it) and comes back in
+    ``leftover``; ``audit`` (an ``obs.AllocationAudit``) receives one entry
+    per grant and one for the stopping rule.
     """
-    if spare_fraction != 0.0 or audit is not None:
-        raise NotImplementedError(SPARES_AND_AUDIT_NOT_PORTED)
+    if not 0.0 <= spare_fraction <= 1.0:
+        raise ValueError(f"spare_fraction must be in [0, 1], got {spare_fraction}")
+    reserve = float(budget) * spare_fraction
     base_latency = np.asarray(base_latency, dtype=np.float64)
     unit_cost = np.asarray(unit_cost, dtype=np.float64)
     if base_latency.shape != unit_cost.shape:
@@ -118,22 +122,285 @@ def greedy_allocate(
     heap = [(-base_latency[i] / replicas[i], i) for i in range(n)]
     heapq.heapify(heap)
     spent = 0.0
-    remaining = float(budget)
+    remaining = float(budget) - reserve
     while heap:
         neg_lat, i = heapq.heappop(heap)
         if unit_cost[i] > remaining:
             # the slowest unit cannot be afforded: the allocation is final
             # (cheaper, faster units would not reduce the makespan)
+            if audit is not None:
+                audit.stop("budget", i, unit_cost[i], remaining)
             heapq.heappush(heap, (neg_lat, i))
             break
         remaining -= unit_cost[i]
         spent += unit_cost[i]
         replicas[i] += 1
         new_lat = base_latency[i] / replicas[i]
+        if audit is not None:
+            audit.grant(i, unit_cost[i], -neg_lat, new_lat, remaining)
         heapq.heappush(heap, (-new_lat, i))
 
     latency = base_latency / replicas
-    return AllocationResult(replicas, latency, spent, remaining)
+    return AllocationResult(replicas, latency, spent, remaining + reserve)
+
+
+def greedy_release(
+    base_latency: np.ndarray,
+    unit_cost: np.ndarray,
+    release: float,
+    *,
+    replicas: np.ndarray,
+) -> AllocationResult:
+    """Reverse greedy: free at least ``release`` cost from ``replicas``.
+
+    The exact inverse of ``greedy_allocate``'s grant rule: repeatedly remove
+    one replica from the unit whose latency grows the LEAST by losing it —
+    the unit with the smallest ``base_i / (r_i - 1)`` among those with more
+    than one replica (ties to the lower index, mirroring the grant heap).
+    Used by segmented replay (``fleet.segment_growth_plan``) when a seam's
+    budget shrinks — degraded capacity after failures.  Stops once the freed
+    cost reaches ``release`` or every unit is down to its mandatory copy.
+
+    Returns an ``AllocationResult`` whose ``spent`` is the (negative) freed
+    cost — so warm-started callers can keep one running budget across grow
+    and shrink seams; ``leftover`` is the overshoot past ``release`` (>= 0,
+    replicas free whole cost units).
+    """
+    base_latency = np.asarray(base_latency, dtype=np.float64)
+    unit_cost = np.asarray(unit_cost, dtype=np.float64)
+    if base_latency.shape != unit_cost.shape:
+        raise ValueError(
+            f"base_latency {base_latency.shape} vs unit_cost {unit_cost.shape}"
+        )
+    replicas = np.asarray(replicas, dtype=np.int64).copy()
+    if replicas.shape != base_latency.shape:
+        raise ValueError(
+            f"replicas {replicas.shape} vs base_latency {base_latency.shape}"
+        )
+    if np.any(replicas < 1):
+        raise ValueError("every unit needs at least one replica")
+    if release < 0:
+        raise ValueError(f"release must be >= 0, got {release}")
+
+    # Min-heap keyed by the latency each unit would have after losing one
+    # replica; stale entries are detected by re-deriving the key.
+    heap = [
+        (base_latency[i] / (replicas[i] - 1), i)
+        for i in range(base_latency.size)
+        if replicas[i] > 1
+    ]
+    heapq.heapify(heap)
+    freed = 0.0
+    while heap and freed < release:
+        lat, i = heapq.heappop(heap)
+        if replicas[i] <= 1 or lat != base_latency[i] / (replicas[i] - 1):
+            continue
+        replicas[i] -= 1
+        freed += unit_cost[i]
+        if replicas[i] > 1:
+            heapq.heappush(heap, (base_latency[i] / (replicas[i] - 1), i))
+    latency = base_latency / replicas
+    return AllocationResult(replicas, latency, -freed, max(freed - release, 0.0))
+
+
+@dataclass(frozen=True)
+class PlacedAllocationResult:
+    """Replica counts AND locations chosen by the placement-aware greedy.
+
+    Attributes:
+      replicas:      int array, replicas granted per unit (>= 1 each).
+      latency:       float array, effective expected latency per unit =
+                     base_latency / replicas + current comm penalty.
+      spent:         total cost consumed.
+      leftover:      budget remaining when the loop stopped.
+      replica_chips: per unit, int array of the chip each replica sits on
+                     (entry 0 is the mandatory copy's home chip).
+      penalty:       per-unit comm penalty at the final placement (the max
+                     over the unit's replica chips — a stage dispatches all
+                     its jobs at entry, so the farthest replica gates it).
+    """
+
+    replicas: np.ndarray
+    latency: np.ndarray
+    spent: float
+    leftover: float
+    replica_chips: list[np.ndarray]
+    penalty: np.ndarray
+
+    @property
+    def makespan(self) -> float:
+        return float(self.latency.max()) if self.latency.size else 0.0
+
+
+def greedy_allocate_placed(
+    base_latency: np.ndarray,
+    unit_cost: np.ndarray,
+    budget: float,
+    *,
+    home_chip: np.ndarray,
+    unit_penalty: np.ndarray,
+    chip_free: np.ndarray,
+    initial_replicas: np.ndarray | None = None,
+    audit=None,
+) -> PlacedAllocationResult:
+    """Communication-aware ``greedy_allocate`` over a chip-partitioned fabric.
+
+    The paper's greedy treats the fabric as one flat pool; here every replica
+    must land on a specific chip with finite free capacity, and a replica
+    placed off the unit's data source costs its stage a transfer delay on the
+    dataflow edge (a stage dispatches all its jobs at request entry, so the
+    farthest replica's transfer gates the whole unit).  The penalty scores
+    the PLACEMENT side of every move: each grant goes on the affordable chip
+    that least raises the unit's max penalty (ties -> lower raw penalty,
+    then lower chip id), so grant-order interleaving packs the replicas of
+    hot stages onto their source chips before cold stages fragment them —
+    measurably fewer crossings than placing the same counts sequentially
+    after the fact.
+
+    Ranking (and therefore the replica COUNTS) stays the paper's pure drain
+    latency ``base_i / r_i``, deliberately penalty-free, for two reasons.
+    Transfers pipeline across requests — they delay each request but consume
+    no pool capacity — so the throughput-optimal counts are exactly the flat
+    greedy's; and a transfer penalty is a per-request constant replication
+    cannot remove, so folding it into the rank pours replicas into taxed
+    stages to "compensate" a latency no replica removes while the true
+    bottleneck pools saturate (the communication-blind failure mode,
+    inverted — we measured p99 blowing up 40x that way).  Load-dependent
+    penalty/queueing trade-offs belong to the ``latency_aware`` policy,
+    which prices the stage entry transfer into its delay score
+    (``queueing_allocate(extra_delay=)``).
+
+    Args:
+      home_chip:    (N,) chip of each unit's mandatory first copy (replica 0).
+      unit_penalty: (N, K) comm penalty, in latency units, of serving unit
+        ``i`` from chip ``k`` — typically ``transfer_cycles(src_i, k, bytes_i)``.
+      chip_free:    (K,) free capacity per chip AFTER mandatory copies; the
+        caller's array is copied, not consumed.
+
+    With one chip the chip choice is trivial and the loop performs
+    bit-for-bit the same float comparisons as ``greedy_allocate`` — the flat
+    allocator is recovered exactly as the single-chip special case (pinned
+    by the golden-equivalence suite).  Stops, as in the paper, when the
+    current slowest unit can no longer be afforded — by budget *or* by chip
+    capacity.  Returned ``latency`` is the effective per-unit latency
+    (drain + final penalty).
+    """
+    base_latency = np.asarray(base_latency, dtype=np.float64)
+    unit_cost = np.asarray(unit_cost, dtype=np.float64)
+    if base_latency.shape != unit_cost.shape:
+        raise ValueError(
+            f"base_latency {base_latency.shape} vs unit_cost {unit_cost.shape}"
+        )
+    n = base_latency.size
+    home = np.asarray(home_chip, dtype=np.int64)
+    pen = np.asarray(unit_penalty, dtype=np.float64)
+    free = np.asarray(chip_free, dtype=np.float64).copy()
+    K = free.size
+    if pen.shape != (n, K):
+        raise ValueError(f"unit_penalty {pen.shape} != ({n}, {K})")
+    if home.shape != (n,):
+        raise ValueError(f"home_chip has shape {home.shape}, expected ({n},)")
+    replicas = (
+        np.ones(n, dtype=np.int64)
+        if initial_replicas is None
+        else np.asarray(initial_replicas, dtype=np.int64).copy()
+    )
+    if n == 0:
+        return PlacedAllocationResult(
+            replicas, base_latency.copy(), 0.0, float(budget), [], np.zeros(0)
+        )
+    if np.any(replicas < 1):
+        raise ValueError("every unit needs at least one replica")
+    # initial replicas (the mandatory copy + any warm start) sit at home —
+    # and warm-start extras consume their home chip's capacity (chip_free is
+    # defined as free AFTER mandatory copies only)
+    chips = [home[i] * np.ones(replicas[i], dtype=np.int64) for i in range(n)]
+    np.subtract.at(free, home, (replicas - 1) * unit_cost)
+    if np.any(free < 0):
+        bad = int(np.flatnonzero(free < 0)[0])
+        raise ValueError(
+            f"warm-start replicas oversubscribe chip {bad} by {-free[bad]} arrays"
+        )
+    cur_pen = pen[np.arange(n), home]
+
+    heap = [(-base_latency[i] / replicas[i], i) for i in range(n)]
+    heapq.heapify(heap)
+    spent = 0.0
+    remaining = float(budget)
+    chip_ids = np.arange(K)
+    while heap:
+        neg_lat, i = heapq.heappop(heap)
+        ok = free >= unit_cost[i]
+        if unit_cost[i] > remaining or not ok.any():
+            # the paper's stopping rule, extended: the slowest unit cannot be
+            # afforded (budget) or physically placed (capacity) — final.
+            if audit is not None:
+                reason = "budget" if unit_cost[i] > remaining else "capacity"
+                audit.stop(reason, i, unit_cost[i], remaining)
+            heapq.heappush(heap, (neg_lat, i))
+            break
+        # cheapest chip in (new max penalty, raw penalty, id) order
+        cand = chip_ids[ok]
+        new_max = np.maximum(cur_pen[i], pen[i, cand])
+        k = cand[np.lexsort((cand, pen[i, cand], new_max))[0]]
+        free[k] -= unit_cost[i]
+        remaining -= unit_cost[i]
+        spent += unit_cost[i]
+        replicas[i] += 1
+        chips[i] = np.append(chips[i], k)
+        cur_pen[i] = max(cur_pen[i], pen[i, k])
+        new_lat = base_latency[i] / replicas[i]
+        if audit is not None:
+            audit.grant(i, unit_cost[i], -neg_lat, new_lat, remaining, chip=k)
+        heapq.heappush(heap, (-new_lat, i))
+
+    latency = base_latency / replicas + cur_pen
+    return PlacedAllocationResult(
+        replicas, latency, spent, remaining, chips, cur_pen
+    )
+
+
+def place_extras(
+    replicas: np.ndarray,
+    unit_cost: np.ndarray,
+    *,
+    home_chip: np.ndarray,
+    unit_penalty: np.ndarray,
+    chip_free: np.ndarray,
+) -> list[np.ndarray]:
+    """Assign chips to replica counts chosen WITHOUT placement awareness.
+
+    The proportional policies (and the queueing allocator, whose wavefront
+    moves are not per-replica) fix replica counts first; this places each
+    unit's extra replicas greedily on the affordable chip with the lowest
+    (penalty, id), walking units in index order (deterministic).  Used by
+    ``core.cim.topology.allocate_placed`` for every policy that does not go
+    through ``greedy_allocate_placed``.  Raises if capacity cannot hold the
+    counts (callers budget extras from total free arrays, so this only
+    triggers when fragmentation across chips is pathological).
+    """
+    replicas = np.asarray(replicas, dtype=np.int64)
+    cost = np.asarray(unit_cost, dtype=np.float64)
+    home = np.asarray(home_chip, dtype=np.int64)
+    pen = np.asarray(unit_penalty, dtype=np.float64)
+    free = np.asarray(chip_free, dtype=np.float64).copy()
+    chip_ids = np.arange(free.size)
+    out: list[np.ndarray] = []
+    for i in range(replicas.size):
+        chips = [int(home[i])]
+        for _ in range(int(replicas[i]) - 1):
+            ok = free >= cost[i]
+            if not ok.any():
+                raise ValueError(
+                    f"no chip can hold another replica of unit {i} "
+                    f"(cost {cost[i]}, free {free})"
+                )
+            cand = chip_ids[ok]
+            k = cand[np.lexsort((cand, pen[i, cand]))[0]]
+            free[k] -= cost[i]
+            chips.append(int(k))
+        out.append(np.asarray(chips, dtype=np.int64))
+    return out
 
 
 @dataclass(frozen=True)

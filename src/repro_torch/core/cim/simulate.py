@@ -41,12 +41,7 @@ from typing import Literal
 import numpy as np
 import torch
 
-from ..alloc.greedy import (
-    SPARES_AND_AUDIT_NOT_PORTED,
-    greedy_allocate,
-    proportional_allocate,
-    queueing_allocate,
-)
+from ..alloc.greedy import greedy_allocate, proportional_allocate, queueing_allocate
 from .network import NetworkSpec
 from .profile import NetworkProfile
 
@@ -168,10 +163,9 @@ def allocate(
     The ``latency_aware`` policy needs a target offered load:
     ``offered_ips`` (images/sec), or, when omitted, ``load_frac`` times the
     analytic throughput of the ``blockwise`` allocation at the same budget.
-    ``audit`` takes the reference's default, None; another value raises
-    ``NotImplementedError`` until the observability slice."""
-    if audit is not None:
-        raise NotImplementedError(SPARES_AND_AUDIT_NOT_PORTED)
+    ``audit`` (an ``obs.AllocationAudit``) records the greedy policies'
+    per-grant decision log (``perf_layerwise`` / ``blockwise``); the other
+    policies leave it empty."""
     total = n_pes * arrays_per_pe
     base_arrays = spec.n_arrays
     if total < base_arrays:
@@ -203,14 +197,14 @@ def allocate(
     if policy == "perf_layerwise":
         # expected per-layer latency with one duplicate: patches x E[max_b c]
         exp_lat = (st.pm_mean[1] * st.ppi).cpu().numpy()
-        res = greedy_allocate(exp_lat, layer_arrays, free)
+        res = greedy_allocate(exp_lat, layer_arrays, free, audit=audit)
         used = int(base_arrays + (res.replicas - 1) @ layer_arrays)
         return Allocation(policy, res.replicas, None, used, total)
 
     if policy == "blockwise":
         # one unit per block across the whole network
         base_lat, cost = blockwise_units(spec, _block_means(spec, st))
-        res = greedy_allocate(base_lat, cost, free)
+        res = greedy_allocate(base_lat, cost, free, audit=audit)
         block_dups = split_block_dups(spec, res.replicas)
         used = int(base_arrays + ((res.replicas - 1) * cost).sum())
         return Allocation(policy, None, block_dups, used, total)
@@ -467,11 +461,37 @@ class BatchSimResult:
 class BatchSimulator:
     """``_eval_kernel`` over a batch of allocations, on the profile's device,
     in float64, so batch results match the scalar ``simulate()`` to
-    roundoff.  One instance per (spec, profile)."""
+    roundoff.  One instance per (spec, profile).  ``shard=True`` splits the
+    config axis over the local devices of the profile's kind
+    (``distrib.sharding.shard_map_batch``; one card: the plain path), with
+    identical results."""
 
-    def __init__(self, spec: NetworkSpec, prof: NetworkProfile):
+    def __init__(self, spec: NetworkSpec, prof: NetworkProfile, shard: bool = False):
         self.spec = spec
         self.tensors = pack_profile(spec, prof)
+        self.shard = bool(shard)
+        self._consts: dict[torch.device, tuple] = {}
+
+    def _on(self, dev: torch.device) -> tuple:
+        """The packed statistics on ``dev``, copied there once."""
+        hit = self._consts.get(dev)
+        if hit is None:
+            st = self.tensors
+            hit = tuple(
+                t.to(dev)
+                for t in (st.mean_b, st.max_b, st.pm_mean, st.pm_max, st.busy_sum,
+                          st.b_mask, st.ppi, st.width, st.layer_arrays)
+            )
+            self._consts[dev] = hit
+        return hit
+
+    def _eval(self, dups_lb, lw, z, n_images, clock_hz):
+        mean_b, max_b, pm_mean, pm_max, busy_sum, *rest = self._on(dups_lb.device)
+        z = z.long()
+        return _eval_kernel(
+            mean_b[z], max_b[z], pm_mean[z], pm_max[z], busy_sum[z], *rest,
+            dups_lb, lw, int(n_images), float(clock_hz),
+        )
 
     def __call__(
         self,
@@ -490,21 +510,15 @@ class BatchSimulator:
             )
         lw = torch.as_tensor(np.asarray(layerwise, dtype=bool), device=dev)
         z = torch.as_tensor(np.asarray(zskip, dtype=np.int64), device=dev)
-        T, ips, layer_T, util = _eval_kernel(
-            st.mean_b[z],
-            st.max_b[z],
-            st.pm_mean[z],
-            st.pm_max[z],
-            st.busy_sum[z],
-            st.b_mask,
-            st.ppi,
-            st.width,
-            st.layer_arrays,
-            dups_lb,
-            lw,
-            int(n_images),
-            float(clock_hz),
-        )
+
+        def ev(d, lw_, z_):
+            return self._eval(d, lw_, z_, n_images, clock_hz)
+
+        if self.shard and dups_lb.shape[0]:
+            from ...distrib.sharding import shard_map_batch
+
+            ev = shard_map_batch(ev)
+        T, ips, layer_T, util = ev(dups_lb, lw, z)
         return BatchSimResult(T, ips, layer_T, util)
 
 

@@ -39,13 +39,18 @@ per (ADC, zero-skip, dataflow) triple, built once per pipeline on the
 device from the derived banks, and each config picks its variant and its
 lanes.  Its columns equal the staged sweep's.
 
-Not ported yet: the multi-chip sweep and ``shard=``; ``latency_aware`` is
-load-coupled and stays on the staged path.
+``shard=True`` splits every chunk's config axis over the local devices
+(``distrib.sharding.shard_map_batch``; one card: the plain path), each
+device holding its own copy of the pipeline's statistics.
+``run_fused_multichip_sweep`` evaluates a whole (placement x load) surface
+through one closed-loop and one open-loop ``VirtualTimeFabric.run_batch``.
+``latency_aware`` is load-coupled and stays on the staged path.
 """
 
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -56,26 +61,31 @@ from ..core.cim.cost import DEFAULT_ARRAY, ArrayConfig, baseline_cycles
 from ..core.cim.network import NetworkSpec
 from ..core.cim.profile import ActivationCapture
 from ..core.cim.simulate import ARRAYS_PER_PE, CLOCK_HZ, _eval_kernel
+from ..core.cim.topology import allocate_placed, stage_transfer_matrix
 from ..fabric.telemetry import get_telemetry
 from ..fabric.vtime import sample_service_indices, upload_indices, variant_table
 from ..kernels.bitplane_profile import bitplane_cycle_bank
 from ..kernels.fused_alloc_eval import fused_alloc_eval
 from ..kernels.vtime_scan import vtime_scan
 from .engine import flat_unit_map
+from ..distrib.sharding import shard_map_batch
 from .sweep import (
-    SHARD_NOT_PORTED,
+    ChipSweepPoint,
     FabricEval,
     SweepPoint,
     SweepResult,
     _spec_for,
     get_captured,
+    get_profiled,
 )
 
 __all__ = [
     "FusedPipeline",
+    "FusedChipSweepResult",
     "get_fused_pipeline",
     "clear_fused_caches",
     "run_fused_sweep",
+    "run_fused_multichip_sweep",
 ]
 
 ENGINES = ("torch", "kernel")
@@ -117,9 +127,9 @@ class FusedPipeline:
         shard: bool = False,
         device: str | torch.device = "cuda",
     ):
-        if shard:
-            raise NotImplementedError(SHARD_NOT_PORTED)
         self.device = resolve_device(device)
+        self.shard = bool(shard)
+        self._dev_consts: dict[torch.device, tuple] = {}
         self.network = network
         self.adc_bits = tuple(int(a) for a in adc_bits)
         if len(set(self.adc_bits)) != len(self.adc_bits):
@@ -277,27 +287,47 @@ class FusedPipeline:
         return sched
 
     # --------------------------------------------------------- chunk program
+    def _on(self, dev: torch.device) -> tuple:
+        """(five statistic stacks, b_mask, ppi, width, layer arrays, l_idx,
+        blk_idx) on ``dev``, copied there once (a sharded call's other
+        devices)."""
+        hit = self._dev_consts.get(dev)
+        if hit is None:
+            hit = tuple(
+                t.to(dev)
+                for t in (*self._stats()[:5], self._b_mask_t, self._ppi_t, self._width_t,
+                          self._larr_t, self._l_idx_t, self._blk_idx_t)
+            )
+            self._dev_consts[dev] = hit
+        return hit
+
+    def _sharded(self, fn):
+        return shard_map_batch(fn) if self.shard else fn
+
     def _eval_chunk(self, fam: str, sel, layerwise, r, n_images: int, clock_hz: float):
         """Scatter + batched ``_eval_kernel`` for one chunk of family ``"L"``
         (per-layer replicas) or ``"B"`` (per-block-unit replicas)."""
         dev = self.device
-        r = torch.as_tensor(r, dtype=_F64, device=dev)
-        c = r.shape[0]
-        if fam == "B":
-            dups_lb = torch.ones((c, self.L, self.B), dtype=_F64, device=dev)
-            dups_lb[:, self._l_idx_t, self._blk_idx_t] = r
-        else:
-            dups_lb = r[:, :, None].expand(c, self.L, self.B)
-        T, ips, layer_T, util = _eval_kernel(
-            *self._stats()[:5],
-            self._b_mask_t, self._ppi_t, self._width_t, self._larr_t,
-            dups_lb,
+
+        def ev(sel, layerwise, r):
+            *stats, b_mask, ppi, width, larr, l_idx, blk_idx = self._on(r.device)
+            c = r.shape[0]
+            if fam == "B":
+                dups_lb = torch.ones((c, self.L, self.B), dtype=_F64, device=r.device)
+                dups_lb[:, l_idx, blk_idx] = r
+            else:
+                dups_lb = r[:, :, None].expand(c, self.L, self.B)
+            T, ips, layer_T, util = _eval_kernel(
+                *stats, b_mask, ppi, width, larr, dups_lb, layerwise, n_images, clock_hz,
+                sel=sel,
+            )
+            return T, ips, layer_T, util, dups_lb
+
+        return self._sharded(ev)(
+            torch.as_tensor(sel, dtype=torch.int64, device=dev),
             torch.as_tensor(layerwise, device=dev),
-            n_images,
-            clock_hz,
-            sel=torch.as_tensor(sel, dtype=torch.int64, device=dev),
+            torch.as_tensor(r, dtype=_F64, device=dev),
         )
-        return T, ips, layer_T, util, dups_lb
 
     def _validate(self, policies, n_pes):
         policies = np.atleast_1d(np.asarray(policies, dtype=object))
@@ -459,7 +489,6 @@ class FusedPipeline:
         replicas as the warm start, where the greedy changes nothing."""
         dev = self.device
         stats = self._stats()
-        banks = stats[:5]
         C = budgets.shape[0]
         used_f = np.zeros(C)
         fams = (
@@ -473,6 +502,16 @@ class FusedPipeline:
         for fam, rows, base, cost in fams:
             if rows.size == 0:
                 continue
+
+            def launch(bud, a, sel_, lw, r0_, fam=fam, base=base, cost=cost):
+                d = bud.device
+                *b5, b_mask, ppi, width, larr, _, _ = self._on(d)
+                out = fused_alloc_eval(
+                    base.to(d), cost.to(d), self._umaps[fam].to(d), tuple(b5), b_mask, ppi, width, larr,
+                    bud, a, sel_, lw, r0_, n_images=n_images, clock_hz=clock_hz,
+                )
+                return out[:5]
+
             r0 = np.ones((rows.size, base.shape[1]))
             bud = budgets[rows].copy()
             if fam == "L":
@@ -483,12 +522,10 @@ class FusedPipeline:
             for j0 in range(0, rows.size, csize):
                 part = rows[j0 : j0 + csize]
                 sl = slice(j0, j0 + part.size)
-                T, ips, layer_T, util, r, _ = fused_alloc_eval(
-                    base, cost, self._umaps[fam], banks, self._b_mask_t,
-                    self._ppi_t, self._width_t, self._larr_t,
+                T, ips, layer_T, util, r = self._sharded(launch)(
                     on_dev(bud[sl]), on_dev(a_idx[part], torch.int32),
                     on_dev(sel[part], torch.int32), on_dev(layerwise[part], torch.bool),
-                    on_dev(r0[sl]), n_images=n_images, clock_hz=clock_hz,
+                    on_dev(r0[sl]),
                 )
                 outs["total_cycles"][part] = T.cpu().numpy()
                 outs["images_per_sec"][part] = ips.cpu().numpy()
@@ -588,8 +625,6 @@ def get_fused_pipeline(
 ) -> FusedPipeline:
     """Cached ``FusedPipeline``: derived bank stacks and event schedules
     survive across sweeps."""
-    if shard:
-        raise NotImplementedError(SHARD_NOT_PORTED)
     dev = resolve_device(device)
     key = (
         network,
@@ -600,6 +635,7 @@ def get_fused_pipeline(
         seed,
         arrays_per_pe,
         str(dev),
+        bool(shard),
     )
     if key not in _PIPELINE_CACHE:
         _PIPELINE_CACHE[key] = FusedPipeline(
@@ -610,6 +646,7 @@ def get_fused_pipeline(
             sample_patches=sample_patches,
             seed=seed,
             arrays_per_pe=arrays_per_pe,
+            shard=shard,
             device=dev,
         )
     return _PIPELINE_CACHE[key]
@@ -645,10 +682,8 @@ def run_fused_sweep(
     allocate + eval through K2.  With ``fabric=FabricEval(...)`` the fused
     fabric stage (``FusedPipeline.fabric_percentiles``, one VT launch per
     group) fills the p50 / p95 / p99 columns from the same traces as the
-    staged ``run_sweep``.  ``latency_aware`` points raise, and so does
-    ``shard_devices=True`` (not ported yet)."""
-    if shard_devices:
-        raise NotImplementedError(SHARD_NOT_PORTED)
+    staged ``run_sweep``.  ``shard_devices=True`` splits each chunk over
+    the local devices.  ``latency_aware`` points raise."""
     dev = resolve_device(device)
     if chunk_size is not None:
         chunk = int(chunk_size)
@@ -676,6 +711,7 @@ def run_fused_sweep(
             sample_patches=sample_patches,
             seed=seed,
             arrays_per_pe=arrays_per_pe,
+            shard=shard_devices,
             device=dev,
         )
         idx = np.asarray(rows)
@@ -714,4 +750,183 @@ def run_fused_sweep(
         p95_cycles=pcts[:, 1] if fabric is not None else None,
         p99_cycles=pcts[:, 2] if fabric is not None else None,
         fabric=fabric,
+    )
+
+
+# --------------------------------------------------- fused multi-chip sweep
+@dataclass
+class FusedChipSweepResult:
+    """Multi-chip outcome with a batched LOAD axis: row i of ``pcts`` holds
+    the (len(load_fracs), 3) p50/p95/p99 surface of ``points[i]`` —
+    placement x load evaluated in one batched virtual-time call per group."""
+
+    points: list[ChipSweepPoint]
+    load_fracs: tuple
+    images_per_sec: np.ndarray  # (C,)
+    pcts: np.ndarray  # (C, K, 3) latency percentiles, cycles
+    max_stage_transfer: np.ndarray
+    n_crossings: np.ndarray
+    arrays_used: np.ndarray
+    arrays_total: np.ndarray
+    elapsed_s: float
+
+    def __len__(self) -> int:
+        return len(self.points)
+
+    @property
+    def n_evaluations(self) -> int:
+        return len(self.points) * len(self.load_fracs)
+
+    def rows(self) -> list[dict]:
+        out = []
+        for i, p in enumerate(self.points):
+            for k, lf in enumerate(self.load_fracs):
+                out.append(
+                    {
+                        "network": p.network,
+                        "policy": p.policy,
+                        "n_chips": p.n_chips,
+                        "link_gbps": p.link_gbps,
+                        "load_frac": float(lf),
+                        "images_per_sec": float(self.images_per_sec[i]),
+                        "p50_ms": float(self.pcts[i, k, 0] / CLOCK_HZ * 1e3),
+                        "p95_ms": float(self.pcts[i, k, 1] / CLOCK_HZ * 1e3),
+                        "p99_ms": float(self.pcts[i, k, 2] / CLOCK_HZ * 1e3),
+                        "max_stage_transfer_cycles": float(
+                            self.max_stage_transfer[i]
+                        ),
+                        "n_crossings": int(self.n_crossings[i]),
+                        "arrays_used": int(self.arrays_used[i]),
+                        "arrays_total": int(self.arrays_total[i]),
+                    }
+                )
+        return out
+
+
+def run_fused_multichip_sweep(
+    points: list[ChipSweepPoint],
+    *,
+    load_fracs: tuple = (0.7,),
+    n_requests: int = 200,
+    closed_requests: int = 80,
+    concurrency: int = 32,
+    seed: int = 0,
+    profile_images: int = 1,
+    sample_patches: int = 128,
+    arrays_per_pe: int = ARRAYS_PER_PE,
+    latency_load_frac: float = 0.7,
+    device: str | torch.device = "cuda",
+) -> FusedChipSweepResult:
+    """``run_multichip_sweep`` with the placement loop lifted into a
+    batchable placement x load axis.
+
+    The staged sweep evaluates one load point per run and walks placements
+    in Python; here every group's (unique placement) x (load_frac) cross
+    product goes through ONE batched open-loop virtual-time call (the
+    placements' per-stage transfer vectors packed by
+    ``topology.stage_transfer_matrix``), after one batched closed-loop call
+    for throughput: two VT launches per group on ``device``.  At
+    ``load_fracs=(0.7,)`` the outcome is element-wise identical to
+    ``run_multichip_sweep``.
+    """
+    from ..fabric.arrivals import ClosedLoop, TraceReplay
+    from ..fabric.vtime import VirtualTimeFabric
+
+    K = len(load_fracs)
+    C = len(points)
+    ips = np.zeros(C)
+    pcts = np.zeros((C, K, 3))
+    xfer_max = np.zeros(C)
+    crossings = np.zeros(C, dtype=np.int64)
+    used = np.zeros(C, dtype=np.int64)
+    total = np.zeros(C, dtype=np.int64)
+
+    groups: dict[tuple, list[int]] = {}
+    for i, p in enumerate(points):
+        groups.setdefault((p.network, p.array), []).append(i)
+    dev = resolve_device(device)
+    prof_kw = dict(
+        profile_images=profile_images, sample_patches=sample_patches, seed=seed, device=dev
+    )
+    for net, arr in groups:
+        get_profiled(net, arr, **prof_kw)
+
+    elapsed = 0.0
+    qs = (50.0, 95.0, 99.0)
+    for (net, arr), rows in groups.items():
+        spec, prof = get_profiled(net, arr, **prof_kw)
+        alias: dict[int, int] = {}
+        canon: dict[tuple, int] = {}
+        uniq: list[int] = []
+        for i in rows:
+            p = points[i]
+            key = (
+                p.policy, p.n_pes_total, p.n_chips,
+                p.link_gbps if p.n_chips > 1 else None,
+            )
+            if key not in canon:
+                canon[key] = i
+                uniq.append(i)
+            alias[i] = canon[key]
+        placed = []
+        for i in uniq:
+            p = points[i]
+            pa = allocate_placed(
+                spec, prof, p.policy, p.topology(arrays_per_pe),
+                load_frac=latency_load_frac,
+            )
+            placed.append(pa)
+            xfer_max[i] = pa.placement.max_stage_transfer
+            crossings[i] = pa.placement.n_crossings
+            used[i] = pa.allocation.arrays_used
+            total[i] = pa.allocation.arrays_total
+        allocs = [pa.allocation for pa in placed]
+        places = [pa.placement for pa in placed]
+        stage_transfer_matrix(places)  # validate the packable axis up front
+        t0 = time.perf_counter()
+        vt = VirtualTimeFabric(spec, prof, lane_quantum=8, device=dev)
+        cl = vt.run_batch(
+            allocs, ClosedLoop(closed_requests, concurrency),
+            seed=seed, percentiles=qs, placements=places,
+        )
+        ips[uniq] = cl.images_per_sec
+        # the lifted axis: (placement x load) pairs share one normalized
+        # gap sequence and evaluate in ONE batched open-loop call
+        gaps = np.random.default_rng(seed).exponential(1.0, size=n_requests)
+        cum = np.cumsum(gaps)
+        U = len(uniq)
+        allocs_x = [allocs[u] for u in range(U) for _ in range(K)]
+        places_x = [places[u] for u in range(U) for _ in range(K)]
+        procs = [
+            TraceReplay(cum / (lf * ips[uniq[u]] / CLOCK_HZ))
+            for u in range(U)
+            for lf in load_fracs
+        ]
+        op = vt.run_batch(
+            allocs_x, procs, seed=seed, percentiles=qs, placements=places_x
+        )
+        lat = op.latencies.reshape(U, K, -1)
+        for k in range(K):
+            pcts[np.asarray(uniq), k] = np.percentile(lat[:, k], qs, axis=1).T
+        for i in rows:
+            j = alias[i]
+            if j != i:
+                ips[i] = ips[j]
+                pcts[i] = pcts[j]
+                xfer_max[i] = xfer_max[j]
+                crossings[i] = crossings[j]
+                used[i] = used[j]
+                total[i] = total[j]
+        elapsed += time.perf_counter() - t0
+
+    return FusedChipSweepResult(
+        points=list(points),
+        load_fracs=tuple(load_fracs),
+        images_per_sec=ips,
+        pcts=pcts,
+        max_stage_transfer=xfer_max,
+        n_crossings=crossings,
+        arrays_used=used,
+        arrays_total=total,
+        elapsed_s=elapsed,
     )

@@ -13,7 +13,14 @@ import numpy as np
 
 from .sweep import SweepResult
 
-__all__ = ["pareto_mask", "pareto_frontier", "DEFAULT_OBJECTIVES", "LATENCY_OBJECTIVES"]
+__all__ = [
+    "pareto_mask",
+    "pareto_frontier",
+    "DEFAULT_OBJECTIVES",
+    "FAULT_OBJECTIVES",
+    "LATENCY_OBJECTIVES",
+    "MULTICHIP_OBJECTIVES",
+]
 
 # (column, maximize?) — fewer arrays is better, more img/s and util are better
 DEFAULT_OBJECTIVES = (
@@ -29,6 +36,25 @@ LATENCY_OBJECTIVES = (
     ("images_per_sec", True),
     ("p99_cycles", False),
     ("mean_utilization", True),
+)
+
+# scale-out frontier over ``run_multichip_sweep`` results: what you serve,
+# what users feel with inter-chip transfers on the critical path, and how
+# many chips you must package/interconnect (fewer is cheaper)
+MULTICHIP_OBJECTIVES = (
+    ("images_per_sec", True),
+    ("p99_cycles", False),
+    ("n_chips", False),
+)
+
+# fault-tolerance frontier over ``run_fault_sweep`` results: capacity that
+# stays serviceable through failures (spares buy it), the tail users feel
+# while degraded, and the arrays you must build (spares cost them) — the
+# spare-fraction x failure-rate trade of the robustness PR
+FAULT_OBJECTIVES = (
+    ("availability", True),
+    ("p99_cycles", False),
+    ("arrays_total", False),
 )
 
 

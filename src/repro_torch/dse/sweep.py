@@ -15,8 +15,11 @@ runs the virtual-time fabric for its p50 / p95 / p99 columns: one VT launch
 per group on the batch engine, one ``FabricSim`` per point on the scalar
 engine, bit-identical.
 
-Not ported yet: sharding the batch over devices (``shard_devices=True``,
-which raises ``NotImplementedError``) and the multi-chip sweep.
+``shard_devices=True`` splits the batched analytic evaluation over the
+local devices (``distrib.sharding.shard_map_batch``).  The multi-chip sweep
+(``chip_grid`` -> ``run_multichip_sweep``) places every point on its
+``FabricTopology`` (``allocate_placed``) and measures it through two
+batched ``VirtualTimeFabric`` calls, a closed loop and an open loop.
 """
 
 from __future__ import annotations
@@ -44,24 +47,24 @@ from ..core.cim.simulate import (
     allocate,
     simulate,
 )
+from ..core.cim.topology import FabricTopology, allocate_placed
 from ..fabric.telemetry import get_telemetry
 from .engine import run_batch, to_allocation
 
 __all__ = [
+    "ChipSweepPoint",
+    "ChipSweepResult",
     "FabricEval",
     "SweepPoint",
     "SweepResult",
+    "chip_grid",
+    "run_multichip_sweep",
     "design_grid",
     "run_sweep",
     "get_captured",
     "get_profiled",
     "clear_caches",
 ]
-
-SHARD_NOT_PORTED = (
-    "splitting the config axis over devices (shard) is not ported yet "
-    "(ROADMAP.md §1, distrib.sharding.shard_map_batch)"
-)
 
 _SPEC_FNS = {"resnet18": resnet18_imagenet, "vgg11": vgg11_cifar10}
 _CAPTURE_CACHE: dict[tuple, ActivationCapture] = {}
@@ -275,9 +278,9 @@ def run_sweep(
     the p50 / p95 / p99 columns.  ``latency_load_frac`` is the load
     ``latency_aware`` points are provisioned for; it defaults to the load
     they are evaluated at (``fabric.load_frac``, else 0.7).
-    ``shard_devices=True`` raises ``NotImplementedError``."""
-    if shard_devices:
-        raise NotImplementedError(SHARD_NOT_PORTED)
+    ``shard_devices=True`` splits the batched analytic evaluation over the
+    local devices (``distrib.sharding.shard_map_batch``), with identical
+    results."""
     if engine not in ("batch", "scalar"):
         raise ValueError(f"engine must be 'batch' or 'scalar', got {engine!r}")
     if latency_load_frac is None:
@@ -315,10 +318,10 @@ def run_sweep(
         t0 = time.perf_counter()
         with tel.timed("dse.sweep.group", network=net, points=len(rows)):
             if engine == "batch":
-                key = (net, arr, profile_images, sample_patches, seed, str(dev))
+                key = (net, arr, profile_images, sample_patches, seed, str(dev), shard_devices)
                 if key not in _SIMULATOR_CACHE:
                     tel.count("dse.simulator.miss")
-                    _SIMULATOR_CACHE[key] = BatchSimulator(spec, prof)
+                    _SIMULATOR_CACHE[key] = BatchSimulator(spec, prof, shard=shard_devices)
                 else:
                     tel.count("dse.simulator.hit")
                 alloc, res = run_batch(
@@ -371,6 +374,241 @@ def run_sweep(
         p95_cycles=pcts[:, 1] if fabric is not None else None,
         p99_cycles=pcts[:, 2] if fabric is not None else None,
         fabric=fabric,
+    )
+
+
+# ------------------------------------------------------- multi-chip sweep
+@dataclass(frozen=True)
+class ChipSweepPoint:
+    """One multi-chip design point: the SAME total silicon (``n_pes_total``
+    PEs) tiled over ``n_chips`` chips strung on ``link_gbps`` links."""
+
+    network: str
+    n_chips: int
+    link_gbps: float
+    n_pes_total: int
+    policy: str = "blockwise"
+    array: ArrayConfig = DEFAULT_ARRAY
+
+    def topology(self, arrays_per_pe: int = ARRAYS_PER_PE) -> FabricTopology:
+        return FabricTopology.split(
+            self.n_chips, self.n_pes_total,
+            arrays_per_pe=arrays_per_pe, link_gbps=self.link_gbps,
+            array=self.array,
+        )
+
+
+@dataclass
+class ChipSweepResult:
+    """Columnar multi-chip sweep outcome; row i <-> ``points[i]``.
+
+    ``objectives``-compatible with ``pareto_frontier`` — the
+    (throughput, p99, chips) frontier is ``MULTICHIP_OBJECTIVES``.
+    """
+
+    points: list[ChipSweepPoint]
+    images_per_sec: np.ndarray  # (C,) closed-loop steady rate WITH transfers
+    p50_cycles: np.ndarray
+    p95_cycles: np.ndarray
+    p99_cycles: np.ndarray
+    max_stage_transfer: np.ndarray  # (C,) worst per-request entry delay
+    n_crossings: np.ndarray  # (C,) replicas parked off their source chip
+    arrays_used: np.ndarray
+    arrays_total: np.ndarray
+    elapsed_s: float
+
+    def __len__(self) -> int:
+        return len(self.points)
+
+    def objectives(self, names: tuple[str, ...]) -> np.ndarray:
+        cols = {
+            "n_chips": np.asarray([p.n_chips for p in self.points], dtype=np.float64),
+            "link_gbps": np.asarray([p.link_gbps for p in self.points]),
+        }
+        out = []
+        for n in names:
+            v = cols.get(n)
+            if v is None:
+                v = np.asarray(getattr(self, n), dtype=np.float64)
+            out.append(v)
+        return np.stack(out, axis=1)
+
+    def rows(self) -> list[dict]:
+        out = []
+        for i, p in enumerate(self.points):
+            out.append(
+                {
+                    "network": p.network,
+                    "policy": p.policy,
+                    "n_chips": p.n_chips,
+                    "link_gbps": p.link_gbps,
+                    "n_pes_total": p.n_pes_total,
+                    "images_per_sec": float(self.images_per_sec[i]),
+                    "p50_ms": float(self.p50_cycles[i] / CLOCK_HZ * 1e3),
+                    "p95_ms": float(self.p95_cycles[i] / CLOCK_HZ * 1e3),
+                    "p99_ms": float(self.p99_cycles[i] / CLOCK_HZ * 1e3),
+                    "max_stage_transfer_cycles": float(self.max_stage_transfer[i]),
+                    "n_crossings": int(self.n_crossings[i]),
+                    "arrays_used": int(self.arrays_used[i]),
+                    "arrays_total": int(self.arrays_total[i]),
+                }
+            )
+        return out
+
+
+def chip_grid(
+    networks=("vgg11",),
+    chips=(1, 2, 4, 8),
+    link_gbps=(16.0, 64.0),
+    policy: str = "blockwise",
+    pe_multiplier: float = 2.0,
+    arrays_per_pe: int = ARRAYS_PER_PE,
+    arrays=(DEFAULT_ARRAY,),
+) -> list[ChipSweepPoint]:
+    """chips x link-bandwidth grid at a FIXED total array budget per
+    network: ``pe_multiplier`` times the minimum design, rounded up so every
+    chip count divides it — the equal-silicon scaling comparison."""
+    import math
+
+    points = []
+    div = math.lcm(*(int(c) for c in chips))
+    for net in networks:
+        for arr in arrays:
+            spec = _spec_for(net, arr)
+            base = spec.min_pes(arrays_per_pe)
+            total = int(np.ceil(base * pe_multiplier))
+            total = -(-total // div) * div
+            for c in chips:
+                for g in link_gbps:
+                    points.append(
+                        ChipSweepPoint(net, int(c), float(g), total, policy, arr)
+                    )
+    return points
+
+
+def run_multichip_sweep(
+    points: list[ChipSweepPoint],
+    *,
+    load_frac: float = 0.7,
+    n_requests: int = 200,
+    closed_requests: int = 80,
+    concurrency: int = 32,
+    seed: int = 0,
+    profile_images: int = 1,
+    sample_patches: int = 128,
+    arrays_per_pe: int = ARRAYS_PER_PE,
+    engine: str = "torch",
+    latency_load_frac: float = 0.7,
+    device: str | torch.device = "cuda",
+) -> ChipSweepResult:
+    """Evaluate a chips x link-bandwidth grid on the placed fabric.
+
+    Per (network, array) group: every point's placed allocation
+    (``allocate_placed`` on its ``FabricTopology``) runs through TWO batched
+    virtual-time calls — a closed loop for steady throughput (transfer
+    delays included) and an open-loop Poisson trace at ``load_frac`` of the
+    point's own measured throughput for tail percentiles.  Traces share one
+    normalized gap sequence (common random numbers), so differences across
+    points are placement/topology effects, not noise.  ``engine="torch"``
+    runs each call as one VT launch on ``device``; ``engine="numpy"`` runs
+    the reference's kernels config by config on the host (the equivalence
+    reference).
+    """
+    from ..fabric.arrivals import ClosedLoop, TraceReplay
+    from ..fabric.vtime import VirtualTimeFabric
+
+    C = len(points)
+    ips = np.zeros(C)
+    pcts = np.zeros((C, 3))
+    xfer_max = np.zeros(C)
+    crossings = np.zeros(C, dtype=np.int64)
+    used = np.zeros(C, dtype=np.int64)
+    total = np.zeros(C, dtype=np.int64)
+
+    groups: dict[tuple, list[int]] = {}
+    for i, p in enumerate(points):
+        groups.setdefault((p.network, p.array), []).append(i)
+    dev = resolve_device(device)
+    prof_kw = dict(
+        profile_images=profile_images, sample_patches=sample_patches, seed=seed, device=dev
+    )
+    for net, arr in groups:
+        get_profiled(net, arr, **prof_kw)
+
+    elapsed = 0.0
+    qs = (50.0, 95.0, 99.0)
+    for (net, arr), rows in groups.items():
+        spec, prof = get_profiled(net, arr, **prof_kw)
+        # dedupe physically identical points: on one chip the link is
+        # unused, so every link_gbps value names the same design — evaluate
+        # each unique topology once and alias the rest onto it
+        alias: dict[int, int] = {}
+        canon: dict[tuple, int] = {}
+        uniq: list[int] = []
+        for i in rows:
+            p = points[i]
+            key = (
+                p.policy, p.n_pes_total, p.n_chips,
+                p.link_gbps if p.n_chips > 1 else None,
+            )
+            if key not in canon:
+                canon[key] = i
+                uniq.append(i)
+            alias[i] = canon[key]
+        placed = []
+        for i in uniq:
+            p = points[i]
+            pa = allocate_placed(
+                spec, prof, p.policy, p.topology(arrays_per_pe),
+                load_frac=latency_load_frac,
+            )
+            placed.append(pa)
+            xfer_max[i] = pa.placement.max_stage_transfer
+            crossings[i] = pa.placement.n_crossings
+            used[i] = pa.allocation.arrays_used
+            total[i] = pa.allocation.arrays_total
+        allocs = [pa.allocation for pa in placed]
+        places = [pa.placement for pa in placed]
+        t0 = time.perf_counter()
+        vt = VirtualTimeFabric(spec, prof, lane_quantum=8, device=dev)
+        # throughput: saturated closed loop, transfer delays included
+        cl = vt.run_batch(
+            allocs, ClosedLoop(closed_requests, concurrency),
+            seed=seed, engine=engine, percentiles=qs, placements=places,
+        )
+        ips[uniq] = cl.images_per_sec
+        # tail: Poisson at load_frac of each point's own throughput, one
+        # shared normalized gap sequence (common random numbers)
+        gaps = np.random.default_rng(seed).exponential(1.0, size=n_requests)
+        rates = load_frac * ips[uniq] / CLOCK_HZ
+        procs = [TraceReplay(np.cumsum(gaps) / r) for r in rates]
+        op = vt.run_batch(
+            allocs, procs, seed=seed, engine=engine, percentiles=qs,
+            placements=places,
+        )
+        pcts[uniq] = np.percentile(op.latencies, qs, axis=1).T
+        for i in rows:
+            j = alias[i]
+            if j != i:
+                ips[i] = ips[j]
+                pcts[i] = pcts[j]
+                xfer_max[i] = xfer_max[j]
+                crossings[i] = crossings[j]
+                used[i] = used[j]
+                total[i] = total[j]
+        elapsed += time.perf_counter() - t0
+
+    return ChipSweepResult(
+        points=list(points),
+        images_per_sec=ips,
+        p50_cycles=pcts[:, 0],
+        p95_cycles=pcts[:, 1],
+        p99_cycles=pcts[:, 2],
+        max_stage_transfer=xfer_max,
+        n_crossings=crossings,
+        arrays_used=used,
+        arrays_total=total,
+        elapsed_s=elapsed,
     )
 
 

@@ -12,10 +12,11 @@ host, supports drift re-allocation, timelines and failure replay) and the
 virtual-time scan (``VirtualTimeFabric``: one launch of the VT kernel on the
 card for a whole batch of (allocation, trace) pairs, bit-identical to the
 event engine), which powers latency-aware provisioning
-(``provision_latency_aware``) and the sweeps' latency columns.
-
-Not ported yet: ``fleet`` (streaming and segmented replay) and the placed
-tenancy path, which come with the topology slice (ROADMAP.md §1 item 4).
+(``provision_latency_aware``) and the sweeps' latency columns.  ``fleet``
+replays long traces in O(lanes + sketch) memory: one streaming VT launch
+per call or segment (``run_stream``, ``run_trace_segments``,
+``run_trace_failures``).  Tenants may share a multi-chip fabric
+(``allocate_shared(topology=)``).
 """
 
 from .arrivals import (
@@ -29,6 +30,15 @@ from .arrivals import (
 from .dispatch import FabricSim
 from .drift import DriftConfig, OnlineReallocator, shift_profile
 from .events import EventCalendar, PoolStats, ServerPool
+from .fleet import (
+    FleetResult,
+    SegmentedReplayResult,
+    SegmentReport,
+    run_stream,
+    run_trace_failures,
+    run_trace_segments,
+    segment_growth_plan,
+)
 from .failures import (
     DegradePlan,
     FailureEvent,
@@ -96,6 +106,13 @@ __all__ = [
     "DriftConfig",
     "OnlineReallocator",
     "shift_profile",
+    "FleetResult",
+    "SegmentReport",
+    "SegmentedReplayResult",
+    "run_stream",
+    "run_trace_failures",
+    "run_trace_segments",
+    "segment_growth_plan",
     "EventCalendar",
     "PoolStats",
     "ServerPool",

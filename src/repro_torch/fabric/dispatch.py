@@ -3,9 +3,10 @@ the discrete-event core.
 
 Copied from the reference ``fabric/dispatch.py``: the engine runs on the
 host in numpy, reading the profile's cycle tensors once into float64 numpy
-(``core.cim.simulate._layer_patch_cycles``).  The ``Placement``, ``fleet``
-and ``topology`` named below are the reference's (ROADMAP.md §1 item 4);
-``placement=`` takes any object with a ``stage_transfer`` vector.
+(``core.cim.simulate._layer_patch_cycles``).  ``placement=`` takes a
+``core.cim.topology.Placement`` or any object with a ``stage_transfer``
+vector; ``service_sampling="hash"`` draws the indices ``fleet``'s streaming
+replay hashes.
 
 Mapping onto pools follows the dataflow of the allocation:
 

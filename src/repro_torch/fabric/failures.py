@@ -1,8 +1,8 @@
 """Seeded fabric failure injection + SLO-defending graceful degradation.
 
 Copied from the reference ``fabric/failures.py`` (numpy only).  The
-segmented replay (``fleet``) and ``topology`` named below are the
-reference's; the port has not ported them yet (ROADMAP.md §1 item 4).
+segmented replay (``fleet.run_trace_failures``) and ``core.cim.topology``
+named below are the port's own modules.
 
 The paper's fixed eNVM crossbars make failures expensive: a dead array takes
 its replica's weights with it, and re-placing the lost capacity costs real

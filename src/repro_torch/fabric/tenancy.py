@@ -21,9 +21,9 @@ its own dataflow edges — the per-tenant ``Placement``s feed straight into
 greedy's (bit-identical with or without a topology); only locations and the
 resulting transfer delays are added.
 
-Ported from the reference ``fabric/tenancy.py``: the flat path, on the
-host.  The placed path (``topology=``) comes with the topology slice
-(ROADMAP.md §1 item 4) and raises ``NotImplementedError`` until then.
+Ported from the reference ``fabric/tenancy.py``, on the host, the placed
+path (``topology=``, through ``core.cim.topology.place_allocation``)
+included.
 """
 
 from __future__ import annotations
@@ -48,11 +48,6 @@ from .dispatch import FabricSim
 from .metrics import FabricResult
 
 __all__ = ["Tenant", "SharedAllocation", "allocate_shared", "run_tenants", "fairness_report"]
-
-TOPOLOGY_NOT_PORTED = (
-    "allocate_shared(topology=) is not ported yet: it comes with "
-    "core.cim.topology (ROADMAP.md §1 item 4)"
-)
 
 
 @dataclass(frozen=True)
@@ -89,13 +84,16 @@ def allocate_shared(
     sequentially in tenant order, so earlier (typically heavier-weight)
     tenants pack closest to the host chip — and attaches the per-tenant
     ``Placement``s the simulations consume."""
-    if topology is not None:
-        raise NotImplementedError(TOPOLOGY_NOT_PORTED)
     if len(tenants) < 1:
         raise ValueError("need at least one tenant")
     if any(t.weight <= 0 for t in tenants):
         raise ValueError("tenant weights must be positive")
     total = n_pes * arrays_per_pe
+    if topology is not None and topology.total_arrays != total:
+        raise ValueError(
+            f"topology holds {topology.total_arrays} arrays but the fabric "
+            f"budget is {total} ({n_pes} PEs x {arrays_per_pe})"
+        )
     base = sum(t.spec.n_arrays for t in tenants)
     if total < base:
         raise ValueError(
@@ -123,7 +121,20 @@ def allocate_shared(
             Allocation("blockwise", None, split_block_dups(t.spec, rep), used, total)
         )
         k += size
-    return SharedAllocation(tuple(tenants), tuple(allocs), total, int(used_total))
+    placements = None
+    if topology is not None:
+        from ..core.cim.topology import place_allocation
+
+        free = np.full(topology.n_chips, float(topology.arrays_per_chip))
+        pls = []
+        for t, alloc in zip(tenants, allocs):
+            pl = place_allocation(t.spec, alloc, topology, chip_free=free)
+            free = free - pl.chip_arrays
+            pls.append(pl)
+        placements = tuple(pls)
+    return SharedAllocation(
+        tuple(tenants), tuple(allocs), total, int(used_total), placements
+    )
 
 
 def run_tenants(

@@ -21,7 +21,24 @@ completion (C, N); with ``collect_stats`` the service cycles and queue waits
 per layer (C, L).  Completions are bit-identical to ``FabricSim`` and to the
 numpy engine; the two sums agree with the numpy engine to rtol 1e-12 (their
 order differs).  Service times are cycles, so both versions take them >= 0
-(the kernel's insert relies on it) and at most 512 servers a pool.
+(the kernel's insert relies on it).  A pool holds at most ``MAX_LANES`` =
+65,536 servers: up to 512 a warp keeps them in registers, above that its
+lanes stay in the pool state (shared memory when it fits, else a global
+scratch row) and each job rewrites them a row of 32 at a time.
+
+``vtime_stream`` is the second entry of the same source: the fleet's
+streaming replay (the reference's ``_run_stream_kernel``,
+``src/repro/fabric/fleet.py:104-164``), one launch per segment.  It runs the
+same pools over requests whose sample indices are hashed in the kernel
+(``fabric.vtime.hash_service_indices``; there is no (N, P) index tensor) or
+given, whose jobs may be macro-jobs (``_chunk_services``: a left fold of K
+patches, then the exact tail), and folds each latency into the log-bucket
+sketch, min / max, Welford mean / m2 and the horizon
+(``fabric.metrics.sketch_update``).  Lane state, ring, sketch and horizon
+(``StreamState``) come from the caller and go back to it, so a segment's
+launch continues the previous one.  ``vtime_stream_ref`` is its plain
+version.  The reference's ``window`` blocks its scan and changes no bit;
+the launch takes every request in order and has no such argument.
 
 ``vtime_scan`` launches the kernel on CUDA tensors (``kernel_plan`` makes
 its host-side choices) and runs the plain PyTorch version ``vtime_scan_ref``
@@ -41,14 +58,26 @@ import torch
 
 from . import _build
 
-__all__ = ["kernel_plan", "vtime_scan", "vtime_scan_ref"]
+__all__ = [
+    "MAX_LANES",
+    "StreamState",
+    "kernel_plan",
+    "pool_caps",
+    "stream_dense",
+    "stream_flat",
+    "stream_state",
+    "vtime_scan",
+    "vtime_scan_ref",
+    "vtime_stream",
+    "vtime_stream_ref",
+]
 
 _F64 = torch.float64
 MAX_SMEM = 232_448  # the most shared memory one block may use on the card
 STATIC_SMEM = 12 * 1024  # the kernel's own shared arrays, kept out of the state's room
 MAX_LAYERS = 64
 MAX_POOLS = 1024
-MAX_LANES = 512
+MAX_LANES = 65_536  # servers a pool; a warp holds up to 512 in registers
 SMALL_POOL = 8  # pools of at most this many servers run on one thread
 CHUNK = 2048  # doubles of service times staged at a time, two buffers
 LOADER_WARPS = 2  # warps of a block that stage the next chunk's service times
@@ -66,7 +95,7 @@ def _launcher():
 class KernelPlan(NamedTuple):
     threads: int  # threads a block
     consumer_warps: int  # warps that run the pools; the other LOADER_WARPS stage
-    kmax: int  # lanes a thread of the widest pool's warp holds: 1, 4 or 16
+    kmax: int  # lanes a thread of the widest pool's warp holds: 1, 4 or 16; 32 with a pool wider than 512
     chunk: int  # doubles of service times a staging buffer holds
     state_stride: int  # doubles of pool state a config
     smem_state: bool  # the pool state lives in shared memory
@@ -76,7 +105,7 @@ class KernelPlan(NamedTuple):
 def pool_caps(lanes: np.ndarray) -> np.ndarray:
     """Lanes of state VT gives each pool: the power of two above its servers
     for a pool of at most 8 (one thread runs it), at least 32 above (a warp
-    runs it, 32 / 64 / ... / 512 lanes), none for a pool without servers."""
+    runs it, 32 / 64 / ... lanes), none for a pool without servers."""
     d = np.asarray(lanes, dtype=np.int64)
     pow2 = np.where(d <= 1, 1, 1 << np.ceil(np.log2(np.maximum(d, 1))).astype(np.int64))
     return np.where(d == 0, 0, np.where(d <= SMALL_POOL, pow2, np.maximum(32, pow2)))
@@ -89,7 +118,8 @@ def kernel_plan(lanes: np.ndarray, blocks, patches) -> KernelPlan:
     more than 8 servers in the layer that has most (at most 14, or 6 for the
     widest build, whose threads hold up to 16 lanes), beside
     ``LOADER_WARPS`` warps that stage service times; the build for the widest
-    pool (``kmax``); staging buffers of ``CHUNK`` doubles (fewer when no
+    pool (``kmax``; 32, a build of its own, for pools wider than 512, whose
+    lanes stay in the pool state); staging buffers of ``CHUNK`` doubles (fewer when no
     layer needs them, at least the widest layer's pools); the pool state
     (``pool_caps`` summed over a config's pools, the largest config) in
     shared memory when it fits beside them."""
@@ -101,8 +131,8 @@ def kernel_plan(lanes: np.ndarray, blocks, patches) -> KernelPlan:
         wide = max(wide, int((lanes[:, off : off + b] > SMALL_POOL).sum(axis=1).max(initial=0)))
         off += b
     top = int(pool_caps(lanes).max(initial=1))
-    kmax = 1 if top <= 32 else 4 if top <= 128 else 16
-    warps = 8 if kmax == 16 else 16  # the build's launch bound: 256 or 512 threads
+    kmax = 1 if top <= 32 else 4 if top <= 128 else 16 if top <= 512 else 32
+    warps = 8 if kmax >= 16 else 16  # the build's launch bound: 256 or 512 threads
     consumers = min(warps - LOADER_WARPS, max(1, -(-max(blocks) // 32), wide))
     chunk = max(max(blocks), min(CHUNK, max(b * p for b, p in zip(blocks, patches))))
     stride = int(pool_caps(lanes).sum(axis=1).max(initial=1))
@@ -339,3 +369,418 @@ def vtime_scan(
 
 
 vtime_scan.launches = 0
+
+
+# ------------------------------------------------------------- streaming entry
+@functools.cache
+def _stream_launcher():
+    fn = _build.load("vtime_scan").vtime_stream_launch
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 11
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+class StreamState(NamedTuple):
+    """A streaming replay's carry for C configs, float64 on one device."""
+
+    state: torch.Tensor  # (C, stride) lane free-times, pool by pool at pool_caps(lanes) lanes, sorted, +inf absent
+    ring: torch.Tensor  # (C, R) closed-loop completions by slot r % concurrency (R = 1 for the open loop)
+    counts: torch.Tensor  # (C, n_bins) sketch bucket counts
+    moments: torch.Tensor  # (C, 5): n, min, max, mean, m2
+    horizon: torch.Tensor  # (C,) largest completion so far
+
+
+def _layout(lanes: np.ndarray):
+    """Per-pool lane capacity and first lane of each config's state row, and
+    the row length (the largest config's)."""
+    caps = pool_caps(lanes)
+    offs = np.cumsum(caps, axis=1) - caps
+    return caps, offs, int(caps.sum(axis=1).max(initial=1)) if caps.size else 1
+
+
+def _dense_index(lanes: np.ndarray, blocks):
+    """Per layer (C, B_l, D_l) indices into a state row with a trailing
+    +inf column: lane d of pool b, or the +inf column past its capacity
+    (D_l: the layer's largest capacity, at least 1)."""
+    caps, offs, stride = _layout(lanes)
+    out, q = [], 0
+    for b in blocks:
+        c = caps[:, q : q + b]
+        d = np.arange(max(1, int(c.max(initial=1))))
+        out.append(np.where(d < c[..., None], offs[:, q : q + b, None] + d, stride))
+        q += b
+    return out, stride
+
+
+def stream_state(lanes, servers, *, n_bins: int, ring_len: int = 1, device="cpu") -> StreamState:
+    """A fresh carry: ``lanes`` (C, pools) lane slots a pool, the first
+    ``servers`` (C, pools) of them free at 0 and the rest absent (+inf);
+    an empty ring (zeros), an empty sketch (n 0, min +inf, max -inf)."""
+    lanes = np.asarray(lanes, dtype=np.int64)
+    servers = np.asarray(servers, dtype=np.int64)
+    caps, offs, stride = _layout(lanes)
+    C = lanes.shape[0]
+    st = np.full((C, stride), np.inf)
+    for c in range(C):
+        for q in range(lanes.shape[1]):
+            st[c, offs[c, q] : offs[c, q] + servers[c, q]] = 0.0
+    mom = np.zeros((C, 5))
+    mom[:, 1], mom[:, 2] = np.inf, -np.inf
+    dev = torch.device(device)
+    return StreamState(*(torch.as_tensor(a, dtype=_F64, device=dev) for a in (
+        st, np.zeros((C, max(1, int(ring_len)))), np.zeros((C, int(n_bins))), mom, np.zeros(C))))
+
+
+def stream_dense(state: torch.Tensor, lanes, blocks) -> list[torch.Tensor]:
+    """The carry's lanes as per-layer (C, B_l, D_l) sorted free-times on the
+    state's device (+inf past a pool's capacity): the reference's packed
+    lane layout, for host-side boundary updates."""
+    idx, stride = _dense_index(np.asarray(lanes, dtype=np.int64), blocks)
+    ext = torch.cat([state[:, :stride], torch.full_like(state[:, :1], float("inf"))], dim=1)
+    return [torch.gather(ext, 1, torch.as_tensor(i.reshape(i.shape[0], -1), device=state.device)).view(i.shape)
+            for i in idx]
+
+
+def stream_flat(dense, lanes, blocks) -> torch.Tensor:
+    """Inverse of ``stream_dense``: the (C, stride) state row.  Lanes past a
+    pool's capacity must be +inf (they are dropped)."""
+    idx, stride = _dense_index(np.asarray(lanes, dtype=np.int64), blocks)
+    C = dense[0].shape[0]
+    ext = torch.full((C, stride + 1), float("inf"), dtype=_F64, device=dense[0].device)
+    for d, i in zip(dense, idx):
+        ext.scatter_(1, torch.as_tensor(i.reshape(C, -1), device=d.device), d.reshape(C, -1).to(_F64))
+    return ext[:, :stride].contiguous()
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a: torch.Tensor, k: int) -> torch.Tensor:
+    """(a * k) mod 2^32 for int64 ``a`` in [0, 2^32), in two 16-bit halves
+    of ``k`` so that no int64 product overflows."""
+    lo = a * (k & 0xFFFF)
+    hi = ((a * (k >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def stream_hash(salt: int, r, n_patches: int, n_samples: int, device="cpu") -> torch.Tensor:
+    """``fabric.vtime.hash_service_indices`` for request(s) ``r`` in int64
+    masked to 32 bits after every multiply and add (the kernel's uint32
+    arithmetic): (..., n_patches) int64 sample rows."""
+    r = torch.as_tensor(r, dtype=torch.int64, device=device)[..., None] & _M32
+    p = torch.arange(int(n_patches), dtype=torch.int64, device=r.device)
+    h = _mul32(p + 1, 0x9E3779B9)
+    h = (h + _mul32((r + 1) & _M32, 0x85EBCA6B)) & _M32
+    h = (h + (int(salt) & _M32)) & _M32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x7FEB352D)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x846CA68B)
+    h = h ^ (h >> 16)
+    return h % int(n_samples)
+
+
+class _Stream(NamedTuple):
+    """Checked streaming inputs on one device."""
+
+    tables: list  # per layer (V, S_l, B_l) float64
+    patches: list  # per layer P_l
+    salts: list | None  # per layer uint32 salt (hash mode)
+    idx: list | None  # per layer (N, P_l) int32 (presampled mode)
+    plans: np.ndarray  # (C, L, 2) int64 (K, n_bulk)
+    variant: torch.Tensor
+    lanes: torch.Tensor  # (C, Ptot) int32 lane slots
+    carry: StreamState
+    arrivals: torch.Tensor | None
+    xfer: torch.Tensor | None
+    n_requests: int
+    r0: int
+    concurrency: int  # 0: open loop
+    sketch: tuple  # (bins_per_octave, min_exp)
+
+
+def _prepare_stream(tables, variant, lanes, carry, n_requests, patches, salts, idx, plans, r0, arrivals,
+                    concurrency, xfer, sketch) -> _Stream:
+    tables = list(tables)
+    if (salts is None) == (idx is None):
+        raise ValueError("vtime_stream: give salts (hashed indices) or idx (presampled), not both")
+    idx = None if idx is None else list(idx)
+    tensors = [*tables, *(idx or []), variant, lanes, *carry] + [t for t in (arrivals, xfer) if t is not None]
+    if not all(isinstance(t, torch.Tensor) for t in tensors):
+        raise TypeError("vtime_stream takes torch tensors")
+    dev = variant.device
+    if any(t.device != dev for t in tensors):
+        raise ValueError("vtime_stream: every input must lie on one device")
+    L = len(tables)
+    if L < 1 or L > MAX_LAYERS:
+        raise ValueError(f"vtime_stream: {L} layer tables (1 to {MAX_LAYERS})")
+    tables = [t.to(_F64).contiguous() for t in tables]
+    V = tables[0].shape[0]
+    if any(t.dim() != 3 or t.shape[0] != V or min(t.shape) < 1 for t in tables):
+        raise ValueError(f"tables must be (V, S_l, B_l) with one V, got {[tuple(t.shape) for t in tables]}")
+    N = int(n_requests)
+    if idx is not None:
+        idx = [i.to(torch.int32).contiguous() for i in idx]
+        if len(idx) != L or any(i.dim() != 2 or i.shape[0] < N for i in idx):
+            raise ValueError(f"idx must be (>= {N}, P_l) per layer, got {[tuple(i.shape) for i in idx]}")
+        patches = [int(i.shape[1]) for i in idx]
+        idx = [i[:N].contiguous() for i in idx]
+    else:
+        salts = [int(s) & _M32 for s in salts]
+        if len(salts) != L:
+            raise ValueError(f"{len(salts)} salts for {L} layers")
+    patches = [int(x) for x in patches]
+    if len(patches) != L or min(patches) < 1:
+        raise ValueError(f"patches must be {L} positive counts, got {patches}")
+    variant = variant.reshape(-1).to(torch.int32).contiguous()
+    C = variant.shape[0]
+    n_pools = sum(t.shape[2] for t in tables)
+    if n_pools > MAX_POOLS:
+        raise ValueError(f"vtime_stream: {n_pools} pools, at most {MAX_POOLS}")
+    lanes = lanes.to(torch.int32).contiguous()
+    if tuple(lanes.shape) != (C, n_pools):
+        raise ValueError(f"lanes {tuple(lanes.shape)} != (C={C}, pools={n_pools})")
+    lanes_np = lanes.cpu().numpy()
+    if lanes_np.size and (lanes_np.min() < 0 or lanes_np.max() > MAX_LANES):
+        raise ValueError(f"lanes must lie in [0, {MAX_LANES}]")
+    plans = np.ones((C, L, 2), dtype=np.int64) * np.array([1, 0]) if plans is None else \
+        np.broadcast_to(np.asarray(plans, dtype=np.int64), (C, L, 2)).copy()
+    P = np.asarray(patches)[None, :]
+    if np.any(plans[..., 0] < 1) or np.any(plans[..., 1] < 0) or np.any(plans[..., 0] * plans[..., 1] > P):
+        raise ValueError("plans must hold (K >= 1, n_bulk >= 0) with K * n_bulk <= P_l")
+    if idx is not None and np.any(plans[..., 1] > 0):
+        raise ValueError("presampled indices take exact plans only")
+    _, _, stride = _layout(lanes_np)
+    st, ring, counts, moments, horizon = (t.to(_F64).contiguous() for t in carry)
+    if st.dim() != 2 or st.shape[0] != C or st.shape[1] < stride:
+        raise ValueError(f"state {tuple(st.shape)} must be ({C}, >= {stride})")
+    conc = 0 if concurrency is None else int(concurrency)
+    if (arrivals is None) == (concurrency is None):
+        raise ValueError("give arrivals (open loop) or concurrency (closed loop), not both")
+    if arrivals is not None:
+        arrivals = arrivals.to(_F64).contiguous()
+        if arrivals.dim() != 2 or arrivals.shape[0] != C or arrivals.shape[1] < N:
+            raise ValueError(f"arrivals {tuple(arrivals.shape)} must be ({C}, >= {N})")
+        arrivals = arrivals[:, :N].contiguous()
+    elif conc < 1:
+        raise ValueError(f"concurrency must be >= 1, got {concurrency}")
+    if ring.dim() != 2 or ring.shape[0] != C or ring.shape[1] < max(1, conc):
+        raise ValueError(f"ring {tuple(ring.shape)} must be ({C}, >= {max(1, conc)})")
+    if counts.dim() != 2 or counts.shape[0] != C or moments.shape != (C, 5) or horizon.shape != (C,):
+        raise ValueError("counts (C, n_bins), moments (C, 5) and horizon (C,) expected")
+    if xfer is not None:
+        xfer = xfer.to(_F64).contiguous()
+        if tuple(xfer.shape) != (C, L):
+            raise ValueError(f"xfer {tuple(xfer.shape)} != ({C}, {L})")
+    checks = [((variant >= 0) & (variant < V)).all(), torch.stack([(t >= 0).all() for t in tables]).all()]
+    if idx is not None:
+        checks += [((i >= 0) & (i < t.shape[1])).all() for i, t in zip(idx, tables)]
+    ok = torch.stack(checks).tolist() if C else [True] * len(checks)
+    if not ok[0]:
+        raise ValueError(f"variant out of range for {V} variants")
+    if not ok[1]:
+        raise ValueError("service times must be >= 0 (and not NaN)")
+    if not all(ok[2:]):
+        raise ValueError("a sample index is out of range of its layer's table")
+    return _Stream(tables, patches, None if idx is not None else salts, idx, plans, variant, lanes,
+                   StreamState(st, ring, counts, moments, horizon), arrivals, xfer, N, int(r0), conc,
+                   (int(sketch[0]), int(sketch[1])))
+
+
+def _chunk_jobs(svc: torch.Tensor, k: int, nb: int) -> torch.Tensor:
+    """``vtime._chunk_services`` on (c, P, B): nb macro-jobs, each the left
+    fold of k patches, then the exact tail."""
+    if nb == 0:
+        return svc
+    head = svc[:, : nb * k].reshape(svc.shape[0], nb, k, svc.shape[2])
+    acc = head[:, :, 0]
+    for j in range(1, k):
+        acc = acc + head[:, :, j]
+    return torch.cat([acc, svc[:, nb * k :]], dim=1)
+
+
+def _stream_plain(p: _Stream, emit: bool):
+    """The streaming recurrence in torch, batched over the configs (those
+    that share a layer's plan together), float64."""
+    dev = p.variant.device
+    C, N, L = p.variant.shape[0], p.n_requests, len(p.tables)
+    inf = float("inf")
+    blocks = [t.shape[2] for t in p.tables]
+    lanes_np = p.lanes.cpu().numpy().astype(np.int64)
+    dense = stream_dense(p.carry.state, lanes_np, blocks)
+    masks, q = [], 0
+    for b in blocks:
+        masks.append(p.lanes[:, q : q + b] > 0)
+        q += b
+    v = p.variant.long()
+    cyc = [t[v] for t in p.tables]  # (C, S_l, B_l)
+    ring = p.carry.ring.clone()
+    counts = p.carry.counts.clone()
+    n, mn, mx, mean, m2 = (p.carry.moments[:, k].clone() for k in range(5))
+    hor = p.carry.horizon.clone()
+    F, min_exp = p.sketch
+    n_bins = counts.shape[1]
+    t_arr = torch.zeros((C, N), dtype=_F64, device=dev) if emit else None
+    comp = torch.zeros((C, N), dtype=_F64, device=dev) if emit else None
+    groups = []  # per layer: [(k, nb, config indices)]
+    for li in range(L):
+        keys = {}
+        for c in range(C):
+            keys.setdefault(tuple(int(x) for x in p.plans[c, li]), []).append(c)
+        groups.append([(k, nb, torch.as_tensor(cs, device=dev)) for (k, nb), cs in keys.items()])
+    rows_c = torch.arange(C, device=dev)
+    for i in range(N):
+        r = p.r0 + i
+        if p.concurrency == 0:
+            t = p.arrivals[:, i]
+        else:
+            t = ring[:, r % p.concurrency].clone()
+        t0 = t
+        for li in range(L):
+            if p.xfer is not None:
+                t = t + p.xfer[:, li]
+            if p.idx is not None:
+                rows = p.idx[li][i].long()
+            else:
+                rows = stream_hash(p.salts[li], r, p.patches[li], p.tables[li].shape[1], dev)
+            svc = cyc[li][:, rows, :]  # (C, P_l, B_l)
+            done = t.clone()
+            for k, nb, cs in groups[li]:
+                s = _chunk_jobs(svc[cs], k, nb)
+                tc = t[cs]
+                free = torch.maximum(dense[li][cs], tc[:, None, None])
+                mask = masks[li][cs]
+                acc = tc
+                pad = torch.full_like(free[..., :1], inf)
+                for j in range(s.shape[1]):
+                    end = free[..., 0] + s[:, j, :]
+                    up = torch.cat([free[..., 1:], pad], dim=-1)
+                    free = torch.minimum(torch.maximum(free, end[..., None]), up)
+                    acc = torch.maximum(acc, torch.where(mask, end, -inf).amax(dim=-1))
+                dense[li][cs] = free
+                done[cs] = acc
+            t = done
+        if p.concurrency:
+            ring[:, r % p.concurrency] = t
+        lat = t - t0
+        m_, e_ = torch.frexp(torch.clamp_min(lat, 2.0**min_exp))
+        sub = torch.floor((m_ * 2.0 - 1.0) * F).to(torch.int64)
+        b = torch.clamp((e_.to(torch.int64) - (min_exp + 1)) * F + sub, 0, n_bins - 1)
+        counts[rows_c, b] += 1.0
+        n1 = n + 1.0
+        d = lat - mean
+        mean = mean + d / n1
+        m2 = m2 + d * (lat - mean)
+        n = n1
+        mn = torch.minimum(mn, lat)
+        mx = torch.maximum(mx, lat)
+        hor = torch.maximum(hor, t)
+        if emit:
+            t_arr[:, i] = t0
+            comp[:, i] = t
+    state = stream_flat(dense, lanes_np, blocks)
+    if state.shape[1] < p.carry.state.shape[1]:
+        state = torch.cat([state, p.carry.state[:, state.shape[1]:]], dim=1)
+    out = StreamState(state, ring, counts, torch.stack([n, mn, mx, mean, m2], dim=1), hor)
+    return out, ((t_arr, comp) if emit else None)
+
+
+def _stream_launch(p: _Stream, emit: bool):
+    dev = p.variant.device
+    C, N, L = p.variant.shape[0], p.n_requests, len(p.tables)
+    V = p.tables[0].shape[0]
+    blocks = [t.shape[2] for t in p.tables]
+    lanes_np = p.lanes.cpu().numpy()
+    plan = kernel_plan(lanes_np, blocks, p.patches)
+    sizes = torch.tensor([t.numel() for t in p.tables], dtype=torch.int64)
+    per_v = torch.tensor([t.shape[1] * t.shape[2] for t in p.tables], dtype=torch.int64)
+    tbl_off = (torch.cumsum(sizes, 0) - sizes)[:, None] + torch.arange(V)[None, :] * per_v[:, None]
+    b_t = torch.tensor(blocks, dtype=torch.int64)
+    p_t = torch.tensor(p.patches, dtype=torch.int64)
+    idx_sizes = p_t * N
+    meta = torch.stack([b_t, p_t, torch.cumsum(b_t, 0) - b_t, torch.cumsum(idx_sizes, 0) - idx_sizes,
+                        torch.tensor([t.shape[1] for t in p.tables], dtype=torch.int64)], dim=1)
+    tables = torch.cat([t.reshape(-1) for t in p.tables])
+    idx = None if p.idx is None else torch.cat([i.reshape(-1) for i in p.idx])
+    salts = None if p.salts is None else torch.as_tensor(
+        np.asarray(p.salts, dtype=np.uint32).view(np.int32), device=dev)
+    plans = torch.as_tensor(p.plans.astype(np.int32), device=dev)
+    st, ring, counts, moments, horizon = (t.clone() for t in p.carry)
+    t_arr = torch.empty((C, N), dtype=_F64, device=dev) if emit else None
+    comp = torch.empty((C, N), dtype=_F64, device=dev) if emit else None
+    tbl_off, meta = tbl_off.to(dev), meta.to(dev)
+    smem = plan.smem_state and 8 * (2 * plan.chunk + st.shape[1]) <= MAX_SMEM - STATIC_SMEM
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _stream_launcher()(
+            tables.data_ptr(), tbl_off.data_ptr(), meta.data_ptr(), ptr(salts), ptr(idx), plans.data_ptr(),
+            p.variant.data_ptr(), p.lanes.data_ptr(), ptr(p.arrivals), ptr(p.xfer), st.data_ptr(), st.shape[1],
+            ring.data_ptr(), ring.shape[1], counts.data_ptr(), counts.shape[1], p.sketch[0], p.sketch[1],
+            moments.data_ptr(), horizon.data_ptr(), ptr(t_arr), ptr(comp), p.r0,
+            C, N, L, V, len(lanes_np[0]) if C else 0, p.concurrency, plan.kmax, plan.chunk, plan.threads,
+            plan.consumer_warps, int(smem), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"vtime_stream kernel launch failed: CUDA error {rc}")
+    vtime_stream.launches += 1
+    return StreamState(st, ring, counts, moments, horizon), ((t_arr, comp) if emit else None)
+
+
+def vtime_stream_ref(tables, variant, lanes, carry, *, n_requests, patches=None, salts=None, idx=None,
+                     plans=None, r0=0, arrivals=None, concurrency=None, xfer=None, emit=False, sketch=(32, 0)):
+    """Plain PyTorch version of the streaming entry, on the inputs' device:
+    the recurrence batched over the configs, a Python loop over requests
+    and jobs.  Arguments and outputs as for ``vtime_stream``."""
+    p = _prepare_stream(tables, variant, lanes, carry, n_requests, patches, salts, idx, plans, r0, arrivals,
+                        concurrency, xfer, sketch)
+    return _stream_plain(p, bool(emit))
+
+
+def vtime_stream(
+    tables,  # per layer (V, S_l, B_l) float64 service tables, one per variant
+    variant,  # (C,) the table variant of each config
+    lanes,  # (C, sum_l B_l) lane slots per pool (0: unused pool)
+    carry: StreamState,  # lane state, ring, sketch, horizon (stream_state for a fresh one)
+    *,
+    n_requests: int,  # requests of this segment
+    patches=None,  # per layer P_l (hash mode)
+    salts=None,  # per layer hash salts: indices hashed from (salt, r0 + i, patch)
+    idx=None,  # or per layer (N, P_l) presampled indices
+    plans=None,  # (C, L, 2) or (L, 2) macro-job plans (K, n_bulk); None: exact
+    r0: int = 0,  # global id of the segment's first request
+    arrivals=None,  # (C, N) arrival times: the open loop
+    concurrency: int | None = None,  # the closed loop's requests in flight
+    xfer=None,  # (C, L) per-stage entry transfers, or None
+    emit: bool = False,  # also return the (C, N) arrivals and completions
+    sketch: tuple = (32, 0),  # (bins_per_octave, min_exp) of the sketch
+):
+    """One segment of the streaming replay over C configs ->
+    ``(carry', (t_arr, comp) or None)``, float64 on the inputs' device.
+
+    Every request runs VT's recurrence against the carried lanes; its
+    latency goes into the sketch (bucket count, n, min, max, Welford mean
+    and m2) and its completion into the horizon (and the ring's slot
+    ``r % concurrency`` in the closed loop).  Bucket counts, n, min, max and
+    horizon are bit-identical to the reference's numpy replay and to
+    ``FabricSim(service_sampling="hash")``; mean and m2 are the same
+    operations in the same order.  ``carry`` is not modified.
+
+    CUDA tensors launch the kernel on the current stream (no
+    synchronisation) and add one to ``vtime_stream.launches``; CPU tensors
+    run ``vtime_stream_ref``.  A failure to build or launch raises."""
+    p = _prepare_stream(tables, variant, lanes, carry, n_requests, patches, salts, idx, plans, r0, arrivals,
+                        concurrency, xfer, sketch)
+    if p.variant.device.type == "cpu":
+        return _stream_plain(p, bool(emit))
+    if p.variant.device.type != "cuda":
+        raise ValueError(f"no kernel for device {p.variant.device}")
+    return _stream_launch(p, bool(emit))
+
+
+vtime_stream.launches = 0

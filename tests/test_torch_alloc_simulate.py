@@ -193,20 +193,29 @@ def test_unported_and_invalid_policies_raise(shared):
 
 def test_reference_keywords_take_their_defaults(shared):
     """``greedy_allocate``'s ``spare_fraction`` / ``audit`` and ``allocate``'s
-    ``audit``: the reference's defaults give the reference's result; any
-    other value is refused by name."""
+    ``audit``: the reference's defaults give the reference's result, and so
+    do other values (a hot-spare reserve, a decision log; refused by name
+    before the multi-chip slice ported them)."""
+    import repro.obs as RO
+    from repro_torch.obs import AllocationAudit
+
     rspec, rprof, tspec, tprof = shared
     base, cost = _units(3, 40)
     want = RG.greedy_allocate(base, cost, 100.0)
     got = TG.greedy_allocate(base, cost, 100.0, spare_fraction=0.0, audit=None)
     np.testing.assert_array_equal(got.replicas, want.replicas)
     assert got.leftover == want.leftover
-    for kw in (dict(spare_fraction=0.25), dict(audit=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TG.greedy_allocate(base, cost, 100.0, **kw)
+    ra, ta = RO.AllocationAudit(), AllocationAudit()
+    want = RG.greedy_allocate(base, cost, 100.0, spare_fraction=0.25, audit=ra)
+    got = TG.greedy_allocate(base, cost, 100.0, spare_fraction=0.25, audit=ta)
+    np.testing.assert_array_equal(got.replicas, want.replicas)
+    assert (got.spent, got.leftover) == (want.spent, want.leftover)
+    assert ta.to_json() == ra.to_json()
     pes = tspec.min_pes() * 2
     a = T.allocate(tspec, tprof, "blockwise", pes, offered_ips=None, load_frac=0.7, audit=None)
     r = R.allocate(rspec, rprof, "blockwise", pes)
     assert a.arrays_used == r.arrays_used
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.allocate(tspec, tprof, "blockwise", pes, audit=object())
+    ra, ta = RO.AllocationAudit(), AllocationAudit()
+    R.allocate(rspec, rprof, "blockwise", pes, audit=ra)
+    T.allocate(tspec, tprof, "blockwise", pes, audit=ta)
+    assert [(e.kind, e.unit, e.cost) for e in ta.entries] == [(e.kind, e.unit, e.cost) for e in ra.entries]

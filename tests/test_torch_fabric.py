@@ -299,7 +299,9 @@ def test_latency_sketch(vgg, allocs):
 # --------------------------------------------------------------- tenancy
 def test_tenancy_flat_path_equal(vgg):
     """Two weighted tenants on one budget: the shared allocation, every
-    tenant's run and the fairness report equal; the placed path refuses."""
+    tenant's run and the fairness report equal; a topology whose arrays
+    disagree with the budget is rejected (the placed path itself is held
+    in ``tests/test_torch_topology.py``)."""
     rspec, rprof, tspec, tprof = vgg
     pes = tspec.min_pes() * 3
     rt = [RF.Tenant("a", rspec, rprof, 2.0), RF.Tenant("b", rspec, rprof, 1.0)]
@@ -313,7 +315,9 @@ def test_tenancy_flat_path_equal(vgg):
     for a, b in zip(rr, tr, strict=True):
         _same_run(a, b)
     assert TF.fairness_report(ts, tr) == RF.fairness_report(rs, rr)
-    with pytest.raises(NotImplementedError, match="topology"):
-        TF.allocate_shared(tt, pes, topology=object())
+    from repro_torch.core.cim import FabricTopology
+
+    with pytest.raises(ValueError, match="topology"):
+        TF.allocate_shared(tt, pes, topology=FabricTopology.split(1, pes + 1))
     with pytest.raises(ValueError, match="weights"):
         TF.allocate_shared([TF.Tenant("a", tspec, tprof, 0.0)], pes)

@@ -288,9 +288,6 @@ def _pipe():
         ("infeasible", ValueError, "arrays"),
         ("bad_a_idx", ValueError, "a_idx"),
         ("unknown_engine", ValueError, "engine"),
-        ("shard_devices", NotImplementedError, "shard"),
-        ("shard_pipeline", NotImplementedError, "shard"),
-        ("staged_shard", NotImplementedError, "shard"),
         ("duplicate_adc", ValueError, "duplicate"),
     ],
 )
@@ -302,10 +299,28 @@ def test_refusals(shared, case, err, match):
         "infeasible": lambda: _pipe()(np.zeros(1, np.int32), ["blockwise"], [1]),
         "bad_a_idx": lambda: _pipe()(np.array([1], np.int32), ["blockwise"], [pes * 2]),
         "unknown_engine": lambda: _pipe()(np.zeros(1, np.int32), ["blockwise"], [pes * 2], engine="pallas"),
-        "shard_devices": lambda: TF.run_fused_sweep(_sweep_grid(), shard_devices=True, device="cpu"),
-        "shard_pipeline": lambda: TF.FusedPipeline("vgg11", DEFAULT_ARRAY, (3,), shard=True, device="cpu"),
-        "staged_shard": lambda: TS.run_sweep(_sweep_grid(), shard_devices=True, device="cpu"),
         "duplicate_adc": lambda: TF.FusedPipeline("vgg11", DEFAULT_ARRAY, (3, 3), device="cpu"),
     }
     with pytest.raises(err, match=match):
         calls[case]()
+
+
+@pytest.mark.parametrize("case", ["shard_devices", "shard_pipeline", "staged_shard"])
+def test_shard_paths_run(shared, case):
+    """``shard=`` / ``shard_devices=`` (refused before the multi-chip slice)
+    split the config axis over the local devices: on this host one, so the
+    columns are the plain path's exactly (``tests/test_torch_multichip.py``
+    splits over three host devices)."""
+    pts = _sweep_grid()
+    if case == "shard_pipeline":
+        pipe = TF.FusedPipeline("vgg11", DEFAULT_ARRAY, (3,), shard=True, device="cpu")
+        plain = _pipe()
+        pes = plain.spec.min_pes() * 2
+        a, b = pipe(np.zeros(1, np.int32), ["blockwise"], [pes]), plain(np.zeros(1, np.int32), ["blockwise"], [pes])
+        for col in ("total_cycles", "arrays_used", "dups_lb"):
+            np.testing.assert_array_equal(a[col], b[col])
+        return
+    run = TF.run_fused_sweep if case == "shard_devices" else TS.run_sweep
+    a, b = run(pts, shard_devices=True, device="cpu"), run(pts, device="cpu")
+    for col in ("total_cycles", "images_per_sec", "arrays_used"):
+        np.testing.assert_array_equal(getattr(a, col), getattr(b, col))

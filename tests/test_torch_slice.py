@@ -8,10 +8,13 @@
   policies do not read the profile and use exactly the same arrays.
 * ``repro_torch`` imports and runs with jax unimportable, and its sources
   import neither jax nor ``repro``.
+* The multi-chip half (topology, the placed allocators, the multi-chip
+  sweeps, fleet replay, the fault sweep, observability) runs end to end on
+  the host with jax unimportable.
 * Entry points called without ``device=`` (the slice-1 ones, the fused
-  sweep's, and the serving slice's ``launch.serve.main``,
-  ``models.lm.init_params`` and ``models.lm.init_cache``) ask for the card,
-  and raise where there is none.
+  sweep's, the multi-chip and fault sweeps, and the serving slice's
+  ``launch.serve.main``, ``models.lm.init_params`` and
+  ``models.lm.init_cache``) ask for the card, and raise where there is none.
 """
 
 import ast
@@ -35,10 +38,15 @@ from repro_torch.configs import get_config
 from repro_torch.core.cim.profile import synthetic_images
 from repro_torch.dse import (
     FusedPipeline,
+    chip_grid,
     design_grid,
+    fault_grid,
     get_captured,
     get_fused_pipeline,
+    run_fault_sweep,
+    run_fused_multichip_sweep,
     run_fused_sweep,
+    run_multichip_sweep,
     run_sweep,
 )
 from repro_torch.launch import serve
@@ -121,6 +129,56 @@ print("ok")
     assert out.returncode == 0 and out.stdout.strip().splitlines()[-1] == "ok", out.stderr[-3000:]
 
 
+def test_multichip_half_runs_with_jax_unimportable():
+    code = """
+import sys
+sys.modules["jax"] = None  # any import of jax now raises ImportError
+import numpy as np
+import repro_torch as T
+from repro_torch.core.cim import FabricTopology, allocate_placed
+from repro_torch.dse import chip_grid, fault_grid, run_fault_sweep, run_fused_multichip_sweep, run_multichip_sweep
+from repro_torch.fabric import (
+    CoarsenConfig, FabricSim, PoissonOpen, VirtualTimeFabric, arrival_times, run_stream, run_trace_segments,
+    segment_growth_plan,
+)
+from repro_torch.obs import AllocationAudit, build_trace, utilization_report, validate_trace
+spec = T.vgg11_cifar10()
+prof = T.derive_profile(T.capture_activations(spec, n_images=1, sample_patches=16, device="cpu"), spec)
+pes = spec.min_pes() * 2
+audit = AllocationAudit()
+pa = allocate_placed(spec, prof, "blockwise", FabricTopology.split(2, pes, link_gbps=16.0), audit=audit)
+assert pa.placement.max_stage_transfer > 0 and len(audit) > 0
+kw = dict(n_requests=6, closed_requests=4, concurrency=2, sample_patches=16, device="cpu")
+pts = chip_grid(networks=("vgg11",), chips=(1, 2), link_gbps=(16.0,))
+mc = run_multichip_sweep(pts, **kw)
+fu = run_fused_multichip_sweep(pts, load_fracs=(0.5, 0.7), **kw)
+assert np.allclose(fu.pcts[:, 1, 2], mc.p99_cycles, rtol=1e-12, atol=0)
+vt = VirtualTimeFabric(spec, prof, device="cpu")
+bw = T.allocate(spec, prof, "blockwise", pes)
+proc = PoissonOpen(6, 1e-5, seed=1)
+st = run_stream(vt, [bw], proc, seed=2, materialize=True, coarsen=CoarsenConfig(tail_lanes=2))
+times = arrival_times(proc)
+plan = segment_growth_plan(spec, prof, bw, budgets=[32])
+seg = run_trace_segments(vt, [[bw, p] for p in plan], times, [float(times[3])], seed=2)
+assert st.sketches[0].n == 6 and seg.sketches[1].n == 6
+fs = run_fault_sweep(fault_grid(networks=("vgg11",), spare_fractions=(0.0,), rates=(1e-8,)), n_requests=6,
+                     sample_patches=16, device="cpu")
+assert 0.0 <= fs.availability[0] <= 1.0
+sim = FabricSim(spec, prof, pa.allocation, seed=3, record_timeline=True, stats=True, placement=pa.placement)
+res = sim.run(PoissonOpen(3, 1e-5, seed=5))
+assert validate_trace(build_trace(sim, res, placement=pa.placement)) > 0
+assert utilization_report(res).mean_duty_cycle > 0
+loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0 and out.stdout.strip().splitlines()[-1] == "ok", out.stderr[-3000:]
+
+
 def _imports(path: pathlib.Path) -> set[str]:
     mods = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -143,6 +201,14 @@ def test_port_sources_import_neither_jax_nor_reference():
         "repro_torch/dse/fused.py",
         "repro_torch/dse/sweep.py",
         "repro_torch/dse/pareto.py",
+        "repro_torch/dse/faults.py",
+        "repro_torch/core/cim/topology.py",
+        "repro_torch/core/alloc/pipeline_stages.py",
+        "repro_torch/distrib/sharding.py",
+        "repro_torch/fabric/fleet.py",
+        "repro_torch/obs/audit.py",
+        "repro_torch/obs/report.py",
+        "repro_torch/obs/trace.py",
         "repro_torch/fabric/telemetry.py",
         "repro_torch/kernels/fused_alloc_eval.py",
         "repro_torch/kernels/flash_attention.py",
@@ -175,6 +241,9 @@ ENTRY_POINTS = [
     "get_fused_pipeline",
     "run_fused_sweep",
     "run_sweep",
+    "run_multichip_sweep",
+    "run_fused_multichip_sweep",
+    "run_fault_sweep",
     "get_captured",
     "serve_main",
     "init_params",
@@ -200,6 +269,12 @@ def _call(name):
         return run_fused_sweep(design_grid(networks=("vgg11",), pe_multipliers=(2.0,)))
     if name == "run_sweep":
         return run_sweep(design_grid(networks=("vgg11",), pe_multipliers=(2.0,)))
+    if name == "run_multichip_sweep":
+        return run_multichip_sweep(chip_grid(networks=("vgg11",), chips=(1,), link_gbps=(16.0,)))
+    if name == "run_fused_multichip_sweep":
+        return run_fused_multichip_sweep(chip_grid(networks=("vgg11",), chips=(1,), link_gbps=(16.0,)))
+    if name == "run_fault_sweep":
+        return run_fault_sweep(fault_grid(networks=("vgg11",), spare_fractions=(0.0,), rates=(1e-9,)))
     if name == "get_captured":
         return get_captured("vgg11")
     if name == "serve_main":

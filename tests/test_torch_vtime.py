@@ -194,6 +194,27 @@ def test_collect_stats(ref, vgg, allocs, engine):
     assert got.layer_busy.shape == (len(ta), len(tspec.layers))
 
 
+def test_wide_pools_match_reference(ref, vgg):
+    """F8: VT takes pools wider than 512 servers.  VGG11 blockwise at 10x,
+    12x, 16x and 20x its minimum PEs (330 to 680 servers in the widest pool
+    with this capture) through ``engine="torch"`` (VT's plain version here)
+    equals the reference's numpy engine bit for bit."""
+    R, RF = ref
+    rspec, rprof, tspec, tprof = vgg
+    mults = (10, 12, 16, 20)
+    ra = [R.allocate(rspec, rprof, "blockwise", rspec.min_pes() * m) for m in mults]
+    ta = [T.allocate(tspec, tprof, "blockwise", tspec.min_pes() * m) for m in mults]
+    widest = [int(TF.vtime.pool_lanes(tspec, a).max()) for a in ta]
+    assert max(widest) > 512, widest
+    cap = R.simulate(rspec, rprof, ra[0]).images_per_sec
+    rp = RF.PoissonOpen(40, 0.6 * cap / CLOCK_HZ, seed=1)
+    tp = TF.PoissonOpen(40, 0.6 * cap / CLOCK_HZ, seed=1)
+    want = RF.VirtualTimeFabric(rspec, rprof).run_batch(ra, rp, seed=0, engine="numpy")
+    got = TF.VirtualTimeFabric(tspec, tprof, device="cpu").run_batch(ta, tp, seed=0)
+    np.testing.assert_array_equal(got.completions, want.completions)
+    np.testing.assert_array_equal(got.percentiles, want.percentiles)
+
+
 def test_run_batch_validation(vgg, allocs):
     _, _, tspec, tprof = vgg
     vt = TF.VirtualTimeFabric(tspec, tprof, device="cpu")
@@ -229,8 +250,11 @@ def test_kernel_plan():
     assert kernel_plan(lanes, [4, 36], [64, 64])[2:4] == (1, 2048)
     assert kernel_plan(np.full((2, 40), 222), [4, 36], [64, 64])[:3] == (256, 6, 16)
     assert kernel_plan(np.full((1, 247), 300), [247], [4]).smem_state is False
+    # a pool wider than 512 servers runs from the pool state (F8): a build
+    # of its own, its lanes counted in the state's stride
+    assert kernel_plan(np.array([[700]]), [1], [64])[:5] == (96, 1, 32, 64, 1024)
     with pytest.raises(ValueError, match="at most"):
-        kernel_plan(np.array([[513]]), [1], [1])
+        kernel_plan(np.array([[65_537]]), [1], [1])
 
 
 def test_vtime_scan_checks_inputs():
@@ -248,7 +272,7 @@ def test_vtime_scan_checks_inputs():
     with pytest.raises(ValueError, match=">= 0"):
         vtime_scan([-tables[0]], idx, var, lanes, n_requests=3, concurrency=2)
     with pytest.raises(ValueError, match="lanes"):
-        vtime_scan(tables, idx, var, lanes * 600, n_requests=3, concurrency=2)
+        vtime_scan(tables, idx, var, lanes * 70_000, n_requests=3, concurrency=2)
     t_arr, comp, busy, wait = vtime_scan(tables, idx, var, lanes, n_requests=3, concurrency=1)
     # one server a pool, 5 jobs of 1 cycle each, one request at a time
     np.testing.assert_array_equal(comp.numpy(), [[5.0, 10.0, 15.0]] * 2)
@@ -313,11 +337,14 @@ def test_vt_run_batch_on_card(case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("max_lanes", [1, 6, 40, 300])
+@pytest.mark.parametrize("max_lanes", [1, 6, 40, 300, 1500, 4096, 65_536])
 def test_vt_equals_plain_on_card(max_lanes):
     """VT against its plain version on the card on random problems (every
-    (K, G) class up to 16 lanes a thread over 32 threads; pools without
-    servers; fractional cycles; transfers; stats)."""
+    (K, G) class up to 16 lanes a thread over 32 threads, and pools wider
+    than 512 whose lanes stay in the pool state, up to ``MAX_LANES``, where
+    the state no longer fits in shared memory; pools without servers;
+    fractional cycles; transfers; stats).  The first pool of the first
+    config holds ``max_lanes`` servers."""
     dev = _card()
     rng = np.random.default_rng(max_lanes)
     L, V, C, N = 5, 3, 7, 9
@@ -325,10 +352,15 @@ def test_vt_equals_plain_on_card(max_lanes):
     tables = [torch.as_tensor(rng.random((V, s, b)) * 100.0, device=dev) for s, b, _ in shapes]
     idx = [torch.as_tensor(rng.integers(0, s, (N, p)), dtype=torch.int32, device=dev) for s, _, p in shapes]
     n_pools = sum(b for _, b, _ in shapes)
-    lanes = torch.as_tensor(rng.integers(0, max_lanes + 1, (C, n_pools)), dtype=torch.int32, device=dev)
+    lanes_np = rng.integers(0, max_lanes + 1, (C, n_pools))
+    lanes_np[0, 0] = max_lanes
+    lanes = torch.as_tensor(lanes_np, dtype=torch.int32, device=dev)
     var = torch.as_tensor(rng.integers(0, V, C), dtype=torch.int32, device=dev)
     xfer = torch.as_tensor(rng.random((C, L)) * 50.0, device=dev)
     arr = torch.as_tensor(np.cumsum(rng.exponential(300.0, (C, N)), axis=1), device=dev)
+    if max_lanes > 512:
+        plan = kernel_plan(lanes_np, [b for _, b, _ in shapes], [p for _, _, p in shapes])
+        assert plan.kmax == 32 and not plan.smem_state
     for kw in (dict(arrivals=arr), dict(concurrency=3, xfer=xfer)):
         got = vtime_scan(tables, idx, var, lanes, n_requests=N, collect_stats=True, **kw)
         want = vtime_scan_ref(tables, idx, var, lanes, n_requests=N, collect_stats=True, **kw)
@@ -377,3 +409,23 @@ def test_sweep_latency_columns_on_card():
         np.testing.assert_array_equal(fused.__dict__[col], scalar.__dict__[col])
     clear_caches()
     clear_fused_caches()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mult", [10, 12, 20])
+def test_wide_pools_on_card(mult):
+    """F8 on the card: VGG11 blockwise at 10x, 12x and 20x its minimum PEs
+    (569, 702 and 1,178 servers in the widest pool of this synthetic
+    profile) through VT equals ``FabricSim`` on the host."""
+    dev = _card()
+    spec = T.vgg11_cifar10()
+    prof = _synthetic(spec, 1, dev)
+    alloc = T.allocate(spec, prof, "blockwise", spec.min_pes() * mult)
+    assert TF.vtime.pool_lanes(spec, alloc).max() > 512
+    cap = T.simulate(spec, prof, alloc).images_per_sec
+    proc = TF.PoissonOpen(40, 0.6 * cap / CLOCK_HZ, seed=1)
+    before = vtime_scan.launches
+    res = TF.VirtualTimeFabric(spec, prof, device=dev).run_batch([alloc], proc, seed=0)
+    assert vtime_scan.launches == before + 1
+    want = TF.FabricSim(spec, prof, alloc, seed=0).run(proc)
+    np.testing.assert_array_equal(res.completions[0], want.completions)
