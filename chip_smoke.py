@@ -73,8 +73,9 @@ sources.  Phases, each of which fails the run on any mismatch:
      tokens, prefill with the cache, then 31 greedy decode steps, with K3's,
      K4's and K5's counts set to 0 before and read after (K4 6 and K5 38
      launches, all in the prefill); prefill ms and decode tokens/s by CUDA
-     events after a warm-up, the device-busy share over the prefill
-     (``torch.profiler``), the peak device memory, and each kernel per
+     events after a warm-up, the device-busy share and the top kernels over
+     the prefill and over one decode step (``torch.profiler``), the peak
+     device memory, and each kernel per
      launch on the path's own inputs beside its bound, its plain version
      and the library call (K3 ``torch.matmul``, K4 SDPA);
  13. kernels against plain versions end to end: Zamba2-1.2B in float32, 2
@@ -121,7 +122,22 @@ sources.  Phases, each of which fails the run on any mismatch:
      with macro-jobs, each segment's launch beside its chain bound); the
      fault sweep (spares x rates, 600 requests) equal to the host's
      FabricSim(failures=) replays; the utilization report and the Perfetto
-     trace of a placed 4-chip run.
+     trace of a placed 4-chip run;
+ 19. MoE serving (slice 10): the DeepSeek-V2 (MLA + MoE, 160 experts, top-6,
+     2 shared) and Grok-1 (GQA + MoE, 8 experts, top-2) SMOKE configs on the
+     card against the host (logits, tokens, routing records); each at full
+     width, cut in depth to what the card holds (MOE_DEPTH: 3 of 60 and 2 of
+     64 layers), served as in 12 and 15 (4 x 1024 tokens + 32; K4 once per
+     Grok-1 layer in the prefill, no kernel for DeepSeek-V2's MLA, whose q/k
+     head dim 192 and v head dim 128 K4 does not take); Grok-1 at its cut in
+     float32, kernels against plain versions end to end; and the paper's
+     expert replication on DeepSeek-V2 at full width: its prefill's routing
+     captured (3 layers x 4096 tokens x 6), the histogram planned over 192
+     slots, the max slot load and the dropped share measured from the
+     records at the prefill's capacity before and after, beside the
+     planner's predictions, the model redeployed with replicated banks (2
+     layers) and prefilled, and one full-width layer in float32 at capacity
+     factor 16 with replicas equal to it without.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's launches
 on the main path, max |kernel - plain|, times and bound); the last line is
@@ -190,6 +206,21 @@ NEMOTRON_DOWN = (4096, 24576, 6144)  # Nemotron-4-15B's prefill down-projection:
 DENSE_HEADS = {"nemotron-4-15b": (48, 8), "glm4-9b": (32, 2), "qwen2-vl-2b": (12, 2)}  # q and kv heads, hd 128
 NEMOTRON_PEAK_GB = 69.0  # the reckoning of a bf16 prefill of 4 x 1024 on float32 parameters
 E2E = dict(batch=2, prompt_len=200, gen=4)  # a ragged prompt: 200 = 128 + 72
+# the MoE family (phase 19) at full width, cut in depth so that its float32
+# weights fit the card beside a bf16 prefill of 4 x 1024 (by param_count:
+# DeepSeek-V2 3.97e9 parameters a layer + 1.05e9 of embedding and head, about
+# 52 GB at 3 layers; Grok-1 4.92e9 + 1.61e9, about 46 GB at 2)
+MOE = dict(batch=4, prompt_len=1024, gen=32)
+MOE_ARCHS = ("deepseek-v2-236b", "grok-1-314b")
+MOE_DEPTH = {"deepseek-v2-236b": 3, "grok-1-314b": 2}
+# expert replication on DeepSeek-V2: 160 experts + 32 replicas; the
+# redeployed model keeps 2 layers (192 slots are 18.1 GB a layer); the
+# replicas-vs-none check runs one layer in float32 at capacity factor 16 (no
+# drops) on 2 prompts of 64 tokens
+MOE_SLOTS = 192
+MOE_REDEPLOY_DEPTH = 2
+MOE_REPL_CHECK = dict(batch=2, prompt_len=64, capacity_factor=16.0)
+MOE_REPL_TOL = 1e-5  # of max |logit|: replicas are copies
 # the fabric phase: the reference's fabric_tail (benchmarks/run.py:349-379: VGG11
 # profiled at 2 images, 128 samples; 2x the minimum PEs; 400 Poisson requests at
 # 5 loads, arrival seed 5, service seed 3; latency-aware provisioning calibrated
@@ -902,21 +933,24 @@ def path_inputs(params, cfg, prompts, cache_fn):
 
 def expected_launches(cfg, gen):
     """{kernel: (launches in the prefill, launches on the whole path)} of
-    one prefill and ``gen - 1`` decode steps: K3 once per ``sq_relu`` layer
-    and forward, K4 once per attention layer or site in the prefill only, K5
-    once per Mamba2 layer in the prefill only."""
-    if cfg.family == "dense":
-        k3 = cfg.n_layers if cfg.activation == "sq_relu" else 0
-        return {"k3": (k3, k3 * gen), "k4": (cfg.n_layers, cfg.n_layers), "k5": (0, 0)}
+    one prefill and ``gen - 1`` decode steps: K3 once per ``sq_relu`` MLP
+    (dense, or an MoE's shared experts) and forward, K4 once per GQA layer or
+    site in the prefill only (MLA takes none), K5 once per Mamba2 layer in the
+    prefill only."""
+    if cfg.family in ("dense", "moe"):
+        mlp = cfg.family == "dense" or cfg.moe.n_shared
+        k3 = cfg.n_layers if mlp and cfg.activation == "sq_relu" else 0
+        k4 = cfg.n_layers if cfg.attn.kind == "gqa" else 0
+        return {"k3": (k3, k3 * gen), "k4": (k4, k4), "k5": (0, 0)}
     n_sites = cfg.n_layers // cfg.shared_every if cfg.family == "hybrid" else 0
     return {"k3": (0, 0), "k4": (n_sites, n_sites), "k5": (cfg.n_layers, cfg.n_layers)}
 
 
-def serve_full(arch, batch, prompt_len, gen, label, gpu, reps=3):
-    """The serving path of one FULL config on the card: setup, then K3's,
-    K4's and K5's counts set to 0 just before prefill + decode and read just
-    after; the checks of what came out; then timings and the peak memory.
-    Returns the numbers the summary prints."""
+def serve_full(arch, batch, prompt_len, gen, label, gpu, reps=3, n_layers=None):
+    """The serving path of one FULL config on the card (cut to ``n_layers``
+    if given): setup, then K3's, K4's and K5's counts set to 0 just before
+    prefill + decode and read just after; the checks of what came out; then
+    timings and the peak memory.  Returns the numbers the summary prints."""
     import torch
 
     from repro_torch.configs import get_config
@@ -927,6 +961,8 @@ def serve_full(arch, batch, prompt_len, gen, label, gpu, reps=3):
     from repro_torch.models import lm
 
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.with_(n_layers=n_layers)
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -935,7 +971,7 @@ def serve_full(arch, batch, prompt_len, gen, label, gpu, reps=3):
     n_params = sum(p.numel() for p in params.parameters())
     out = {"setup_s": time.perf_counter() - t0, "params": n_params,
            "setup_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-    print(f"{label}: {n_params} parameters (float32, seeded torch.Generator) on the card in "
+    print(f"{label}: {cfg.n_layers} layers, {n_params} parameters (float32, seeded torch.Generator) on the card in "
           f"{out['setup_s']:.3f} s; {batch} prompts x {prompt_len} tokens, {gen} generated")
 
     def new_cache():
@@ -1017,6 +1053,15 @@ def serve_full(arch, batch, prompt_len, gen, label, gpu, reps=3):
               + ", ".join(f"{x:.3f} ms = {t:.1f} tok/s" for x, t in zip(dec, out["decode_tok_per_s"])))
         print(f"{gpu}: {label} prefill under torch.profiler: window {win_ms:.3f} ms, device busy {share:.4f} "
               f"(idle {1 - share:.4f}); top device time: " + "; ".join(f"{n[:60]} {t:.3f} ms" for n, t in top))
+        c3 = new_cache()
+        tok3, c3 = serve.prefill(params, cfg, prompts, c3)[0::2]
+        dshare, dwin_ms, dby_name = device_busy(lambda: serve.decode(params, cfg, c3, tok3, 1))
+        del c3
+        out["decode_busy"], out["decode_window_ms"] = dshare, dwin_ms
+        dtop = sorted(dby_name.items(), key=lambda kv: -kv[1])[:5]
+        print(f"{gpu}: {label} one decode step under torch.profiler: window {dwin_ms:.3f} ms, device busy "
+              f"{dshare:.4f} (idle {1 - dshare:.4f}); top device time: "
+              + "; ".join(f"{n[:60]} {t:.3f} ms" for n, t in dtop))
         out["seen"] = path_inputs(params, cfg, prompts, new_cache)
         zt = out["seen"]["zero_tiles"]
         if out["k3_launches"]:
@@ -1123,8 +1168,9 @@ def kernel_numbers(path, gpu, label):
     return res
 
 
-def end_to_end_vs_plain(arch, seed):
-    """``arch`` at full width in float32, ``E2E`` prompts, with the kernels
+def end_to_end_vs_plain(arch, seed, n_layers=None):
+    """``arch`` at full width in float32 (cut to ``n_layers`` if given),
+    ``E2E`` prompts, with the kernels
     (each launched as often as ``expected_launches`` says) and then with the
     plain versions swapped in (no launch): logits within ``E2E_TOL`` of max
     |logit|, tokens equal."""
@@ -1140,6 +1186,8 @@ def end_to_end_vs_plain(arch, seed):
     dev = torch.device("cuda")
     saved = (k3.launches, k4.launches, k5.launches)
     cfg = get_config(arch).with_(dtype="float32")
+    if n_layers is not None:
+        cfg = cfg.with_(n_layers=n_layers)
     b, s, gen = E2E["batch"], E2E["prompt_len"], E2E["gen"]
     params, _, prompts = serve.setup(cfg, b, s, gen, device=dev, seed=seed)
     want_kernels = tuple(n[1] for n in expected_launches(cfg, gen).values())
@@ -1166,7 +1214,7 @@ def end_to_end_vs_plain(arch, seed):
     check(bool(torch.isfinite(lk).all()), f"end to end {arch}: non-finite logits")
     check(rel <= E2E_TOL, f"end to end {arch}: kernels vs plain logits off by {rel} of max |logit| (limit {E2E_TOL})")
     check(torch.equal(tk, tp), f"end to end {arch}: tokens differ {tk.tolist()} vs {tp.tolist()}")
-    print(f"{arch} float32, {b} prompts x {s} tokens + {gen}: kernels (K3/K4/K5 launches {want_kernels}) vs plain "
+    print(f"{arch} float32 ({cfg.n_layers} layers), {b} prompts x {s} tokens + {gen}: kernels (K3/K4/K5 launches {want_kernels}) vs plain "
           f"versions end to end, logits max |diff| {rel:.3e} of max |logit| (limit {E2E_TOL}), tokens equal "
           f"{tk[0].tolist()}")
     del params, runs, lk, lp
@@ -1178,8 +1226,10 @@ def end_to_end_vs_plain(arch, seed):
 
 def smoke_card_vs_host(arch):
     """The SMOKE config in float32: the same parameters on the host (plain
-    versions) and on the card (kernels), a prompt of 40 and 3 decode steps;
-    logits within 1e-4 of max |logit|, tokens equal."""
+    versions) and on the card (kernels, each launched as often as
+    ``expected_launches`` says), a prompt of 40 and 3 decode steps; logits
+    within 1e-4 of max |logit|, tokens and (MoE) routing records equal."""
+    import numpy as np
     import torch
 
     from repro_torch.configs import get_config
@@ -1187,7 +1237,7 @@ def smoke_card_vs_host(arch):
     from repro_torch.kernels.ssd_scan import ssd_chunk as k5
     from repro_torch.kernels.zskip_matmul import zskip_matmul as k3
     from repro_torch.launch import serve
-    from repro_torch.models import lm
+    from repro_torch.models import layers, lm
 
     saved = (k3.launches, k4.launches, k5.launches)
     small = get_config(arch, smoke=True).with_(dtype="float32")
@@ -1198,18 +1248,24 @@ def smoke_card_vs_host(arch):
     with torch.inference_mode():
         outs = []
         for model, d in ((host, "cpu"), (card, "cuda")):
-            cache = lm.init_cache(small, 2, 44, device=d)
-            tok, logits, cache = serve.prefill(model, small, toks.to(d), cache)
-            rest, _ = serve.decode(model, small, cache, tok, 3)
-            outs.append((logits.float().cpu(), torch.cat([tok[:, None], rest], dim=1).cpu()))
+            with layers.capture_routing() as records:
+                cache = lm.init_cache(small, 2, 44, device=d)
+                tok, logits, cache = serve.prefill(model, small, toks.to(d), cache)
+                rest, _ = serve.decode(model, small, cache, tok, 3)
+            outs.append((logits.float().cpu(), torch.cat([tok[:, None], rest], dim=1).cpu(), records))
     torch.cuda.synchronize()
     used = (k3.launches - saved[0], k4.launches - saved[1], k5.launches - saved[2])
-    check(sum(used) > 0, f"smoke {arch}: no kernel launched on the card")
+    want = tuple(n[1] for n in expected_launches(small, 4).values())
+    check(used == want, f"smoke {arch}: K3/K4/K5 launched {used} on the card, want {want}")
     rel_s = float((outs[0][0] - outs[1][0]).abs().max() / outs[0][0].abs().max())
     check(rel_s <= 1e-4 and torch.equal(outs[0][1], outs[1][1]),
           f"smoke {arch}: card vs host logits {rel_s}, tokens {outs[0][1].tolist()} vs {outs[1][1].tolist()}")
+    rec_h, rec_c = outs[0][2], outs[1][2]
+    check(len(rec_h) == len(rec_c) and all(np.array_equal(a, b) for a, b in zip(rec_h, rec_c)),
+          f"smoke {arch}: routing records differ between card and host")
+    routed = f", {len(rec_c)} routing records equal" if rec_c else ""
     print(f"{arch} SMOKE float32: card (K3/K4/K5 launches {used}) vs host (plain versions), logits max |diff| "
-          f"{rel_s:.3e} of max |logit| (limit 1e-4), tokens equal")
+          f"{rel_s:.3e} of max |logit| (limit 1e-4), tokens equal{routed}")
     k3.launches, k4.launches, k5.launches = saved
     return rel_s
 
@@ -2281,6 +2337,204 @@ def multichip_fleet_phase(gpu, dev, fab):
     return out
 
 
+
+def moe_slot_loads(records, replication, capacity):
+    """Per record (N, k) of expert ids, dispatched round robin over the
+    replicas as ``moe_fwd`` dispatches them: (the most tokens on one slot,
+    the share of the N * k assignments past a slot's capacity)."""
+    import numpy as np
+
+    from repro_torch.models.layers import expert_replication_table
+
+    table = expert_replication_table(replication)
+    out = []
+    for eids in records:
+        n, k = eids.shape
+        starts, counts = table[eids, 0], table[eids, 1]
+        rr = np.arange(n)[:, None] + np.arange(k)[None]
+        slot = starts + np.where(counts > 1, rr % counts, 0)
+        load = np.bincount(slot.reshape(-1), minlength=int(sum(replication)))
+        out.append((int(load.max()), float(np.maximum(load - capacity, 0).sum() / (n * k))))
+    return out
+
+
+class dropped_assignments:
+    """Within the block, each ``moe_fwd`` call appends the number of its
+    assignments its buckets dropped (``~keep``) to the list it yields."""
+
+    def __enter__(self):
+        import repro_torch.models.layers as layers
+
+        self.saved = layers._route_and_bucket
+        self.counts = []
+
+        def rec(*a, **kw):
+            expert_in, state = self.saved(*a, **kw)
+            self.counts.append(int((~state[2]).sum()))
+            return expert_in, state
+
+        layers._route_and_bucket = rec
+        return self.counts
+
+    def __exit__(self, *exc):
+        import repro_torch.models.layers as layers
+
+        layers._route_and_bucket = self.saved
+        return False
+
+
+def redeploy(params, rcfg, replication):
+    """The replicated deployment of ``params`` (an LM whose layers are
+    consumed): an LM for ``rcfg`` (its first ``rcfg.n_layers`` layers) whose
+    expert banks are ``params``' slots gathered by ``np.repeat(arange(E),
+    replication)`` (replicas are copies), every other tensor ``params``' own.
+    The later layers are freed first and each bank as its copy is made, so
+    the card never holds both models; the new module is built on the meta
+    device and its tensors assigned."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import lm
+
+    idx = torch.as_tensor(np.repeat(np.arange(len(replication)), replication), device=params.embed.device)
+    del params.layers[rcfg.n_layers:]
+    for layer in params.layers:
+        bank = layer.moe.experts
+        for name in [n for n, _ in bank.named_parameters()]:
+            setattr(bank, name, torch.nn.Parameter(getattr(bank, name).index_select(0, idx), requires_grad=False))
+    model = lm.LM(rcfg, None, torch.device("meta"))
+    model.load_state_dict(params.state_dict(), assign=True)
+    return model
+
+
+def moe_replication_phase(gpu):
+    """The paper's expert replication on DeepSeek-V2 at full width: profile
+    the cut model's prefill routing, plan ``MOE_SLOTS`` slots, measure the
+    max slot load and the dropped share before and after from the records
+    (checked against the buckets' own drops), redeploy with replicated banks
+    and prefill; then one float32 layer with replicas equal to it without."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.alloc import drop_rate, expected_max_load, plan_replication
+    from repro_torch.launch import serve
+    from repro_torch.models import layers, lm
+
+    arch = "deepseek-v2-236b"
+    dev = torch.device("cuda")
+    cfg = get_config(arch).with_(n_layers=MOE_DEPTH[arch])
+    b, s = MOE["batch"], MOE["prompt_len"]
+    n_tok, k, n_exp = b * s, cfg.moe.top_k, cfg.moe.n_experts
+    params, cache, prompts = serve.setup(cfg, b, s, 1, device=dev, seed=0)
+    with torch.inference_mode():
+        with dropped_assignments() as drops, layers.capture_routing() as records:
+            serve.prefill(params, cfg, prompts, cache)
+    del cache
+    check(len(records) == cfg.n_layers and all(r.shape == (n_tok, k) for r in records),
+          f"replication: records {[r.shape for r in records]}")
+    hist = np.bincount(np.concatenate([r.reshape(-1) for r in records]), minlength=n_exp).astype(np.float64)
+    hist /= hist.sum()
+    plan = plan_replication(hist, slot_budget=MOE_SLOTS)
+    check(plan.n_physical == MOE_SLOTS, f"replication: {plan.n_physical} slots")
+    cap0 = layers._moe_capacity(cfg, n_tok, n_exp)
+    cap1 = layers._moe_capacity(cfg, n_tok, plan.n_physical)
+    before = moe_slot_loads(records, (1,) * n_exp, cap0)
+    after = moe_slot_loads(records, plan.replication, cap1)
+    check([round(d * n_tok * k) for _, d in before] == drops,
+          f"replication: dispatch drops {[d for _, d in before]} vs the buckets' {drops}")
+    pred = {
+        "max_load": (expected_max_load(hist, n_tok, k), expected_max_load(plan, n_tok, k)),
+        "drop": (drop_rate(hist, n_tok, k, cfg.moe.capacity_factor),
+                 drop_rate(plan, n_tok, k, cfg.moe.capacity_factor)),
+    }
+    hot = np.argsort(-hist)[:4]
+    print(f"{gpu}: {arch} ({cfg.n_layers} layers) expert replication: routing of the prefill captured "
+          f"({len(records)} layers x {n_tok} tokens x {k}), histogram max {hist.max():.5f} / mean {1 / n_exp:.5f} "
+          f"(hottest experts {hot.tolist()}), plan over {plan.n_physical} slots: {sum(r > 1 for r in plan.replication)} "
+          f"experts replicated, at most {max(plan.replication)} replicas, expected balance {plan.balance:.4f}")
+    for i, ((m0, d0), (m1, d1)) in enumerate(zip(before, after)):
+        print(f"{gpu}: {arch} layer {i}: measured max slot load {m0} tokens at capacity {cap0} ({n_exp} slots) -> {m1} "
+              f"at capacity {cap1} ({plan.n_physical} slots); dropped share {d0:.6f} -> {d1:.6f}")
+    print(f"{gpu}: {arch} planner's predictions for {n_tok} tokens x {k} (expected_max_load, drop_rate at capacity "
+          f"factor {cfg.moe.capacity_factor}): max slot load {pred['max_load'][0]:.2f} -> {pred['max_load'][1]:.2f}, "
+          f"dropped share {pred['drop'][0]:.6f} -> {pred['drop'][1]:.6f}")
+
+    # redeploy: the first MOE_REDEPLOY_DEPTH layers with replicated banks
+    rcfg = cfg.with_(n_layers=MOE_REDEPLOY_DEPTH, moe=dataclasses.replace(cfg.moe, replication=plan.replication))
+    model = redeploy(params, rcfg, plan.replication)
+    del params
+    torch.cuda.empty_cache()
+    check(tuple(model.layers[0].moe.experts.w_up.shape) == (plan.n_physical, cfg.d_model, cfg.moe.d_ff_expert),
+          f"replication: redeployed bank {tuple(model.layers[0].moe.experts.w_up.shape)}")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        with dropped_assignments() as rdrops, layers.capture_routing() as rrec:
+            _, logits, _ = serve.prefill(model, rcfg, prompts, lm.init_cache(rcfg, b, s + 1, device=dev))
+        torch.cuda.synchronize()
+        ms = timed(lambda: serve.prefill(model, rcfg, prompts, lm.init_cache(rcfg, b, s + 1, device=dev)), reps=3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(bool(torch.isfinite(logits).all()), "replication: non-finite logits after redeploying")
+    real = moe_slot_loads(rrec, plan.replication, cap1)
+    check([round(d * n_tok * k) for _, d in real] == rdrops,
+          f"replication: redeployed dispatch drops {real} vs the buckets' {rdrops}")
+    print(f"{gpu}: {arch} redeployed with {plan.n_physical} slots ({rcfg.n_layers} layers, "
+          f"{sum(p.numel() for p in model.parameters())} parameters): prefill {ms:.3f} ms (CUDA events, warm), "
+          f"logits finite, peak {peak:.2f} GB; measured on its own routing: "
+          + "; ".join(f"layer {i} max slot load {m} dropped share {d:.6f}" for i, (m, d) in enumerate(real)))
+    out = {"before": before, "after": after, "redeployed": real, "pred": pred, "plan_balance": plan.balance,
+           "redeploy_prefill_ms": ms}
+    del model, logits
+    torch.cuda.empty_cache()
+
+    # one FULL-width layer in float32 with no drops: replicas change nothing
+    b1, s1, cf = MOE_REPL_CHECK["batch"], MOE_REPL_CHECK["prompt_len"], MOE_REPL_CHECK["capacity_factor"]
+    one = get_config(arch).with_(n_layers=1, dtype="float32")
+    one = one.with_(moe=dataclasses.replace(one.moe, capacity_factor=cf))
+    params, _, toks = serve.setup(one, b1, s1, 1, device=dev, seed=2)
+    rone = one.with_(moe=dataclasses.replace(one.moe, replication=plan.replication))
+    with torch.inference_mode():
+        want = lm.forward(params, one, toks)[0].float()
+        model = redeploy(params, rone, plan.replication)
+        got = lm.forward(model, rone, toks)[0].float()
+    rel = float((got - want).abs().max() / want.abs().max())
+    check(rel <= MOE_REPL_TOL, f"replication: float32 logits with replicas off by {rel} of max |logit|")
+    print(f"{arch} one layer float32, {b1} x {s1} tokens, capacity factor {cf}: logits with {plan.n_physical} slots "
+          f"vs {one.moe.n_experts}, max |diff| {rel:.3e} of max |logit| (limit {MOE_REPL_TOL})")
+    out["replicas_rel"] = rel
+    del params, model, want, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase(gpu):
+    """Phase 19: the MoE family on the card.  Returns Grok-1's path and K4
+    numbers for the summary line."""
+    import torch
+
+    t0 = time.perf_counter()
+    for arch in MOE_ARCHS:
+        smoke_card_vs_host(arch)
+    moe, knum = {}, {}
+    for arch in MOE_ARCHS:
+        moe[arch] = serve_full(arch, **MOE, label=arch, gpu=gpu, n_layers=MOE_DEPTH[arch])
+        knum[arch] = kernel_numbers(moe[arch], gpu, arch)
+        del moe[arch]["seen"]
+    end_to_end_vs_plain("grok-1-314b", 3, n_layers=MOE_DEPTH["grok-1-314b"])
+    repl = moe_replication_phase(gpu)
+    for arch in MOE_ARCHS:
+        d = moe[arch]
+        print(f"{gpu}: {arch} ({MOE_DEPTH[arch]} layers) summary: prefill {min(d['prefill_ms']):.3f} ms (best of "
+              f"{len(d['prefill_ms'])}), decode {max(d['decode_tok_per_s']):.1f} tok/s (best of 2) = "
+              f"{min(d['decode_ms']) / (MOE['gen'] - 1):.3f} ms a step, device busy {d['busy']:.4f} over the prefill, "
+              f"peak {d['peak_gb']:.2f} GB, launches K4 {d['k4_launches']}")
+    print(f"{gpu}: phase 19 (MoE serving) took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    return {"moe": moe, "knum": knum, "repl": repl}
+
+
 def main() -> int:
     import torch
 
@@ -2699,6 +2953,11 @@ def main() -> int:
     # with the streaming VT entry, the fault sweep, observability
     mcf = multichip_fleet_phase(gpu, dev, fab)
 
+    # ---- 19. MoE serving: DeepSeek-V2 (MLA) and Grok-1 (K4) cut in depth,
+    # and the expert replication flow
+    moe = moe_phase(gpu)
+    gnum = moe["knum"]["grok-1-314b"]["k4"]
+
     nnum = dnum["nemotron-4-15b"]
     print(gpu)
     print(json.dumps({"kernels": [{
@@ -2752,12 +3011,17 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:31",
         "launches": nem["k4_launches"],
-        "max_abs_err": max(k4_err, znum["k4"]["err"], *(dnum[a]["k4"]["err"] for a in DENSE_ARCHS)),
+        "max_abs_err": max(k4_err, znum["k4"]["err"], gnum["err"], *(dnum[a]["k4"]["err"] for a in DENSE_ARCHS)),
         "ms": nnum["k4"]["ms"],
         "plain_ms": nnum["k4"]["plain_ms"],
         "bound_ms": nnum["k4"]["bound_ms"],
         "bound_by": nnum["k4"]["bound_by"],
         "library_ms": nnum["k4"]["library_ms"],
+        "grok_1_launches": moe["moe"]["grok-1-314b"]["k4_launches"],  # Grok-1 at MOE_DEPTH layers
+        "grok_1_ms": gnum["ms"],
+        "grok_1_plain_ms": gnum["plain_ms"],
+        "grok_1_bound_ms": gnum["bound_ms"],
+        "grok_1_library_ms": gnum["library_ms"],
     }, {
         "name": "ssd_chunk",
         "route": "cuda",

@@ -91,8 +91,10 @@ def lm_params_from_numpy(tree, cfg, device: str | torch.device = "cuda"):
     parameter pytree ``tree`` (nested dicts of arrays, as
     ``repro.models.lm.init_params`` returns them, converted with
     ``np.asarray``): ``tree["layers"]`` carries a leading layer axis, which
-    becomes the module list.  Every parameter must be present with its
-    shape; values are stored as float32."""
+    becomes the module list (the MoE family's expert banks too, e.g.
+    ``layers.moe.experts.w_up`` of shape (L, n_phys, d, ff)).  Every
+    parameter must be present with its shape; values are stored as
+    float32."""
     from .models.lm import LM
 
     dev = resolve_device(device)

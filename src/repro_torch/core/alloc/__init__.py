@@ -14,6 +14,13 @@ from .greedy import (
     queueing_allocate,
     queueing_delay,
 )
+from .expert import (
+    ReplicationPlan,
+    drop_rate,
+    expected_max_load,
+    plan_replication,
+    profile_expert_histogram,
+)
 from .pipeline_stages import bottleneck, partition_stages, stage_costs
 
 __all__ = [
@@ -32,4 +39,9 @@ __all__ = [
     "bottleneck",
     "partition_stages",
     "stage_costs",
+    "ReplicationPlan",
+    "drop_rate",
+    "expected_max_load",
+    "plan_replication",
+    "profile_expert_histogram",
 ]

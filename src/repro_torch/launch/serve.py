@@ -6,8 +6,10 @@ decode greedily against it (reference: ``src/repro/launch/serve.py``).
 
 It runs on the card unless ``--device cpu`` is given, and raises without
 one.  ``--arch`` defaults to glm4-9b, as the reference's does.  Families
-``dense``, ``ssm`` and ``hybrid`` are ported; the others raise
-``NotImplementedError``.  One device, so there is no mesh.
+``dense``, ``moe`` (DeepSeek-V2 with MLA, Grok-1 with GQA), ``ssm`` and
+``hybrid`` are ported; the enc-dec arch is refused here as the reference
+refuses it.  One device, so there is no mesh: the MoE runs the reference's
+local path.
 
 ``setup``, ``prefill`` and ``decode`` are the loop's three stages, for
 callers that time them.

@@ -1,5 +1,5 @@
-"""Decoder-only LM for the dense (GQA), SSM (Mamba2) and hybrid (Zamba2)
-families.
+"""Decoder-only LM for the dense (GQA), MoE (GQA or MLA), SSM (Mamba2) and
+hybrid (Zamba2) families.
 
 Map to the reference (``src/repro/models/lm.py``):
 
@@ -10,7 +10,8 @@ Map to the reference (``src/repro/models/lm.py``):
   ``init_cache``       -> ``init_cache(cfg, batch, max_seq, device=)``: the
                           preallocated decode state, a dict of stacked tensors
                           as in the reference, with a host-int ``len``
-  ``_block_fwd``       -> ``Block.forward`` (attention + MLP with pre-norms)
+  ``_block_fwd``       -> ``Block.forward`` (attention, GQA or MLA, + MLP or
+                          MoE with pre-norms)
   ``_ssm_block_fwd``   -> ``SSMBlock.forward``
   ``forward``          -> ``forward(params, cfg, tokens, cache, positions)``
                           (= ``LM.forward``)
@@ -19,12 +20,13 @@ The reference scans homogeneous layer stacks with ``lax.scan`` (and remats
 them for training); here the layers are an ``nn.ModuleList`` walked by a
 Python loop, in the same order: for the hybrid family the shared block runs
 after every ``shared_every``-th Mamba2 layer, with or without a cache.  The
-dense family is a stack of ``Block``s; its cache is
-``{"layers": {"k", "v" (L, b, max_seq, nkv, hd), "len"}}`` with one host-int
-``len`` where the reference stacks one per layer.  Remat is a training
-concern and is not ported, nor is ``loss_fn`` (the training slice).  The
-families ``moe`` and ``encdec``, and MLA attention, raise
-``NotImplementedError``: they come with later slices (ROADMAP.md).
+dense and MoE families are stacks of ``Block``s; their cache is
+``{"layers": {"k", "v" (L, b, max_seq, nkv, hd), "len"}}``, or with MLA
+``{"layers": {"ckv" (L, b, max_seq, kv_lora), "k_rope" (L, b, max_seq, 1,
+rope), "len"}}``, with one host-int ``len`` where the reference stacks one
+per layer.  Remat is a training concern and is not ported, nor is
+``loss_fn`` (the training slice).  The family ``encdec`` raises
+``NotImplementedError``: it comes with a later slice (ROADMAP.md).
 
 With a cache, ``forward`` writes the new state into the cache's tensors in
 place and returns the same dict.  Prefill (s > 1) with a cache carries the
@@ -40,25 +42,17 @@ from torch import nn
 
 from .. import resolve_device
 from .config import ModelConfig
-from .layers import MLP, GQAttention, RMSNorm, _dense, init_gqa_cache
+from .layers import MLP, GQAttention, MLAttention, MoE, RMSNorm, _dense, init_gqa_cache, init_mla_cache
 from .ssm import Mamba2, init_mamba2_cache, mamba2_step
 
 __all__ = ["LM", "Block", "SSMBlock", "forward", "init_cache", "init_params"]
 
-FAMILIES = ("dense", "ssm", "hybrid")
-_LATER = {
-    "moe": "the MLA/MoE slice",
-    "encdec": "the enc-dec slice",
-}
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_LATER = {"encdec": "the enc-dec slice"}
 
 
 def _check_family(cfg: ModelConfig):
     if cfg.family in FAMILIES:
-        if cfg.family != "ssm" and cfg.attn.kind != "gqa":
-            raise NotImplementedError(
-                f"attention {cfg.attn.kind!r} ({cfg.name}) is not ported yet: it comes with "
-                f"{_LATER['moe']}, ROADMAP.md section 1"
-            )
         return
     if cfg.family in _LATER:
         raise NotImplementedError(
@@ -73,22 +67,28 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 class Block(nn.Module):
-    """One transformer block, attention + MLP with pre-norms (reference:
-    ``_init_block`` / ``_block_fwd``, GQA and a dense MLP)."""
+    """One transformer block with pre-norms (reference: ``_init_block`` /
+    ``_block_fwd``): ``attn`` (MLA or GQA, by ``cfg.attn.kind``), then
+    ``moe`` for the MoE family or ``mlp``."""
 
     def __init__(self, cfg: ModelConfig, generator=None, device=None):
         super().__init__()
         self.cfg = cfg
         self.attn_norm = RMSNorm(cfg.d_model, device=device)
-        self.attn = GQAttention(cfg, generator, device)
+        attn = MLAttention if cfg.attn.kind == "mla" else GQAttention
+        self.attn = attn(cfg, generator, device)
         self.mlp_norm = RMSNorm(cfg.d_model, device=device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.activation, generator, device)
+        if cfg.family == "moe":
+            self.moe = MoE(cfg, generator, device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.activation, generator, device)
 
     def forward(self, x, positions, cache=None):
         eps = self.cfg.norm_eps
         h, new_cache = self.attn(self.attn_norm(x, eps), positions, cache)
         x = x + h
-        x = x + self.mlp(self.mlp_norm(x, eps))
+        ffn = self.moe if self.cfg.family == "moe" else self.mlp
+        x = x + ffn(self.mlp_norm(x, eps))
         return x, new_cache
 
 
@@ -118,15 +118,15 @@ class SSMBlock(nn.Module):
 
 
 class LM(nn.Module):
-    """The LM of one ``ModelConfig`` (families ``dense``, ``ssm`` and
-    ``hybrid``)."""
+    """The LM of one ``ModelConfig`` (families ``dense``, ``moe``, ``ssm``
+    and ``hybrid``)."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator | None = None, device=None):
         super().__init__()
         _check_family(cfg)
         self.cfg = cfg
         self.embed = _dense((cfg.vocab, cfg.d_model), generator, device)
-        block = Block if cfg.family == "dense" else SSMBlock
+        block = Block if cfg.family in ("dense", "moe") else SSMBlock
         self.layers = nn.ModuleList(block(cfg, generator, device) for _ in range(cfg.n_layers))
         if cfg.family == "hybrid":
             self.shared_block = Block(cfg, generator, device)
@@ -142,13 +142,13 @@ class LM(nn.Module):
         b, s, _ = x.shape
         if positions is None:
             base = 0
-            if cache is not None and cfg.family == "dense":
+            if cache is not None and cfg.family in ("dense", "moe"):
                 base = cache["layers"]["len"]
             elif cache is not None and cfg.family == "hybrid":
                 base = cache["shared_sites"]["len"]
             positions = (base + torch.arange(s, device=x.device))[None, :].expand(b, s)
 
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             x = self._dense_layers(x, positions, cache)
         else:
             x = self._ssm_layers(x, positions, cache)
@@ -158,13 +158,13 @@ class LM(nn.Module):
 
     def _dense_layers(self, x, positions, cache):
         """The blocks in order; with a cache each reads and writes its layer
-        of the stacked k and v, and the new length is written back."""
+        of the stacked k and v (or ckv and k_rope), and the new length is
+        written back."""
         new_len = None
         for i, layer in enumerate(self.layers):
             c_l = None
             if cache is not None:
-                kv = cache["layers"]
-                c_l = {"k": kv["k"][i], "v": kv["v"][i], "len": kv["len"]}
+                c_l = {k: v if k == "len" else v[i] for k, v in cache["layers"].items()}
             x, c_new = layer(x, positions, c_l)
             if c_new is not None:
                 new_len = c_new["len"]
@@ -219,20 +219,20 @@ def init_cache(
     device: str | torch.device = "cuda",
 ) -> dict:
     """Preallocated decode state on ``device`` (the card by default): for
-    the dense family ``{"layers": {"k", "v" stacked over layers, "len": 0}}``;
-    otherwise ``{"layers": {conv_x, conv_B, conv_C, ssm stacked over
+    the dense and MoE families ``{"layers": {"k", "v" stacked over layers,
+    "len": 0}}``, or with MLA ``{"layers": {"ckv", "k_rope" stacked over
+    layers, "len": 0}}``; otherwise ``{"layers": {conv_x, conv_B, conv_C, ssm stacked over
     layers}}`` and, for the hybrid family, ``"shared_sites": {"k", "v"
     stacked over the n_layers // shared_every attention sites, "len": 0}``."""
     dev = resolve_device(device)
     _check_family(cfg)
     dtype = dtype or _dtype(cfg)
-    if cfg.family == "dense":
-        one = init_gqa_cache(cfg, batch, max_seq, dtype, dev)
-        return {"layers": {
-            "k": torch.zeros((cfg.n_layers, *one["k"].shape), dtype=dtype, device=dev),
-            "v": torch.zeros((cfg.n_layers, *one["v"].shape), dtype=dtype, device=dev),
-            "len": 0,
-        }}
+    if cfg.family in ("dense", "moe"):
+        make = init_mla_cache if cfg.attn.kind == "mla" else init_gqa_cache
+        one = make(cfg, batch, max_seq, dtype, "meta")
+        layers = {k: torch.zeros((cfg.n_layers, *v.shape), dtype=dtype, device=dev)
+                  for k, v in one.items() if k != "len"}
+        return {"layers": {**layers, "len": 0}}
     one = init_mamba2_cache(cfg, batch, dtype, dev)
     layers = {
         k: torch.zeros((cfg.n_layers, *v.shape), dtype=v.dtype, device=dev) for k, v in one.items()

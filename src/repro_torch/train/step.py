@@ -1,7 +1,8 @@
 """Serving steps (reference: ``src/repro/train/step.py``).
 
-``make_prefill_step`` and ``make_decode_step`` only; the training steps
-come with the training slice (ROADMAP.md).  PyTorch runs eagerly, so these
+``make_prefill_step`` and ``make_decode_step`` only, for every ported
+family (dense, MoE, ssm, hybrid); the training steps come with the training
+slice (ROADMAP.md).  PyTorch runs eagerly, so these
 return plain functions where the reference returns functions to ``jit``.
 """
 

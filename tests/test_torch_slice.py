@@ -6,15 +6,16 @@
   than XLA's, so throughput and utilization are held to the reference's
   cycle-statistics tolerance (rtol 2e-2, atol 1e-2); the MAC-proportional
   policies do not read the profile and use exactly the same arrays.
-* ``repro_torch`` imports and runs with jax unimportable, and its sources
+* ``repro_torch`` imports and runs with jax unimportable (the MoE family's
+  serving and its routing capture and plan included), and its sources
   import neither jax nor ``repro``.
 * The multi-chip half (topology, the placed allocators, the multi-chip
   sweeps, fleet replay, the fault sweep, observability) runs end to end on
   the host with jax unimportable.
 * Entry points called without ``device=`` (the slice-1 ones, the fused
-  sweep's, the multi-chip and fault sweeps, and the serving slice's
+  sweep's, the multi-chip and fault sweeps, and the serving slices'
   ``launch.serve.main``, ``models.lm.init_params`` and
-  ``models.lm.init_cache``) ask for the card, and raise where there is none.
+  ``models.lm.init_cache``, the MoE family's too) ask for the card, and raise where there is none.
 """
 
 import ast
@@ -118,6 +119,18 @@ sweep = run_fused_sweep(pts, sample_patches=16, engine="kernel", device="cpu")
 assert (sweep.images_per_sec > 0).all(), sweep
 from repro_torch.launch import serve
 serve.main(["--arch", "zamba2-1.2b", "--smoke", "--batch", "1", "--prompt-len", "20", "--gen", "2", "--device", "cpu"])
+for arch in ("deepseek-v2-236b", "grok-1-314b"):
+    serve.main(["--arch", arch, "--smoke", "--batch", "2", "--prompt-len", "12", "--gen", "3", "--device", "cpu"])
+import numpy as np
+import torch
+from repro_torch.configs import get_config
+from repro_torch.core.alloc import plan_replication
+from repro_torch.models import layers, lm
+cfg = get_config("deepseek-v2-236b", smoke=True)
+with layers.capture_routing() as rec:
+    lm.forward(lm.init_params(cfg, device="cpu"), cfg, torch.zeros((1, 9), dtype=torch.long))
+hist = np.bincount(np.concatenate([r.reshape(-1) for r in rec]), minlength=cfg.moe.n_experts)
+assert len(rec) == cfg.n_layers and plan_replication(hist / hist.sum(), 12).n_physical == 12
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
 print("ok")
@@ -204,6 +217,7 @@ def test_port_sources_import_neither_jax_nor_reference():
         "repro_torch/dse/faults.py",
         "repro_torch/core/cim/topology.py",
         "repro_torch/core/alloc/pipeline_stages.py",
+        "repro_torch/core/alloc/expert.py",
         "repro_torch/distrib/sharding.py",
         "repro_torch/fabric/fleet.py",
         "repro_torch/obs/audit.py",
@@ -220,6 +234,8 @@ def test_port_sources_import_neither_jax_nor_reference():
         "repro_torch/models/lm.py",
         "repro_torch/configs/__init__.py",
         "repro_torch/configs/zamba2_1_2b.py",
+        "repro_torch/configs/deepseek_v2_236b.py",
+        "repro_torch/configs/grok_1_314b.py",
         "repro_torch/train/step.py",
         "repro_torch/launch/serve.py",
     ):
@@ -248,6 +264,9 @@ ENTRY_POINTS = [
     "serve_main",
     "init_params",
     "init_cache",
+    "serve_main_deepseek_v2",
+    "init_params_grok_1",
+    "init_cache_deepseek_v2",
 ]
 
 
@@ -283,6 +302,12 @@ def _call(name):
         return lm.init_params(get_config("mamba2-370m", smoke=True))
     if name == "init_cache":
         return lm.init_cache(get_config("zamba2-1.2b", smoke=True), 1, 8)
+    if name == "serve_main_deepseek_v2":
+        return serve.main(["--arch", "deepseek-v2-236b", "--smoke", "--batch", "1", "--prompt-len", "4", "--gen", "2"])
+    if name == "init_params_grok_1":
+        return lm.init_params(get_config("grok-1-314b", smoke=True))
+    if name == "init_cache_deepseek_v2":
+        return lm.init_cache(get_config("deepseek-v2-236b", smoke=True), 1, 8)
     if name == "capture_inputs_from_numpy":
         weights = [np.zeros((l.rows, l.cout), np.float32) for l in spec.layers]
         return convert.capture_inputs_from_numpy(np.zeros((1, 32, 32, 3)), weights, spec)
