@@ -139,6 +139,25 @@ sources.  Phases, each of which fails the run on any mismatch:
      layers) and prefilled, and one full-width layer in float32 at capacity
      factor 16 with replicas equal to it without.
 
+ 20. training (slice 11): K3, K4 and K5 under autograd (their
+     ``torch.autograd.Function``s: the kernel forward, the plain version's
+     gradient backward) against autograd of their plain versions at the
+     training path's shapes (K4 bf16 with ``round_scores`` at Zamba2's (4,
+     1024, 32 / 32, hd 64) and Qwen2-VL-2B's grouped (4, 1024, 12 / 2, hd
+     128); K5 at Zamba2's 32 cells in bf16 and float32; K3 at Nemotron's
+     down-projection in bf16); the nine non-enc-dec SMOKE configs in float32,
+     the loss, every gradient and one ``make_train_step`` on the card (kernels)
+     against the host (plain versions); Zamba2-1.2B at full width and depth
+     in float32, one step's loss and gradients with the kernels against the
+     plain versions swapped in; Zamba2-1.2B trained at full width and depth
+     (bf16 on float32 masters, remat full, 4 x 1024 SyntheticLM tokens,
+     AdamW, 8 steps; K4 12 and K5 112 launches a step, checked at each),
+     with its step time, tokens/s, peak memory, busy share, top kernels and
+     model-FLOPs share; and, under ``torch.use_deterministic_algorithms``,
+     ``TrainRunner`` with injected failures equal to a clean run bit for bit
+     on three SMOKE configs, and ``launch.train.main`` with ``--ckpt`` and
+     ``--resume``.
+
 The line before the last is ``{"kernels": [...]}`` (each kernel's launches
 on the main path, max |kernel - plain|, times and bound); the last line is
 ``{"ok": true, "device": {...}}``.  Numbers are this card's, printed beside
@@ -147,7 +166,10 @@ its name and power limit.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -221,6 +243,45 @@ MOE_SLOTS = 192
 MOE_REDEPLOY_DEPTH = 2
 MOE_REPL_CHECK = dict(batch=2, prompt_len=64, capacity_factor=16.0)
 MOE_REPL_TOL = 1e-5  # of max |logit|: replicas are copies
+# phase 20, training (slice 11): Zamba2-1.2B at full width and depth as
+# configs/zamba2_1_2b.py publishes it (bf16 compute on float32 masters, remat
+# full), SyntheticLM batches and AdamW as launch.train sets them
+TRAIN = dict(arch="zamba2-1.2b", batch=4, seq=1024, steps=8, lr=1e-3, warmup=5)
+TRAIN_PEAK_GB = 30.0  # parameters, gradients, m and v are 18.7 GB; the float32 logits 0.52
+TRAIN_E2E = dict(batch=2, seq=512)  # (c) float32 kernels vs plain at full width and depth
+TRAIN_SMOKE = dict(batch=2, seq=32)
+TRAIN_SMOKE_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=8)
+TRAIN_SMOKE_ARCHS = ("zamba2-1.2b", "mamba2-370m") + DENSE_SMOKE + MOE_ARCHS
+TRAIN_RUNNER_ARCHS = ("zamba2-1.2b", "nemotron-4-15b", "grok-1-314b")  # K4 + K5, K3, the MoE's scatters
+TRAIN_RUNNER_STEPS = 8
+TRAIN_RUNNER_FAILS = {4: 1, 7: 1}
+K4_TRAIN_SHAPES = (("zamba2-1.2b", 4, 1024, 32, 32, 64), ("qwen2-vl-2b", 4, 1024, 12, 2, 128))
+K5_TRAIN_SHAPE = (32, 128, 64, 64, 64)  # Zamba2-1.2B's cells at 4 x 1024
+K3_TRAIN_SHAPE = NEMOTRON_DOWN
+# (a) gradients of the Function against autograd of the plain version on the
+# card, of max |plain grad|: K4's and K5's backward is autograd of a
+# recomputation of the plain version on the same inputs (equal up to the
+# order of float32 sums); K3's backward takes its products in bf16 where
+# the plain version takes them in float32 and rounds: a bf16 step (2^-8)
+K4_GRAD_TOL = K5_GRAD_TOL = 1e-5
+K3_GRAD_TOL = 1e-2
+# (b) card vs host in float32: loss relative; gradients of max |host grad| per
+# leaf; updated parameters: at most TRAIN_PARAM_SHARE of all entries more than
+# TRAIN_PARAM_TOL of their leaf's max |p| apart, every entry within 2 lr (1 +
+# wd max |p|),
+# as tests/test_torch_train_step.py holds the port to the reference (one
+# AdamW step takes each gradient entry to about +-1, so an entry at the
+# rounding noise may take another sign)
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_CARD_HOST_TOL = 1e-4
+TRAIN_PARAM_TOL, TRAIN_PARAM_SHARE = 1e-5, 1e-3
+# (c) loss relative and gradients of max |plain grad| per leaf: within
+# E2E_TOL, or within TRAIN_E2E_FACTOR times the distance that parameters
+# perturbed by one float32 rounding give the plain versions' gradients (the
+# gradients' own conditioning at 38 layers and the reference's Mamba2 init,
+# ROADMAP F5)
+TRAIN_E2E_TOL = 1e-3
+TRAIN_E2E_FACTOR = 4.0
 # the fabric phase: the reference's fabric_tail (benchmarks/run.py:349-379: VGG11
 # profiled at 2 images, 128 samples; 2x the minimum PEs; 400 Poisson requests at
 # 5 loads, arrival seed 5, service seed 3; latency-aware provisioning calibrated
@@ -553,11 +614,12 @@ def k1_numbers(cap, spec, clock_hz, reps):
     return n
 
 
-def device_busy(fn):
+def device_busy(fn, counts=None):
     """One call of ``fn`` under ``torch.profiler``: (device busy share of the
     call's window, window ms, {kernel name: device ms}).  Busy time is the
     union of the device's activity (kernels, copies, sets) inside the
-    window; it fails if nothing ran on the device."""
+    window; it fails if nothing ran on the device.  A dict ``counts`` gets
+    the number of device activities by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -587,6 +649,8 @@ def device_busy(fn):
     by_name = {}
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+        if counts is not None:
+            counts[e.name] = counts.get(e.name, 0) + 1
     return busy / (w1 - w0), (w1 - w0) / 1e3, by_name
 
 
@@ -2535,7 +2599,498 @@ def moe_phase(gpu):
     return {"moe": moe, "knum": knum, "repl": repl}
 
 
+# ---------------------------------------------------------------- phase 20
+
+
+def train_launches(cfg):
+    """{kernel: launches in one train step}: the forward's (``expected_launches``
+    of a prefill) and one more for each remat recomputation that runs the
+    kernel.  A recomputation stops once it has rebuilt what the backward
+    saved: a hybrid group's runs through (its shared block comes last), so
+    with remat K4 runs twice a site and K5 three times a grouped layer and
+    twice a remainder layer; in the other families each layer runs twice,
+    or, in blocks of k (k not 1 or L), three times but the last of a block
+    twice."""
+    from repro_torch.models.lm import _block_size
+
+    fwd = {n: v[0] for n, v in expected_launches(cfg, 1).items()}
+    L = cfg.n_layers
+    if cfg.remat == "none":
+        return fwd
+    if cfg.family == "hybrid":
+        main = L // cfg.shared_every * cfg.shared_every
+        return {"k3": 0, "k4": 2 * fwd["k4"], "k5": 3 * main + 2 * (L - main)}
+    k = _block_size(L)
+    per_layer = 2 if k in (1, L) else 3 - 1 / k
+    return {n: round(c * per_layer) for n, c in fwd.items()}
+
+
+def _kernel_counts():
+    from repro_torch.kernels.flash_attention import flash_attention as k4
+    from repro_torch.kernels.ssd_scan import ssd_chunk as k5
+    from repro_torch.kernels.zskip_matmul import zskip_matmul as k3
+
+    return {"k3": k3, "k4": k4, "k5": k5}
+
+
+def function_vs_plain(op, plain, inputs, reps=3):
+    """An op's autograd Function against autograd of its plain version on the
+    same card inputs, through sum(out * w) with seeded w per output: (forward
+    max |err| relative to max |plain|, per-input gradient max |err| relative
+    to max |plain grad|, ms of forward + backward through the op and through
+    the plain version).  The launches it makes are not counted."""
+    import torch
+
+    counts = _kernel_counts()
+    saved = {n: k.launches for n, k in counts.items()}
+    dev = inputs[0].device
+    with torch.no_grad():
+        shapes = [o.shape for o in (lambda o: o if isinstance(o, tuple) else (o,))(plain(*inputs))]
+    g = torch.Generator(device=dev).manual_seed(11)
+    weights = [torch.randn(s, generator=g, device=dev) for s in shapes]
+
+    def run(fn):
+        xs = [x.detach().requires_grad_(True) for x in inputs]
+        outs = fn(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        sum((o.float() * w).sum() for o, w in zip(outs, weights)).backward()
+        return [o.detach() for o in outs], [x.grad for x in xs]
+
+    (outs, grads), (outs_p, grads_p) = run(op), run(plain)
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+
+    fwd = max(rel(a, b) for a, b in zip(outs, outs_p))
+    grad = [rel(a, b) for a, b in zip(grads, grads_p)]
+    ms, plain_ms = timed(lambda: run(op), reps=reps), timed(lambda: run(plain), reps=reps)
+    for n, k in counts.items():
+        k.launches = saved[n]
+    return fwd, grad, ms, plain_ms
+
+
+def train_kernel_grad_checks(gpu):
+    """Phase 20 (a): K3, K4 and K5 under autograd against autograd of their
+    plain versions on the card, at the training path's shapes.  Returns
+    {kernel: {"grad_err", "fwd_err", "ms", "plain_ms"}} at the first shape."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_op, flash_attention_op_ref
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref
+    from repro_torch.kernels.zskip_matmul import zskip_matmul_op, zskip_matmul_op_ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for label, b, s, h, nkv, hd in K4_TRAIN_SHAPES:
+        q = torch.randn((b, s, h, hd), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((b, s, nkv, hd), generator=g, device=dev).bfloat16() for _ in range(2))
+        kw = dict(causal=True, round_scores=True)
+        fwd, grad, ms, plain_ms = function_vs_plain(lambda *t: flash_attention_op(*t, **kw),
+                                                    lambda *t: flash_attention_op_ref(*t, **kw), (q, k, v))
+        check(fwd <= K4_TOL["bfloat16"] and max(grad) <= K4_GRAD_TOL,
+              f"K4 under autograd at {label}'s {(b, s, h, nkv, hd)}: forward {fwd}, grads {grad} (limit {K4_GRAD_TOL})")
+        out.setdefault("k4", dict(grad_err=0.0, fwd_err=0.0, ms=ms, plain_ms=plain_ms))
+        out["k4"]["grad_err"] = max(out["k4"]["grad_err"], *grad)
+        out["k4"]["fwd_err"] = max(out["k4"]["fwd_err"], fwd)
+        print(f"{gpu}: K4 under autograd at {label}'s (b {b}, s {s}, {h} q / {nkv} kv heads, hd {hd}) bf16, "
+              f"round_scores: forward max |err| {fwd:.3e} of max |plain|, gradients of q, k, v "
+              + ", ".join(f"{e:.3e}" for e in grad) + f" of max |plain grad| (limit {K4_GRAD_TOL}); forward + "
+              f"backward {ms:.3f} ms through the Function, {plain_ms:.3f} ms through the plain version")
+    nc, Q, H, P, N = K5_TRAIN_SHAPE
+    for dt in ("bfloat16", "float32"):
+        tdt = getattr(torch, dt)
+        cum = torch.cumsum(-torch.rand((nc, Q, H), generator=g, device=dev) * 0.05, dim=1).to(tdt)
+        xdt = torch.randn((nc, Q, H, P), generator=g, device=dev).to(tdt)
+        B, C = (torch.randn((nc, Q, N), generator=g, device=dev).to(tdt) for _ in range(2))
+        fwd, grad, ms, plain_ms = function_vs_plain(ssd_chunk, ssd_chunk_ref, (cum, xdt, B, C))
+        check(fwd <= K5_TOL[dt] and max(grad) <= K5_GRAD_TOL,
+              f"K5 under autograd {dt}: forward {fwd}, grads {grad} (limit {K5_GRAD_TOL})")
+        if dt == "bfloat16":
+            out["k5"] = dict(grad_err=max(grad), fwd_err=fwd, ms=ms, plain_ms=plain_ms)
+        else:
+            out["k5"]["grad_err"] = max(out["k5"]["grad_err"], *grad)
+        print(f"{gpu}: K5 under autograd at Zamba2's {nc} cells x Q {Q} x {H} heads x P {P}, N {N} {dt}: forward "
+              f"max |err| {fwd:.3e} of max |plain| (y and S), gradients of cum, xdt, B, C "
+              + ", ".join(f"{e:.3e}" for e in grad) + f" of max |plain grad| (limit {K5_GRAD_TOL}); forward + "
+              f"backward {ms:.3f} ms through the Function, {plain_ms:.3f} ms through the plain version")
+    M, K, N = K3_TRAIN_SHAPE
+    a = torch.relu(torch.randn((M, K), generator=g, device=dev)).square_().bfloat16()
+    w = (torch.randn((K, N), generator=g, device=dev) / K ** 0.5).bfloat16()
+    fwd, grad, ms, plain_ms = function_vs_plain(zskip_matmul_op, zskip_matmul_op_ref, (a, w), reps=2)
+    check(fwd <= K3_TOL["bfloat16"] and max(grad) <= K3_GRAD_TOL,
+          f"K3 under autograd at {(M, K, N)}: forward {fwd}, grads {grad} (limit {K3_GRAD_TOL})")
+    out["k3"] = dict(grad_err=max(grad), fwd_err=fwd, ms=ms, plain_ms=plain_ms)
+    print(f"{gpu}: K3 under autograd at Nemotron-4-15B's down-projection ({M}, {K}) @ ({K}, {N}) bf16: forward "
+          f"max |err| {fwd:.3e} of max |plain|, gradients of A, B " + ", ".join(f"{e:.3e}" for e in grad)
+          + f" of max |plain grad| (limit {K3_GRAD_TOL}; bf16 products against the plain version's float32 ones); "
+          f"forward + backward {ms:.3f} ms through the Function, {plain_ms:.3f} ms through the plain version")
+    del a, w
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaf_rel(got: dict, want: dict) -> dict:
+    return {n: float((got[n].float() - want[n].float()).abs().max() / want[n].float().abs().max().clamp_min(1e-30))
+            for n in want}
+
+
+def train_smoke_card_vs_host(arch, gpu):
+    """Phase 20 (b): the SMOKE config in float32 from one set of parameters,
+    the loss and every gradient, then one ``make_train_step``, on the host
+    (plain versions) and on the card (kernels, each launched as often as
+    ``train_launches`` says).  Returns the card's launches in the step."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train.step import make_train_step
+
+    counts = _kernel_counts()
+    small = get_config(arch, smoke=True).with_(dtype="float32")
+    host = lm.init_params(small, generator=torch.Generator().manual_seed(0), device="cpu")
+    card = lm.LM(small, None, torch.device("cuda"))
+    card.load_state_dict(host.state_dict())
+    b = SyntheticLM(DataConfig(vocab=small.vocab, seq_len=TRAIN_SMOKE["seq"], global_batch=TRAIN_SMOKE["batch"]),
+                    device="cpu").batch(0)
+    res = []
+    for model, d in ((host, "cpu"), (card, "cuda")):
+        batch = {k: v.to(d) for k, v in b.items()}
+        for p in model.parameters():
+            p.requires_grad_(True)
+        loss = lm.loss_fn(model, small, batch["tokens"], batch["targets"])
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        missing = [n for n, gr in grads.items() if gr is None]
+        check(not missing, f"train smoke {arch} on {d}: no gradient for {missing}")
+        grads = {n: gr.detach().cpu() for n, gr in grads.items()}
+        for p in model.parameters():
+            p.grad = None
+            p.requires_grad_(False)
+        state = adamw_init(model)
+        before = {n: k.launches for n, k in counts.items()}
+        model, state, m = make_train_step(small, AdamWConfig(**TRAIN_SMOKE_OPT))(model, state, batch)
+        used = {n: k.launches - before[n] for n, k in counts.items()}
+        res.append((float(loss.detach()), grads, float(m["loss"]),
+                    {n: p.detach().cpu() for n, p in model.named_parameters()}, used))
+    torch.cuda.synchronize()
+    (lh, gh, mh, ph, _), (lc, gc, mc, pc, used) = res
+    want = train_launches(small)
+    check(used == want, f"train smoke {arch}: K3/K4/K5 launched {used} in the card's step, want {want}")
+    check(all(bool(torch.isfinite(v).all()) for v in gc.values()), f"train smoke {arch}: non-finite card gradients")
+    loss_rel = max(abs(lc - lh) / abs(lh), abs(mc - mh) / abs(mh))
+    check(loss_rel <= TRAIN_LOSS_TOL, f"train smoke {arch}: card loss {lc} vs host {lh}")
+    gerr = _leaf_rel(gc, gh)
+    worst = max(gerr, key=gerr.get)
+    check(gerr[worst] <= TRAIN_CARD_HOST_TOL, f"train smoke {arch}: gradient of {worst} off by {gerr[worst]}")
+    lr, wd = TRAIN_SMOKE_OPT["lr"], 0.1
+    off, total, pmax = 0, 0, 0.0
+    for n in ph:
+        d = (pc[n] - ph[n]).abs()
+        scale = float(ph[n].abs().max())
+        off += int((d > TRAIN_PARAM_TOL * scale).sum())
+        total += d.numel()
+        pmax = max(pmax, float(d.max()))
+        check(float(d.max()) <= 2 * lr * (1 + wd * scale), f"train smoke {arch}: {n} moved {float(d.max())} apart")
+    share = off / total
+    check(share <= TRAIN_PARAM_SHARE, f"train smoke {arch}: {off} of {total} updated entries off")
+    print(f"{gpu}: {arch} SMOKE float32 train step, card (K3/K4/K5 launches {tuple(used.values())}) vs host (plain "
+          f"versions): loss {lc:.6f} vs {lh:.6f} ({loss_rel:.3e} relative, limit {TRAIN_LOSS_TOL}); all "
+          f"{len(gc)} parameters have a gradient, worst leaf {worst} {gerr[worst]:.3e} of max |host grad| (limit "
+          f"{TRAIN_CARD_HOST_TOL}); updated parameters: {off} of {total} entries more than {TRAIN_PARAM_TOL} of their "
+          f"leaf's max |p| apart (limit a share of {TRAIN_PARAM_SHARE}), max |diff| {pmax:.3e} (limit 2 lr (1 + wd "
+          f"max |p|))")
+    return used
+
+
+def train_e2e_vs_plain(gpu):
+    """Phase 20 (c): Zamba2-1.2B at full width and depth in float32, remat as
+    published: one step's loss and every gradient with the kernels, then with
+    the plain versions swapped in (no launch), and, as the gradients'
+    conditioning, the plain versions again on parameters perturbed by about
+    one float32 rounding (each times 1 + 2^-23 N(0, 1)).  The kernels' run
+    must stay within TRAIN_E2E_TOL of the plain one, or within
+    TRAIN_E2E_FACTOR times the perturbed run's distance."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import lm
+
+    dev = torch.device("cuda")
+    counts = _kernel_counts()
+    saved = {n: k.launches for n, k in counts.items()}
+    cfg = get_config(TRAIN["arch"]).with_(dtype="float32")
+    params = lm.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    b = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_E2E["seq"], global_batch=TRAIN_E2E["batch"]),
+                    device=dev).batch(0)
+    originals = {n: p.detach().clone() for n, p in params.named_parameters()}
+    for p in params.parameters():
+        p.requires_grad_(True)
+    runs = {}
+    for name in ("kernels", "plain", "perturbed"):
+        swap = contextlib.nullcontext() if name == "kernels" else swapped_ops.plain()
+        if name == "perturbed":
+            g = torch.Generator(device=dev).manual_seed(4)
+            with torch.no_grad():
+                for p in params.parameters():
+                    p.add_(p * torch.randn(p.shape, generator=g, device=dev) * 2.0 ** -23)
+        before = {n: k.launches for n, k in counts.items()}
+        with swap:
+            loss = lm.loss_fn(params, cfg, b["tokens"], b["targets"])
+            loss.backward()
+        torch.cuda.synchronize()
+        used = {n: k.launches - before[n] for n, k in counts.items()}
+        want = train_launches(cfg) if name == "kernels" else {"k3": 0, "k4": 0, "k5": 0}
+        check(used == want, f"train end to end, {name}: K3/K4/K5 launched {used}, want {want}")
+        runs[name] = (float(loss.detach()), {n: p.grad for n, p in params.named_parameters()})
+        for p in params.parameters():
+            p.grad = None
+    (lk, gk), (lp, gp), (lq, gq) = runs["kernels"], runs["plain"], runs["perturbed"]
+    missing = [n for n, gr in gk.items() if gr is None]
+    check(not missing, f"train end to end: no gradient for {missing}")
+    loss_rel, loss_cond = abs(lk - lp) / abs(lp), abs(lq - lp) / abs(lp)
+    gerr, gcond = _leaf_rel(gk, gp), _leaf_rel(gq, gp)
+    worst, cond = max(gerr, key=gerr.get), max(gcond.values())
+    limit = max(TRAIN_E2E_TOL, TRAIN_E2E_FACTOR * cond)
+    check(loss_rel <= max(TRAIN_E2E_TOL, TRAIN_E2E_FACTOR * loss_cond) and gerr[worst] <= limit,
+          f"train end to end: loss {lk} vs {lp}, gradient of {worst} off by {gerr[worst]} (limit {limit}; "
+          f"perturbed parameters move the plain gradients by up to {cond})")
+    share = sum(e > TRAIN_E2E_TOL for e in gerr.values())
+    print(f"{gpu}: {cfg.name} float32 at full width and depth ({cfg.n_layers} layers, remat {cfg.remat}), "
+          f"{TRAIN_E2E['batch']} x {TRAIN_E2E['seq']} tokens, one step's loss and gradients, kernels (K3/K4/K5 "
+          f"launches {tuple(train_launches(cfg).values())}) vs plain versions: loss {lk:.7f} vs {lp:.7f} "
+          f"({loss_rel:.3e} relative; the perturbed run {loss_cond:.3e}), worst of {len(gk)} gradients {worst} "
+          f"{gerr[worst]:.3e} of max |plain grad|, {share} leaves above {TRAIN_E2E_TOL}; the plain versions on "
+          f"parameters perturbed by one float32 rounding move them by up to {cond:.3e} (worst "
+          f"{max(gcond, key=gcond.get)}); limit max({TRAIN_E2E_TOL}, {TRAIN_E2E_FACTOR} x that) = {limit:.3e}")
+    with torch.no_grad():
+        for n, p in params.named_parameters():
+            p.copy_(originals[n])
+    del params, runs, gk, gp, gq, originals
+    torch.cuda.empty_cache()
+    for n, k in counts.items():
+        k.launches = saved[n]
+    return {"loss_rel": loss_rel, "grad_rel": gerr[worst], "grad_cond": cond}
+
+
+def train_full(gpu):
+    """Phase 20 (d): Zamba2-1.2B trained at full width and depth, bf16
+    compute on float32 masters, remat as published: ``SyntheticLM`` batches,
+    AdamW as ``launch.train`` sets it, ``make_train_step``, TRAIN["steps"]
+    steps with K3's, K4's and K5's counts set to 0 just before each step and
+    read just after.  Returns the numbers the summary prints."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train.step import make_train_step
+
+    dev = torch.device("cuda")
+    counts = _kernel_counts()
+    cfg = get_config(TRAIN["arch"])
+    bsz, seq, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    state = adamw_init(params)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=bsz), device=dev)
+    step = make_train_step(cfg, AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"], total_steps=steps))
+    n_params = sum(p.numel() for p in params.parameters())
+    torch.cuda.synchronize()
+    setup_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = train_launches(cfg)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    losses, ms, launched = [], [], []
+    for s in range(steps):
+        batch = data.batch(s)
+        torch.cuda.synchronize()
+        for k in counts.values():
+            k.launches = 0
+        ev[0].record()
+        params, state, m = step(params, state, batch)
+        ev[1].record()
+        ev[1].synchronize()
+        used = {n: k.launches for n, k in counts.items()}
+        check(used == want, f"train {cfg.name} step {s}: K3/K4/K5 launched {used}, want {want}")
+        launched.append(used)
+        losses.append(float(m["loss"]))
+        ms.append(ev[0].elapsed_time(ev[1]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(x) for x in losses), f"train {cfg.name}: losses {losses}")
+    check(losses[-1] < losses[0], f"train {cfg.name}: loss did not fall, {losses}")
+    check(all(bool(torch.isfinite(p).all()) for p in params.parameters()), f"train {cfg.name}: non-finite parameters")
+    check(peak_gb <= TRAIN_PEAK_GB, f"train {cfg.name}: peak {peak_gb:.2f} GB over {TRAIN_PEAK_GB}")
+    tokens = bsz * seq
+    warm = ms[1:]
+    best = min(warm)
+    flops = 6 * n_params * tokens
+    out = dict(n_params=n_params, losses=losses, ms=ms, peak_gb=peak_gb, setup_gb=setup_gb, launches=want,
+               tok_per_s=tokens / (best * 1e-3), mfu=flops / (best * 1e-3) / BF16_OPS_PER_S, flops=flops)
+    print(f"{gpu}: {cfg.name} trained at full width and depth: {cfg.n_layers} Mamba2 layers, d_model {cfg.d_model}, "
+          f"{cfg.n_layers // cfg.shared_every} shared-attention sites, vocab {cfg.vocab}, {n_params} parameters "
+          f"(float32 masters, {cfg.dtype} compute, remat {cfg.remat}); {steps} make_train_step steps of SyntheticLM "
+          f"batches {bsz} x {seq}, AdamW lr {TRAIN['lr']} warmup {TRAIN['warmup']} total {steps}; launches per step "
+          f"K3 {want['k3']}, K4 {want['k4']}, K5 {want['k5']} (checked at every step; {steps * want['k5']} K5 and "
+          f"{steps * want['k4']} K4 over the run); losses " + ", ".join(f"{x:.4f}" for x in losses))
+    print(f"{gpu}: {cfg.name} train step ms (CUDA events, one step each): " + ", ".join(f"{x:.2f}" for x in ms)
+          + f"; warm best {best:.2f} ms, mean {sum(warm) / len(warm):.2f} ms = {out['tok_per_s']:.0f} tokens/s at "
+          f"best; model FLOPs 6 x {n_params} parameters x {tokens} tokens = {flops:.4e} a step (the layers' "
+          f"products, forward and backward; attention's s^2 terms and remat's recomputation not counted), "
+          f"{out['mfu']:.4f} of the {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16 peak; peak device memory {peak_gb:.2f} "
+          f"GB (torch.cuda.max_memory_allocated; {setup_gb:.2f} GB after setup; limit {TRAIN_PEAK_GB})")
+    # where a step goes: the loss and backward, then the update, apart (one
+    # more step, written out as make_train_step runs it), by CUDA events and
+    # by the host's clock up to the end of each part's enqueue
+    from repro_torch.optim.adamw import adamw_update, named
+
+    batch = data.batch(steps)
+    ps = named(params)
+    for p in ps.values():
+        p.requires_grad_(True)
+    ev3 = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    ev3[0].record()
+    loss = lm.loss_fn(params, cfg, batch["tokens"], batch["targets"])
+    loss.backward()
+    ev3[1].record()
+    h1 = time.perf_counter()
+    adamw_update(AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"], total_steps=steps),
+                 {k: p.grad for k, p in ps.items()}, params, state)
+    ev3[2].record()
+    h2 = time.perf_counter()
+    ev3[2].synchronize()
+    for p in ps.values():
+        p.grad = None
+        p.requires_grad_(False)
+    out.update(fwd_bwd_ms=ev3[0].elapsed_time(ev3[1]), update_ms=ev3[1].elapsed_time(ev3[2]),
+               fwd_bwd_host_ms=(h1 - h0) * 1e3, update_host_ms=(h2 - h1) * 1e3)
+    print(f"{gpu}: {cfg.name} one more step in parts: loss + backward {out['fwd_bwd_ms']:.2f} ms (CUDA events; the "
+          f"host enqueued it in {out['fwd_bwd_host_ms']:.2f} ms), AdamW update over {len(ps)} tensors "
+          f"{out['update_ms']:.2f} ms (host {out['update_host_ms']:.2f} ms)")
+    n_dev = {}
+    share, win_ms, by_name = device_busy(lambda: step(params, state, data.batch(steps + 1)), n_dev)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out.update(busy=share, busy_window_ms=win_ms, top=top, device_ops=sum(n_dev.values()))
+    print(f"{gpu}: {cfg.name} one train step under torch.profiler: window {win_ms:.3f} ms, device busy {share:.4f} "
+          f"(idle {1 - share:.4f}), {out['device_ops']} device kernels and copies ({win_ms * 1e3 / out['device_ops']:.1f} "
+          f"us of window each); top device time: "
+          + "; ".join(f"{n[:60]} {t:.3f} ms ({n_dev[n]}x)" for n, t in top))
+    del params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_runner_checks(gpu):
+    """Phase 20 (e): under ``torch.use_deterministic_algorithms(True)``, for
+    each TRAIN_RUNNER_ARCHS SMOKE config: one step alone, then ``TrainRunner``
+    clean and with injected failures (restore from the last checkpoint and
+    replay), the replayed run equal to the clean one bit for bit (parameters,
+    AdamW moments, every step's loss); then ``launch.train.main`` with
+    ``--ckpt`` and then ``--resume``."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import FaultInjector, RunnerConfig, TrainRunner
+    from repro_torch.train.step import make_train_step
+
+    dev = torch.device("cuda")
+    out = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for arch in TRAIN_RUNNER_ARCHS:
+                cfg = get_config(arch, smoke=True)
+                data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SMOKE["seq"],
+                                              global_batch=TRAIN_SMOKE["batch"]), device=dev)
+                step = make_train_step(cfg, AdamWConfig(**TRAIN_SMOKE_OPT))
+
+                def fresh():
+                    model = lm.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+                    return model, adamw_init(model)
+
+                step(*fresh(), data.batch(0))  # a step alone: any non-deterministic op raises here
+                runs = {}
+                for name, hook in (("clean", None), ("faulty", FaultInjector(fail_at=dict(TRAIN_RUNNER_FAILS)))):
+                    runner = TrainRunner(RunnerConfig(ckpt_dir=os.path.join(tmp, arch, name), ckpt_every=3),
+                                         step, lambda s: data.batch(s), fault_hook=hook)
+                    params, state = runner.run(*fresh(), TRAIN_RUNNER_STEPS)
+                    last = {h.step: h.metrics["loss"] for h in runner.history}
+                    runs[name] = (params, state, last, runner.restores)
+                (pc, sc, lc, _), (pf, sf, lf, restores) = runs["clean"], runs["faulty"]
+                check(restores == len(TRAIN_RUNNER_FAILS), f"runner {arch}: {restores} restores")
+                diff = max(float((a - b).abs().max()) for a, b in zip(pc.parameters(), pf.parameters()))
+                mdiff = max(float((sc[k][n] - sf[k][n]).abs().max()) for k in ("m", "v") for n in sc["m"])
+                check(diff == 0.0 and mdiff == 0.0 and lc == lf and int(sc["step"]) == int(sf["step"]),
+                      f"runner {arch}: replayed run differs from the clean one: parameters {diff}, moments {mdiff}, "
+                      f"losses {lc} vs {lf}")
+                out[arch] = restores
+                print(f"{gpu}: {arch} SMOKE ({cfg.dtype}) TrainRunner, {TRAIN_RUNNER_STEPS} steps, checkpoints every "
+                      f"3, failures injected at steps {sorted(TRAIN_RUNNER_FAILS)}: {restores} restores and replays; "
+                      f"parameters, AdamW moments and every step's loss equal to the clean run bit for bit "
+                      f"(torch.use_deterministic_algorithms); losses " + ", ".join(f"{lc[s]:.4f}" for s in sorted(lc)))
+            ck = os.path.join(tmp, "launch")
+            argv = ["--arch", "zamba2-1.2b", "--smoke", "--batch", "2", "--seq", "32", "--ckpt", ck,
+                    "--ckpt-every", "3", "--device", "cuda"]
+            lines = []
+            for extra in (["--steps", "6"], ["--steps", "8", "--resume"]):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    check(launch_train.main(argv + extra) == 0, f"launch.train {extra}: non-zero")
+                lines.append(buf.getvalue().strip().splitlines())
+            first, second = json.loads(lines[0][-1]), json.loads(lines[1][-1])
+            check(first["steps"] == 6 and math.isfinite(first["last_loss"]), f"launch.train: {first}")
+            check("resumed from step 6" in lines[1] and second["steps"] == 2 and math.isfinite(second["last_loss"]),
+                  f"launch.train --resume: {lines[1]}")
+            with np.load(os.path.join(ck, "step_00000008", "arrays.npz")) as npz:
+                keys = set(npz.files)
+                wz = npz["params/layers/mamba/wz"].shape
+            zs = get_config("zamba2-1.2b", smoke=True)
+            check({"opt/step", "params/embed", "opt/m/layers/mamba/wz", "params/shared_block/attn/wq"} <= keys
+                  and wz == (zs.n_layers, zs.d_model, zs.ssm.d_inner(zs.d_model)),
+                  f"launch.train checkpoint keys {sorted(keys)[:8]}..., wz {wz}")
+            print(f"{gpu}: launch.train.main on the card: 6 steps with --ckpt, then --resume to 8 (resumed from step "
+                  f"6): {first} / {second}; checkpoint in the reference's layout ({len(keys)} arrays, "
+                  f"params/layers/mamba/wz {wz})")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+def train_phase(gpu):
+    """Phase 20: training on the card.  Returns the numbers of the summary
+    and the kernels line."""
+    import torch
+
+    t0 = time.perf_counter()
+    grads = train_kernel_grad_checks(gpu)
+    smoke = {arch: train_smoke_card_vs_host(arch, gpu) for arch in TRAIN_SMOKE_ARCHS}
+    e2e = train_e2e_vs_plain(gpu)
+    full = train_full(gpu)
+    runner = train_runner_checks(gpu)
+    print(f"{gpu}: phase 20 (training) took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    return {"grads": grads, "smoke": smoke, "e2e": e2e, "full": full, "runner": runner}
+
+
 def main() -> int:
+    # phase 20 holds a replayed training run to a clean one bit for bit under
+    # torch.use_deterministic_algorithms, whose cuBLAS calls need a fixed
+    # workspace set before the first of them (32 MiB, as the card's default)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -2958,6 +3513,12 @@ def main() -> int:
     moe = moe_phase(gpu)
     gnum = moe["knum"]["grok-1-314b"]["k4"]
 
+    # ---- 20. training: K3, K4 and K5 under autograd, every family's SMOKE
+    # step card vs host, Zamba2-1.2B trained at full width and depth, the
+    # fault-tolerant runner and the launcher
+    train = train_phase(gpu)
+    tg, tfull = train["grads"], train["full"]
+
     nnum = dnum["nemotron-4-15b"]
     print(gpu)
     print(json.dumps({"kernels": [{
@@ -3005,6 +3566,11 @@ def main() -> int:
         "bound_ms": nnum["k3"]["bound_ms"],
         "bound_by": nnum["k3"]["bound_by"],
         "library_ms": nnum["k3"]["library_ms"],
+        "train_launches": train["smoke"]["nemotron-4-15b"]["k3"],  # per Nemotron-4-15B SMOKE train step
+        "train_grad_max_rel_err": tg["k3"]["grad_err"],  # Nemotron's down-projection, of max |plain grad|
+        "train_fwd_bwd_ms": tg["k3"]["ms"],  # forward + backward through the autograd Function
+        "train_plain_fwd_bwd_ms": tg["k3"]["plain_ms"],
+        "backward": "torch.matmul in the operands' type (no backward kernel)",
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -3022,6 +3588,11 @@ def main() -> int:
         "grok_1_plain_ms": gnum["plain_ms"],
         "grok_1_bound_ms": gnum["bound_ms"],
         "grok_1_library_ms": gnum["library_ms"],
+        "train_launches": tfull["launches"]["k4"],  # per Zamba2-1.2B train step (forward, group recompute)
+        "train_grad_max_rel_err": tg["k4"]["grad_err"],
+        "train_fwd_bwd_ms": tg["k4"]["ms"],  # Zamba2's shape
+        "train_plain_fwd_bwd_ms": tg["k4"]["plain_ms"],
+        "backward": "autograd of a recomputation of the plain version (no backward kernel)",
     }, {
         "name": "ssd_chunk",
         "route": "cuda",
@@ -3035,6 +3606,11 @@ def main() -> int:
         "bound_ms": znum["k5"]["bound_ms"],
         "bound_by": znum["k5"]["bound_by"],
         "library_ms": None,
+        "train_launches": tfull["launches"]["k5"],  # per Zamba2-1.2B train step (forward, two recomputes)
+        "train_grad_max_rel_err": tg["k5"]["grad_err"],
+        "train_fwd_bwd_ms": tg["k5"]["ms"],
+        "train_plain_fwd_bwd_ms": tg["k5"]["plain_ms"],
+        "backward": "autograd of a recomputation of the plain version (no backward kernel)",
     }, {
         "name": "vtime_scan",
         "route": "cuda",

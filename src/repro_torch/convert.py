@@ -10,7 +10,11 @@ once and hands them over:
     object with the reference capture's fields (numpy ``rowbits`` and
     ``sampled_q`` per layer), for ``derive_profile``;
   * ``lm_params_from_numpy`` — an ``LM`` module holding the reference's
-    parameter pytree.
+    parameter pytree; ``lm_params_to_numpy`` its inverse, the reference's
+    pytree (stacked layers) of a module or of a dict keyed like its
+    parameters (the optimizer's moments); ``lm_param_path`` maps one
+    parameter name to the reference's ``/``-joined path and layer index,
+    the keys of the reference's checkpoints.
 """
 
 from __future__ import annotations
@@ -22,7 +26,13 @@ from . import resolve_device
 from .core.cim.network import NetworkSpec
 from .core.cim.profile import ActivationCapture, LayerCapture
 
-__all__ = ["capture_from_numpy", "capture_inputs_from_numpy", "lm_params_from_numpy"]
+__all__ = [
+    "capture_from_numpy",
+    "capture_inputs_from_numpy",
+    "lm_param_path",
+    "lm_params_from_numpy",
+    "lm_params_to_numpy",
+]
 
 
 def capture_inputs_from_numpy(
@@ -119,3 +129,42 @@ def lm_params_from_numpy(tree, cfg, device: str | torch.device = "cuda"):
             raise ValueError(f"{name}: shape {arr.shape} != {tuple(want[name].shape)}")
     model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in got.items()})
     return model
+
+
+def lm_param_path(name: str) -> tuple[str, int | None]:
+    """(the reference's ``/``-joined pytree path, layer index or None) of the
+    port's parameter ``name``: ``layers.<i>.<rest>`` is layer i of the
+    reference's stacked ``layers/<rest>``, any other name its own path."""
+    parts = name.split(".")
+    if len(parts) > 2 and parts[0] == "layers" and parts[1].isdigit():
+        return "/".join(["layers", *parts[2:]]), int(parts[1])
+    return "/".join(parts), None
+
+
+def lm_params_to_numpy(params) -> dict:
+    """Inverse of ``lm_params_from_numpy``: the reference's parameter pytree
+    (nested dicts of numpy arrays, ``layers`` stacked on a leading axis) of
+    an ``LM`` module or of a dict of tensors keyed like its parameters."""
+    from torch import nn
+
+    items = params.named_parameters() if isinstance(params, nn.Module) else params.items()
+    flat: dict = {}
+    for name, t in items:
+        path, i = lm_param_path(name)
+        arr = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+        if i is None:
+            flat[path] = arr
+        else:
+            flat.setdefault(path, {})[i] = arr
+    tree: dict = {}
+    for path, val in flat.items():
+        if isinstance(val, dict):
+            if sorted(val) != list(range(len(val))):
+                raise ValueError(f"{path}: layers {sorted(val)} are not 0..{len(val) - 1}")
+            val = np.stack([val[i] for i in range(len(val))])
+        *head, leaf = path.split("/")
+        node = tree
+        for h in head:
+            node = node.setdefault(h, {})
+        node[leaf] = val
+    return tree

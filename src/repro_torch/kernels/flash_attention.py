@@ -28,6 +28,15 @@ dims 64 and 128 with ``wgmma`` fed by TMA, 16 and 32 with ``mma.sync``),
 which read rows that start on 16 bytes, so bf16 tensors whose rows do not
 (none that the models pass) are copied first; float32 runs on the CUDA cores
 in float32 at any strides.
+
+Under autograd (grad mode on and an input that requires a gradient)
+``flash_attention_op`` runs through ``FlashAttentionFn``: the forward is the
+call above, the kernel on the card (the plain version on the host); the
+backward recomputes ``flash_attention_op_ref`` with grad on, with the same
+``round_scores``, and returns its gradients (grouped kv heads sum their
+group's through ``repeat_interleave``'s backward).  Its (b*h, s, s) float32
+scores live only inside one call's backward.  No backward kernel: the
+Pallas kernel has none.
 """
 
 from __future__ import annotations
@@ -39,8 +48,15 @@ import math
 import torch
 
 from . import _build
+from ._autograd import recompute_grads, wants_grad
 
-__all__ = ["flash_attention", "flash_attention_op", "flash_attention_op_ref", "flash_attention_ref"]
+__all__ = [
+    "FlashAttentionFn",
+    "flash_attention",
+    "flash_attention_op",
+    "flash_attention_op_ref",
+    "flash_attention_ref",
+]
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -179,11 +195,35 @@ def flash_attention_op(q, k, v, *, causal: bool = True, round_scores: bool = Fal
     ``flash_attention_op_ref``; on CUDA tensors the kernel reads the heads
     by stride, with no copy of k or v per query head."""
     _check(q, k, v, "bshd")
+    if wants_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal, round_scores)
+    return _op_forward(q, k, v, causal, round_scores)
+
+
+def _op_forward(q, k, v, causal: bool, round_scores: bool) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_attention_op_ref(q, k, v, causal, round_scores=round_scores)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     return _launch(q, k, v, causal, round_scores)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention_op`` under autograd: K4 (or, on the host, its plain
+    version) forward; the backward differentiates a recomputation of
+    ``flash_attention_op_ref``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, round_scores: bool):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, round_scores=round_scores)
+        return _op_forward(q, k, v, causal, round_scores)
+
+    @staticmethod
+    def backward(ctx, do):
+        grads = recompute_grads(flash_attention_op_ref, ctx.saved_tensors, (do,), ctx.needs_input_grad[:3],
+                                **ctx.kw)
+        return (*grads, None, None)
 
 
 flash_attention.launches = 0

@@ -28,6 +28,13 @@ The source holds three kernels, chosen by type and shape:
 
 ``head_group`` picks the heads of one work item (one block of the other
 kernels) for the card's SM count.
+
+Under autograd (grad mode on and an input that requires a gradient)
+``ssd_chunk`` runs through ``SSDChunkFn``: the forward is the call above,
+the kernel on the card (the plain version on the host); the backward
+recomputes ``ssd_chunk_ref`` with grad on and returns the gradients of both
+outputs, y_intra and S_chunk.  No backward kernel: the Pallas kernel has
+none.
 """
 
 from __future__ import annotations
@@ -38,8 +45,9 @@ import functools
 import torch
 
 from . import _build
+from ._autograd import recompute_grads, wants_grad
 
-__all__ = ["head_group", "ssd_chunk", "ssd_chunk_ref"]
+__all__ = ["SSDChunkFn", "head_group", "ssd_chunk", "ssd_chunk_ref"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM = 232_448  # the most shared memory one block may use on the card
@@ -147,6 +155,12 @@ def ssd_chunk(cum, xdt, B, C):
     ``ssd_chunk.launches``; other bfloat16 shapes raise.  CPU tensors run
     ``ssd_chunk_ref``."""
     _check(cum, xdt, B, C)
+    if wants_grad(cum, xdt, B, C):
+        return SSDChunkFn.apply(cum, xdt, B, C)
+    return _forward(cum, xdt, B, C)
+
+
+def _forward(cum, xdt, B, C):
     if cum.device.type == "cpu":
         return ssd_chunk_ref(cum, xdt, B, C)
     if cum.device.type != "cuda":
@@ -177,6 +191,21 @@ def ssd_chunk(cum, xdt, B, C):
         raise RuntimeError(f"ssd_chunk kernel launch failed: CUDA error {rc}")
     ssd_chunk.launches += 1
     return y, S
+
+
+class SSDChunkFn(torch.autograd.Function):
+    """``ssd_chunk`` under autograd: K5 (or, on the host, its plain version)
+    forward; the backward differentiates a recomputation of
+    ``ssd_chunk_ref`` through both outputs."""
+
+    @staticmethod
+    def forward(ctx, cum, xdt, B, C):
+        ctx.save_for_backward(cum, xdt, B, C)
+        return _forward(cum, xdt, B, C)
+
+    @staticmethod
+    def backward(ctx, dy, dS):
+        return recompute_grads(ssd_chunk_ref, ctx.saved_tensors, (dy, dS), ctx.needs_input_grad)
 
 
 ssd_chunk.launches = 0

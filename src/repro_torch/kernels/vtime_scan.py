@@ -56,6 +56,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import resolve_device
 from . import _build
 
 __all__ = [
@@ -414,10 +415,11 @@ def _dense_index(lanes: np.ndarray, blocks):
     return out, stride
 
 
-def stream_state(lanes, servers, *, n_bins: int, ring_len: int = 1, device="cpu") -> StreamState:
-    """A fresh carry: ``lanes`` (C, pools) lane slots a pool, the first
-    ``servers`` (C, pools) of them free at 0 and the rest absent (+inf);
-    an empty ring (zeros), an empty sketch (n 0, min +inf, max -inf)."""
+def stream_state(lanes, servers, *, n_bins: int, ring_len: int = 1, device="cuda") -> StreamState:
+    """A fresh carry on ``device`` (the card by default; it raises without
+    one): ``lanes`` (C, pools) lane slots a pool, the first ``servers`` (C,
+    pools) of them free at 0 and the rest absent (+inf); an empty ring
+    (zeros), an empty sketch (n 0, min +inf, max -inf)."""
     lanes = np.asarray(lanes, dtype=np.int64)
     servers = np.asarray(servers, dtype=np.int64)
     caps, offs, stride = _layout(lanes)
@@ -428,7 +430,7 @@ def stream_state(lanes, servers, *, n_bins: int, ring_len: int = 1, device="cpu"
             st[c, offs[c, q] : offs[c, q] + servers[c, q]] = 0.0
     mom = np.zeros((C, 5))
     mom[:, 1], mom[:, 2] = np.inf, -np.inf
-    dev = torch.device(device)
+    dev = resolve_device(device)
     return StreamState(*(torch.as_tensor(a, dtype=_F64, device=dev) for a in (
         st, np.zeros((C, max(1, int(ring_len)))), np.zeros((C, int(n_bins))), mom, np.zeros(C))))
 
@@ -465,11 +467,12 @@ def _mul32(a: torch.Tensor, k: int) -> torch.Tensor:
     return (lo + hi) & _M32
 
 
-def stream_hash(salt: int, r, n_patches: int, n_samples: int, device="cpu") -> torch.Tensor:
+def stream_hash(salt: int, r, n_patches: int, n_samples: int, device="cuda") -> torch.Tensor:
     """``fabric.vtime.hash_service_indices`` for request(s) ``r`` in int64
     masked to 32 bits after every multiply and add (the kernel's uint32
-    arithmetic): (..., n_patches) int64 sample rows."""
-    r = torch.as_tensor(r, dtype=torch.int64, device=device)[..., None] & _M32
+    arithmetic): (..., n_patches) int64 sample rows on ``device`` (the card
+    by default; it raises without one)."""
+    r = torch.as_tensor(r, dtype=torch.int64, device=resolve_device(device))[..., None] & _M32
     p = torch.arange(int(n_patches), dtype=torch.int64, device=r.device)
     h = _mul32(p + 1, 0x9E3779B9)
     h = (h + _mul32((r + 1) & _M32, 0x85EBCA6B)) & _M32

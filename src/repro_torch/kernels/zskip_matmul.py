@@ -25,6 +25,18 @@ cores in float32.  TMA reads rows that start on 16 bytes, so a bf16 operand
 whose base or row stride is not (B with N not a multiple of 8, a view at an
 odd offset) is copied first, B with zero columns added; the kernel stores
 only the real N columns.
+
+Under autograd (grad mode on and an input that requires a gradient)
+``zskip_matmul_op`` runs through ``ZSkipMatmulFn``: the forward is the op
+above, the kernel on the card (the plain version on the host); the backward
+is the gradient of the product A @ B that the kernel computes, ``dA = dY @
+B^T`` and ``dB = A^T @ dY`` with ``torch.matmul`` in the operands' type, as
+the reference's autodiff differentiates the model's product outside any
+Pallas kernel (the Pallas kernel has no backward).  The mask takes no
+gradient; K's padding never leaves the forward.  In a skipped tile dA is
+the product's gradient, where autograd of the plain version gives 0 (it
+takes the mask as a constant); the model's squared-ReLU backward multiplies
+both by 0 there.
 """
 
 from __future__ import annotations
@@ -35,8 +47,10 @@ import functools
 import torch
 
 from . import _build
+from ._autograd import wants_grad
 
 __all__ = [
+    "ZSkipMatmulFn",
     "block_mask",
     "block_mask_ref",
     "zero_tiles",
@@ -240,12 +254,36 @@ def zskip_matmul_op(a, b, *, bm: int = 128, bn: int = 128, bk: int = 128) -> tor
     run ``zskip_matmul_op_ref``; CUDA tensors launch the kernel."""
     _check_operands(a, b)
     _check_tiles(bm, bn, bk)
+    if wants_grad(a, b):
+        return ZSkipMatmulFn.apply(a, b, bm, bk)
+    return _op_forward(a, b, bm, bk)
+
+
+def _op_forward(a, b, bm: int, bk: int) -> torch.Tensor:
     if a.device.type == "cpu":
         return zskip_matmul_op_ref(a, b, bm, bk)
     if a.device.type != "cuda":
         raise ValueError(f"no kernel for device {a.device}")
     a, b = _pad_k(a, b, bk)
     return _launch(a, b, block_mask(a, bm, bk), bm, bk, a.dtype)
+
+
+class ZSkipMatmulFn(torch.autograd.Function):
+    """``zskip_matmul_op`` under autograd: K3 (or, on the host, its plain
+    version) forward; the product's gradients backward."""
+
+    @staticmethod
+    def forward(ctx, a, b, bm: int, bk: int):
+        ctx.save_for_backward(a, b)
+        return _op_forward(a, b, bm, bk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b = ctx.saved_tensors
+        dy = dy.to(a.dtype)
+        da = torch.matmul(dy, b.T) if ctx.needs_input_grad[0] else None
+        db = torch.matmul(a.T, dy) if ctx.needs_input_grad[1] else None
+        return da, db, None, None
 
 
 zskip_matmul.launches = 0

@@ -1,0 +1,104 @@
+"""End-to-end trainer: the fault-tolerant runner over the train step, with
+checkpoints in the reference's format (reference:
+``src/repro/launch/train.py``).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
+      --steps 20 --smoke [--device cpu] [--ckpt DIR] [--resume]
+
+It runs on the card unless ``--device cpu`` is given, and raises without
+one.  The flags are the reference's, plus ``--device``; ``--arch`` defaults
+to glm4-9b.  Parameters are random, from a ``torch.Generator`` seeded with
+0; the data is ``SyntheticLM`` (seed 0), AdamW with warmup 5 and the run's
+step count as its total.  One device, so there is no mesh:
+``--production-mesh`` raises, and the enc-dec arch is refused as the
+reference refuses it.  The last line is the reference's JSON summary.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import tempfile
+import time
+
+import torch
+
+from .. import resolve_device
+from ..configs import ARCH_IDS, get_config
+from ..data.pipeline import DataConfig, SyntheticLM
+from ..models import lm
+from ..optim.adamw import AdamWConfig, adamw_init
+from ..runtime.fault import RunnerConfig, TrainRunner
+from ..train.step import make_train_step
+
+__all__ = ["fingerprint", "main"]
+
+
+def fingerprint(cfg) -> str:
+    return f"{cfg.name}/L{cfg.n_layers}/d{cfg.d_model}/v{cfg.vocab}"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS, default="glm4-9b")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--smoke", action="store_true", help="reduced config")
+    ap.add_argument("--production-mesh", action="store_true")
+    ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.family == "encdec":
+        raise SystemExit("use examples/whisper_train.py for the enc-dec arch")
+    if args.production_mesh:
+        raise NotImplementedError(
+            "--production-mesh needs the distrib and launch slices (ROADMAP.md section 1, item 6); "
+            "the port trains on one device, with no mesh"
+        )
+    dev = resolve_device(args.device)
+    opt = AdamWConfig(lr=args.lr, warmup_steps=5, total_steps=args.steps)
+    params = lm.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt_state = adamw_init(params)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch), device=dev)
+    runner = TrainRunner(
+        RunnerConfig(ckpt_dir=args.ckpt, ckpt_every=args.ckpt_every),
+        make_train_step(cfg, opt),
+        lambda s: data.batch(s),
+        fingerprint=fingerprint(cfg),
+    )
+    start = 0
+    if args.resume:
+        restored_step, tree = runner._restore(params, opt_state)
+        if tree is not None:
+            params, opt_state = tree["params"], tree["opt"]
+            start = restored_step
+            print(f"resumed from step {start}")
+    t0 = time.time()
+    params, opt_state = runner.run(params, opt_state, args.steps, start)
+    dt = time.time() - t0
+
+    losses = [h.metrics.get("loss", float("nan")) for h in runner.history]
+    print(
+        json.dumps(
+            {
+                "arch": cfg.name,
+                "steps": len(runner.history),
+                "first_loss": losses[0] if losses else None,
+                "last_loss": losses[-1] if losses else None,
+                "wall_s": round(dt, 1),
+                "restores": runner.restores,
+            }
+        )
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -17,8 +17,9 @@ Map to the reference (``src/repro/models/layers.py``):
 
 Parameters are float32 and are cast to the activations' type at each
 product, as the reference's ``.astype(x.dtype)`` casts them; ``rmsnorm``
-works in float32.  The parameters of this serving slice do not require
-gradients.
+works in float32.  The parameters do not require gradients, so serving
+builds no graph; the train step (``train.step.make_train_step``) turns them
+on for its model while it runs.
 
 Attention over a whole prompt from position 0 (no cache, or a cache of
 length 0) is K4 (``kernels.ops.flash_attention_op``), which takes the

@@ -16,17 +16,44 @@ Map to the reference (``src/repro/models/lm.py``):
   ``forward``          -> ``forward(params, cfg, tokens, cache, positions)``
                           (= ``LM.forward``)
 
-The reference scans homogeneous layer stacks with ``lax.scan`` (and remats
-them for training); here the layers are an ``nn.ModuleList`` walked by a
-Python loop, in the same order: for the hybrid family the shared block runs
-after every ``shared_every``-th Mamba2 layer, with or without a cache.  The
-dense and MoE families are stacks of ``Block``s; their cache is
-``{"layers": {"k", "v" (L, b, max_seq, nkv, hd), "len"}}``, or with MLA
-``{"layers": {"ckv" (L, b, max_seq, kv_lora), "k_rope" (L, b, max_seq, 1,
-rope), "len"}}``, with one host-int ``len`` where the reference stacks one
-per layer.  Remat is a training concern and is not ported, nor is
-``loss_fn`` (the training slice).  The family ``encdec`` raises
-``NotImplementedError``: it comes with a later slice (ROADMAP.md).
+  ``_maybe_remat``, ``_block_size``, ``_scan_layers`` and the hybrid's
+  group remat      -> ``_remat``, ``_block_size``, ``LM._remat_layers``
+  ``loss_fn``      -> ``loss_fn(params, cfg, tokens, targets, z_loss)``
+
+The reference scans homogeneous layer stacks with ``lax.scan``; here the
+layers are an ``nn.ModuleList`` walked by a Python loop, in the same order:
+for the hybrid family the shared block runs after every ``shared_every``-th
+Mamba2 layer, with or without a cache.  The dense and MoE families are
+stacks of ``Block``s; their cache is ``{"layers": {"k", "v" (L, b, max_seq,
+nkv, hd), "len"}}``, or with MLA ``{"layers": {"ckv" (L, b, max_seq,
+kv_lora), "k_rope" (L, b, max_seq, 1, rope), "len"}}``, with one host-int
+``len`` where the reference stacks one per layer.  The family ``encdec``
+raises ``NotImplementedError``: it comes with a later slice (ROADMAP.md).
+
+Remat follows the reference's structure with
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, and only when
+gradients are on, a parameter requires one and there is no cache, so
+serving runs as before:
+
+  * dense, MoE and SSM: each layer checkpointed (``cfg.remat``: ``"full"``
+    saves the layer's input, ``"dots"`` also the outputs of the products
+    without batch dims, ``mm`` and ``addmm``, through selective
+    checkpointing), inside checkpointed blocks of ``_block_size(L)`` layers
+    (the divisor of L nearest sqrt(L)) unless that is 1 or L;
+  * hybrid: a checkpointed group of ``shared_every`` layers, each
+    checkpointed, plus the shared block, then the remainder layers one by
+    one.
+
+So a kernel inside a checkpointed layer runs again in each recomputation,
+and a recomputation stops once it has rebuilt what the backward saved
+(``torch.utils.checkpoint``'s early stop, as XLA drops the unused rest of a
+rematerialised block): with ``"full"`` a hybrid step launches K4 twice per
+site (forward, group recompute) and K5 three times per grouped Mamba2 layer
+(forward, group recompute, layer recompute; the shared block closes each
+group, so its recompute runs through) and twice per remainder layer;
+Zamba2-1.2B's step launches K4 12 times and K5 112.  In a block of the
+other families the last layer's recompute is cut (the block saved only its
+input), so it runs twice, the others three times.
 
 With a cache, ``forward`` writes the new state into the cache's tensors in
 place and returns the same dict.  Prefill (s > 1) with a cache carries the
@@ -37,15 +64,18 @@ prefill is the reference's tokens, not the continuation of a full forward.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from .. import resolve_device
 from .config import ModelConfig
 from .layers import MLP, GQAttention, MLAttention, MoE, RMSNorm, _dense, init_gqa_cache, init_mla_cache
 from .ssm import Mamba2, init_mamba2_cache, mamba2_step
 
-__all__ = ["LM", "Block", "SSMBlock", "forward", "init_cache", "init_params"]
+__all__ = ["LM", "Block", "SSMBlock", "forward", "init_cache", "init_params", "loss_fn"]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid")
 _LATER = {"encdec": "the enc-dec slice"}
@@ -64,6 +94,36 @@ def _check_family(cfg: ModelConfig):
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: save
+    the products without batch dims, recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig, policy: bool = True):
+    """``fn`` checkpointed (reference: ``_maybe_remat``; ``policy=False``
+    is the reference's plain ``jax.checkpoint`` of a block or group)."""
+    kw = {}
+    if policy and cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+
+    def wrapped(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
+
+
+def _block_size(L: int) -> int:
+    """Divisor of L nearest sqrt(L): the size of the nested remat blocks."""
+    best, target = 1, L**0.5
+    for k in range(1, L + 1):
+        if L % k == 0 and abs(k - target) < abs(best - target):
+            best = k
+    return best
 
 
 class Block(nn.Module):
@@ -148,13 +208,57 @@ class LM(nn.Module):
                 base = cache["shared_sites"]["len"]
             positions = (base + torch.arange(s, device=x.device))[None, :].expand(b, s)
 
-        if cfg.family in ("dense", "moe"):
+        if cache is None and cfg.remat != "none" and torch.is_grad_enabled() and any(
+            p.requires_grad for p in self.parameters()
+        ):
+            x = self._remat_layers(x, positions)
+        elif cfg.family in ("dense", "moe"):
             x = self._dense_layers(x, positions, cache)
         else:
             x = self._ssm_layers(x, positions, cache)
         x = self.final_norm(x, cfg.norm_eps)
         head = self.embed.T if cfg.tie_embeddings else self.lm_head
         return x @ head.to(x.dtype), cache
+
+    def _remat_layers(self, x, positions):
+        """The layers without a cache under remat, in the reference's
+        structure (module docstring)."""
+        cfg = self.cfg
+
+        def run(i):
+            if cfg.family in ("dense", "moe"):
+                return lambda xx: self.layers[i](xx, positions)[0]
+            return lambda xx: self.layers[i](xx)[0]
+
+        layer = [_remat(run(i), cfg) for i in range(cfg.n_layers)]
+
+        def span(lo, hi, shared=False):
+            def body(xx):
+                for i in range(lo, hi):
+                    xx = layer[i](xx)
+                if shared:
+                    xx = self.shared_block(xx, positions)[0]
+                return xx
+
+            return _remat(body, cfg, policy=False)
+
+        if cfg.family == "hybrid" and cfg.shared_every and cfg.n_layers >= cfg.shared_every:
+            se = cfg.shared_every
+            main = cfg.n_layers // se * se
+            for g in range(0, main, se):
+                x = span(g, g + se, shared=True)(x)
+            for i in range(main, cfg.n_layers):
+                x = layer[i](x)
+            return x
+        L = cfg.n_layers
+        k = _block_size(L)
+        if k <= 1 or k == L:
+            for f in layer:
+                x = f(x)
+            return x
+        for lo in range(0, L, k):
+            x = span(lo, lo + k)(x)
+        return x
 
     def _dense_layers(self, x, positions, cache):
         """The blocks in order; with a cache each reads and writes its layer
@@ -255,3 +359,20 @@ def forward(params: LM, cfg: ModelConfig, tokens, cache: dict | None = None, pos
     if params.cfg != cfg:
         raise ValueError(f"params were built for {params.cfg.name}, not {cfg.name}")
     return params(tokens, cache=cache, positions=positions)
+
+
+def loss_fn(params: LM, cfg: ModelConfig, tokens, targets, z_loss: float = 1e-4) -> torch.Tensor:
+    """Causal LM cross-entropy over float32 logits, with z-loss (reference:
+    ``loss_fn``): the mean of ``logsumexp - gold`` plus ``z_loss`` times the
+    mean of ``logsumexp ** 2``.  The gold logit is a gather (the
+    reference's one-hot contraction has one non-zero term), and each mean
+    is a sum over a count."""
+    logits, _ = forward(params, cfg, tokens)
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    n = lse.numel()
+    loss = (lse - gold).sum() / n
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse).sum() / n
+    return loss

@@ -96,7 +96,7 @@ def test_stream_hash_matches_numpy_uint32(ref):
         r = rng.integers(0, 2**33, size=7)  # ids past 2^32 wrap as uint32 does
         n_p, n_s = int(rng.integers(1, 300)), int(rng.choice([64, 100, 128, 4096]))
         want = r_hash(np, salt, r, n_p, n_s)
-        got = stream_hash(salt, torch.as_tensor(r), n_p, n_s)
+        got = stream_hash(salt, torch.as_tensor(r), n_p, n_s, device="cpu")
         np.testing.assert_array_equal(got.numpy(), want)
         np.testing.assert_array_equal(TF.hash_service_indices(np, salt, r, n_p, n_s), want)
 
@@ -139,7 +139,7 @@ def test_vtime_stream_ref_matches_reference_kernel(ref, setup, coarsen, loop):
     assert tsalts == list(salts) or tuple(tsalts) == tuple(salts)
     tc = None if coarsen is None else TF.CoarsenConfig(tail_lanes=coarsen)
     plans = TFL._group_plans(tvt, tvt._groups(ta), len(ta), tc)
-    carry = stream_state(lanes, lanes, n_bins=cfg.n_bins, ring_len=conc or 1)
+    carry = stream_state(lanes, lanes, n_bins=cfg.n_bins, ring_len=conc or 1, device="cpu")
     lanes_t = torch.as_tensor(lanes)
     ys_all = []
     for r0, n in ((0, 6), (6, 5)):
@@ -172,7 +172,7 @@ def test_vtime_stream_ref_matches_reference_kernel(ref, setup, coarsen, loop):
 def test_vtime_stream_checks_inputs():
     tables = [torch.ones((1, 4, 2), dtype=torch.float64)]
     var, lanes = torch.zeros(2, dtype=torch.int32), torch.ones((2, 2), dtype=torch.int32)
-    carry = stream_state(lanes.numpy(), lanes.numpy(), n_bins=8, ring_len=2)
+    carry = stream_state(lanes.numpy(), lanes.numpy(), n_bins=8, ring_len=2, device="cpu")
     kw = dict(n_requests=3, patches=[5])
     with pytest.raises(ValueError, match="salts"):
         vtime_stream(tables, var, lanes, carry, concurrency=2, **kw)

@@ -15,7 +15,12 @@
 * Entry points called without ``device=`` (the slice-1 ones, the fused
   sweep's, the multi-chip and fault sweeps, and the serving slices'
   ``launch.serve.main``, ``models.lm.init_params`` and
-  ``models.lm.init_cache``, the MoE family's too) ask for the card, and raise where there is none.
+  ``models.lm.init_cache``, the MoE family's too; the fleet's
+  ``stream_state`` and ``stream_hash``; the training slice's
+  ``launch.train.main``, ``SyntheticLM(...).batch`` and a checkpoint
+  restore that makes tensors) ask for the card, and raise where there is none.
+* The training slice runs with jax unimportable: one SMOKE train step on
+  the host.
 """
 
 import ast
@@ -23,6 +28,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 
 import jax
 import jax.experimental
@@ -50,7 +56,10 @@ from repro_torch.dse import (
     run_multichip_sweep,
     run_sweep,
 )
-from repro_torch.launch import serve
+from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+from repro_torch.data import DataConfig, SyntheticLM
+from repro_torch.kernels.vtime_scan import stream_hash, stream_state
+from repro_torch.launch import serve, train
 from repro_torch.models import lm
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -121,6 +130,10 @@ from repro_torch.launch import serve
 serve.main(["--arch", "zamba2-1.2b", "--smoke", "--batch", "1", "--prompt-len", "20", "--gen", "2", "--device", "cpu"])
 for arch in ("deepseek-v2-236b", "grok-1-314b"):
     serve.main(["--arch", arch, "--smoke", "--batch", "2", "--prompt-len", "12", "--gen", "3", "--device", "cpu"])
+import repro_torch.checkpoint, repro_torch.launch.train, repro_torch.optim.compress, repro_torch.runtime
+from repro_torch.data import DataConfig, SyntheticLM
+from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.train.step import make_train_step
 import numpy as np
 import torch
 from repro_torch.configs import get_config
@@ -131,6 +144,12 @@ with layers.capture_routing() as rec:
     lm.forward(lm.init_params(cfg, device="cpu"), cfg, torch.zeros((1, 9), dtype=torch.long))
 hist = np.bincount(np.concatenate([r.reshape(-1) for r in rec]), minlength=cfg.moe.n_experts)
 assert len(rec) == cfg.n_layers and plan_replication(hist / hist.sum(), 12).n_physical == 12
+cfg = get_config("zamba2-1.2b", smoke=True)
+model = lm.init_params(cfg, device="cpu")
+state = adamw_init(model)
+batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2), device="cpu").batch(0)
+model, state, m = make_train_step(cfg, AdamWConfig())(model, state, batch)
+assert float(m["loss"]) > 0 and int(state["step"]) == 1, m
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
 print("ok")
@@ -238,6 +257,15 @@ def test_port_sources_import_neither_jax_nor_reference():
         "repro_torch/configs/grok_1_314b.py",
         "repro_torch/train/step.py",
         "repro_torch/launch/serve.py",
+        "repro_torch/launch/train.py",
+        "repro_torch/optim/adamw.py",
+        "repro_torch/optim/compress.py",
+        "repro_torch/data/pipeline.py",
+        "repro_torch/checkpoint/store.py",
+        "repro_torch/runtime/fault.py",
+        "repro_torch/kernels/_autograd.py",
+        "repro_torch/kernels/zskip_matmul.py",
+        "repro_torch/convert.py",
     ):
         assert module in names, module
     for path in files:
@@ -267,6 +295,11 @@ ENTRY_POINTS = [
     "serve_main_deepseek_v2",
     "init_params_grok_1",
     "init_cache_deepseek_v2",
+    "stream_state",
+    "stream_hash",
+    "train_main",
+    "synthetic_lm_batch",
+    "restore_checkpoint",
 ]
 
 
@@ -308,6 +341,18 @@ def _call(name):
         return lm.init_params(get_config("grok-1-314b", smoke=True))
     if name == "init_cache_deepseek_v2":
         return lm.init_cache(get_config("deepseek-v2-236b", smoke=True), 1, 8)
+    if name == "stream_state":
+        return stream_state(np.ones((1, 2)), np.ones((1, 2)), n_bins=4)
+    if name == "stream_hash":
+        return stream_hash(1, [0, 1], 3, 8)
+    if name == "train_main":
+        return train.main(["--arch", "zamba2-1.2b", "--smoke", "--steps", "1"])
+    if name == "synthetic_lm_batch":
+        return SyntheticLM(DataConfig(vocab=16, seq_len=8, global_batch=2)).batch(0)
+    if name == "restore_checkpoint":
+        with tempfile.TemporaryDirectory() as tmp:
+            save_checkpoint(tmp, 1, {"x": np.zeros(3, np.float32)})
+            return restore_checkpoint(tmp, {"x": torch.empty(3, device="meta")})
     if name == "capture_inputs_from_numpy":
         weights = [np.zeros((l.rows, l.cout), np.float32) for l in spec.layers]
         return convert.capture_inputs_from_numpy(np.zeros((1, 32, 32, 3)), weights, spec)
