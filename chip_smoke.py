@@ -46,7 +46,8 @@ sources.  Phases, each of which fails the run on any mismatch:
      version, and their sums over the sweep;
   9. K4 (flash attention) against its plain version: float32 and bfloat16,
      head dims 16, 64 and 128, s 1, 77, 200, 1000 and 1024, causal and not,
-     and Zamba2's prefill shape on the model's (b, s, h, hd) layout; the
+     Zamba2's prefill shape on the model's (b, s, h, hd) layout and
+     Whisper-medium's (phase 21) non-causal shapes against 1500 keys; the
      scores rounded to the inputs' type (``round_scores``, the model's prompt
      attention) against the plain version with the same keyword; grouped kv
      heads at the dense models' prefill shapes in bf16 (48 q on 8 kv heads,
@@ -156,7 +157,24 @@ sources.  Phases, each of which fails the run on any mismatch:
      model-FLOPs share; and, under ``torch.use_deterministic_algorithms``,
      ``TrainRunner`` with injected failures equal to a clean run bit for bit
      on three SMOKE configs, and ``launch.train.main`` with ``--ckpt`` and
-     ``--resume``.
+     ``--resume``;
+ 21. enc-dec (slice 12): Whisper-medium at full width and depth (24 + 24
+     layers, d_model 1024, 16 heads of 64, vocab 51,865): K4 under
+     autograd at the encoder's and cross-attention's training shapes
+     (phase 9 holds K4 against its plain version at the encoder's
+     non-causal (4, 1500) square and at cross-attention's 1, 64 and 448
+     queries against 1500 keys, float32 and bf16, with and without
+     ``round_scores``); served (4
+     x 1500 frames, ``encode``, a 64-token prompt into the cache, 31
+     ``make_encdec_decode_step`` calls; K4 72 launches in the prefill and 24
+     a decode step, checked) with its timings, busy shares, peak memory and
+     K4 per launch on the path's inputs beside its bound, plain version and
+     SDPA; in float32, kernels against plain versions end to end; the SMOKE
+     config card vs host (serving, loss, gradients, one step); trained 8
+     steps (synth_batch, 4 x 1500 frames -> 448 tokens, AdamW, remat full,
+     K4 144 launches a step, checked) with the loss falling; and the SMOKE
+     config under ``TrainRunner`` with injected failures equal to a clean
+     run bit for bit, and ``python -m repro_torch.examples.whisper_train``.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's launches
 on the main path, max |kernel - plain|, times and bound); the last line is
@@ -282,6 +300,21 @@ TRAIN_PARAM_TOL, TRAIN_PARAM_SHARE = 1e-5, 1e-3
 # ROADMAP F5)
 TRAIN_E2E_TOL = 1e-3
 TRAIN_E2E_FACTOR = 4.0
+# phase 21, enc-dec (slice 12): Whisper-medium at full width and depth (24 +
+# 24 layers, d_model 1024, 16 heads of 64, 1500 frames).  Serving: 4 x 1500
+# frames, a 64-token decoder prompt into a cache of 96, 32 tokens generated.
+# Training: 4 x 1500 frames and 448 decoder tokens (Whisper's published text
+# context) on examples/whisper_train.py's synth_batch, AdamW as that example
+# sets it.  The K4 checks: the encoder's non-causal (4, 1500) square and
+# cross-attention's queries against the 1500 keys.
+WHISPER = dict(batch=4, prompt_len=64, gen=32)
+WHISPER_TRAIN = dict(batch=4, seq=448, steps=8, lr=1e-3, warmup=2)
+WHISPER_TRAIN_PEAK_GB = 30.0  # parameters, gradients, m and v are 13.0 GB; logits 0.37; K4's recomputed scores 0.58 a call
+WHISPER_E2E = dict(batch=2, prompt_len=200, gen=4)
+WHISPER_SMOKE = dict(batch=2, prompt_len=12, gen=4)
+WHISPER_K4_SQ = (1500, 1, 64, 448)  # against 1500 keys: the encoder's square, then cross-attention's queries
+WHISPER_K4_GRAD = (("encoder", 4, 1500), ("cross", 4, 448))  # (b, sq) against 1500 keys, 16 heads of 64
+WHISPER_RUNNER_FAILS = {4: 1, 7: 1}
 # the fabric phase: the reference's fabric_tail (benchmarks/run.py:349-379: VGG11
 # profiled at 2 images, 128 samples; 2x the minimum PEs; 400 Poisson requests at
 # 5 loads, arrival seed 5, service seed 3; latency-aware provisioning calibrated
@@ -1137,16 +1170,47 @@ def serve_full(arch, batch, prompt_len, gen, label, gpu, reps=3, n_layers=None):
     return out
 
 
+def k4_numbers(q, k, v, kw, label, per, count, host_ahead=False):
+    """K4 per launch on the inputs (q, k, v) and keywords ``kw`` of one of
+    the path's calls: the op, its plain version and
+    ``scaled_dot_product_attention`` timed, held against the plain version,
+    beside its bound; printed with ``label`` and ``per`` (the launches it
+    stands for, ``count``).  With ``host_ahead`` the times are the device's
+    alone (see ``timed``), for calls shorter than the host's cost of one."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_op_ref
+
+    b, sq, h, hd = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # (b, h, s, hd) views
+    ms = timed(lambda: ops.flash_attention_op(q, k, v, **kw), reps=20, host_ahead=host_ahead)
+    plain_ms = timed(lambda: flash_attention_op_ref(q, k, v, **kw), reps=5)
+    lib_ms = timed(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=kw["causal"], enable_gqa=nkv != h),
+                   reps=20, host_ahead=host_ahead)
+    err, rel = rel_err(ops.flash_attention_op(q, k, v, **kw), flash_attention_op_ref(q, k, v, **kw))
+    check(rel <= K4_TOL[str(q.dtype).split(".")[1]], f"{label}: K4 vs plain on the path's inputs {rel}")
+    bound, by, n_ops, nbytes = k4_bound(b, sq, sk, h, hd, kw["causal"], q.element_size(), nkv)
+    print(f"{label} K4 per launch at q {tuple(q.shape)}, {sk} keys on {nkv} kv heads, {q.dtype}, {kw}: "
+          f"{ms:.4f} ms ({per}: {ms * count:.3f} ms), plain {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention{' (enable_gqa)' if nkv != h else ''} {lib_ms:.4f} ms (kernel / SDPA "
+          f"{ms / lib_ms:.3f}x), bound {bound:.4f} ms ({by}: {n_ops:.4e} ops at {BF16_OPS_PER_S / 1e12:.0f} "
+          f"TFLOP/s bf16, {nbytes} B at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), {n_ops / (ms * 1e-3) / 1e12:.2f} "
+          f"TFLOP/s achieved{' (device time alone)' if host_ahead else ''}; max |kernel - plain| {err:.3e} "
+          f"(relative to 1 + |plain|: {rel:.3e})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by, err=err)
+
+
 def kernel_numbers(path, gpu, label):
     """K3, K4 and K5 per launch on the path's own first inputs, for those the
     path ran: kernel, plain version, the library call (K3: ``torch.matmul``,
     K4: ``scaled_dot_product_attention``) and bounds.  ``path``: what
     ``serve_full`` returned."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_attention as k4, flash_attention_op_ref
+    from repro_torch.kernels.flash_attention import flash_attention as k4
     from repro_torch.kernels.ssd_scan import ssd_chunk as k5, ssd_chunk_ref
     from repro_torch.kernels.zskip_matmul import _launch as k3_launch, block_mask, zskip_matmul as k3, zskip_matmul_op_ref
 
@@ -1181,24 +1245,7 @@ def kernel_numbers(path, gpu, label):
               f"max |kernel - plain| {err:.3e} (relative to 1 + |plain|: {rel:.3e})")
     if "k4" in seen:
         (q, k, v), kw = seen["k4"]
-        b, s, h, hd = q.shape
-        nkv = k.shape[2]
-        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # (b, h, s, hd) views
-        ms = timed(lambda: ops.flash_attention_op(q, k, v, **kw), reps=20)
-        plain_ms = timed(lambda: flash_attention_op_ref(q, k, v, **kw), reps=5)
-        lib_ms = timed(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=kw["causal"],
-                                                              enable_gqa=nkv != h), reps=20)
-        err, rel = rel_err(ops.flash_attention_op(q, k, v, **kw), flash_attention_op_ref(q, k, v, **kw))
-        check(rel <= K4_TOL[str(q.dtype).split(".")[1]], f"{label}: K4 vs plain on the path's inputs {rel}")
-        bound, by, n_ops, nbytes = k4_bound(b, s, s, h, hd, kw["causal"], q.element_size(), nkv)
-        res["k4"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by, err=err)
-        print(f"{gpu}: {label} K4 per launch at q {tuple(q.shape)}, kv heads {nkv}, {q.dtype}, {kw}: "
-              f"{ms:.4f} ms ({launches['k4']} per prefill: {ms * launches['k4']:.3f} ms), plain {plain_ms:.4f} ms, "
-              f"scaled_dot_product_attention{' (enable_gqa)' if nkv != h else ''} {lib_ms:.4f} ms (kernel / SDPA "
-              f"{ms / lib_ms:.3f}x), bound "
-              f"{bound:.4f} ms ({by}: {n_ops:.4e} ops at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16, {nbytes} B), "
-              f"{n_ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved; max |kernel - plain| {err:.3e} "
-              f"(relative to 1 + |plain|: {rel:.3e})")
+        res["k4"] = k4_numbers(q, k, v, kw, f"{gpu}: {label}", f"{launches['k4']} per prefill", launches["k4"])
     if "k5" in seen:
         (cum, xdt, B, C), kw = seen["k5"]
         nc, Q, H, P = xdt.shape
@@ -1416,6 +1463,8 @@ def k4_card_checks():
                 err = float((k4(q, k, v, causal=causal).float() - flash_attention_ref(q, k, v, causal).float()).abs().max())
                 check(err <= tol, f"K4 {dt} s {s} causal {causal}, unaligned rows: max |err| {err}")
                 worst[dt] = max(worst[dt], err)
+    for dt, err in encdec_k4_checks().items():
+        worst[dt] = max(worst[dt], err)
     torch.cuda.synchronize()
     k4.launches = saved
     print("K4 vs plain, float32 and bfloat16 x hd (16, 64, 128) x s (1, 77, 200, 1000, 1024) x causal and not, "
@@ -2625,6 +2674,19 @@ def train_launches(cfg):
     return {n: round(c * per_layer) for n, c in fwd.items()}
 
 
+def encdec_launches(cfg):
+    """{stage: K4 launches} of the enc-dec model: a serving prefill (encode,
+    then a prompt into an empty cache) and ``make_encdec_prefill_step`` once
+    per encoder layer and twice per decoder layer (self and cross); a decode
+    step once per decoder layer (cross only: the self-attention over the
+    cache is plain torch); a train step the prefill's, and under remat once
+    more, since each layer is checkpointed alone and its recomputation runs
+    through its attention to the MLP's saved down-projection."""
+    fwd = cfg.n_encoder_layers + 2 * cfg.n_layers
+    return {"prefill": fwd, "decode_step": cfg.n_layers, "prefill_step": fwd,
+            "train_step": fwd if cfg.remat == "none" else 2 * fwd}
+
+
 def _kernel_counts():
     from repro_torch.kernels.flash_attention import flash_attention as k4
     from repro_torch.kernels.ssd_scan import ssd_chunk as k5
@@ -2736,6 +2798,24 @@ def _leaf_rel(got: dict, want: dict) -> dict:
             for n in want}
 
 
+def updated_params_check(got: dict, want: dict, label: str):
+    """Parameters after one AdamW step (TRAIN_SMOKE_OPT's lr, decay 0.1) on
+    the card against the host: every entry within 2 lr (1 + wd max |p|), at
+    most TRAIN_PARAM_SHARE of all entries more than TRAIN_PARAM_TOL of their
+    leaf's max |p| apart.  Returns (entries off, entries, max |diff|)."""
+    lr, wd = TRAIN_SMOKE_OPT["lr"], 0.1
+    off, total, pmax = 0, 0, 0.0
+    for n in want:
+        d = (got[n] - want[n]).abs()
+        scale = float(want[n].abs().max())
+        off += int((d > TRAIN_PARAM_TOL * scale).sum())
+        total += d.numel()
+        pmax = max(pmax, float(d.max()))
+        check(float(d.max()) <= 2 * lr * (1 + wd * scale), f"{label}: {n} moved {float(d.max())} apart")
+    check(off / total <= TRAIN_PARAM_SHARE, f"{label}: {off} of {total} updated entries off")
+    return off, total, pmax
+
+
 def train_smoke_card_vs_host(arch, gpu):
     """Phase 20 (b): the SMOKE config in float32 from one set of parameters,
     the loss and every gradient, then one ``make_train_step``, on the host
@@ -2786,17 +2866,7 @@ def train_smoke_card_vs_host(arch, gpu):
     gerr = _leaf_rel(gc, gh)
     worst = max(gerr, key=gerr.get)
     check(gerr[worst] <= TRAIN_CARD_HOST_TOL, f"train smoke {arch}: gradient of {worst} off by {gerr[worst]}")
-    lr, wd = TRAIN_SMOKE_OPT["lr"], 0.1
-    off, total, pmax = 0, 0, 0.0
-    for n in ph:
-        d = (pc[n] - ph[n]).abs()
-        scale = float(ph[n].abs().max())
-        off += int((d > TRAIN_PARAM_TOL * scale).sum())
-        total += d.numel()
-        pmax = max(pmax, float(d.max()))
-        check(float(d.max()) <= 2 * lr * (1 + wd * scale), f"train smoke {arch}: {n} moved {float(d.max())} apart")
-    share = off / total
-    check(share <= TRAIN_PARAM_SHARE, f"train smoke {arch}: {off} of {total} updated entries off")
+    off, total, pmax = updated_params_check(pc, ph, f"train smoke {arch}")
     print(f"{gpu}: {arch} SMOKE float32 train step, card (K3/K4/K5 launches {tuple(used.values())}) vs host (plain "
           f"versions): loss {lc:.6f} vs {lh:.6f} ({loss_rel:.3e} relative, limit {TRAIN_LOSS_TOL}); all "
           f"{len(gc)} parameters have a gradient, worst leaf {worst} {gerr[worst]:.3e} of max |host grad| (limit "
@@ -3084,6 +3154,600 @@ def train_phase(gpu):
     print(f"{gpu}: phase 20 (training) took {time.perf_counter() - t0:.1f} s")
     torch.cuda.synchronize()
     return {"grads": grads, "smoke": smoke, "e2e": e2e, "full": full, "runner": runner}
+
+
+# ---------------------------------------------------------------- phase 21
+
+
+def encdec_k4_checks():
+    """K4 against its plain version at Whisper-medium's shapes (part of
+    ``k4_card_checks``), 16 heads of 64 against 1500 keys, non-causal: the
+    encoder's (4, 1500) square (1500 keys are 23.4 tiles of 64: every row
+    block masks a ragged last tile) and cross-attention's 1, 64 and 448
+    queries, float32 and bf16, with and without ``round_scores``.  Returns
+    the max |err| per dtype."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention as k4, flash_attention_op_ref
+
+    dev = torch.device("cuda")
+    cfg = get_config("whisper-medium")
+    nh, nkv, hd = cfg.attn_dims()
+    sk = cfg.encoder_seq
+    saved = k4.launches
+    rng = np.random.default_rng(21)
+    worst = {}
+    for dt in ("float32", "bfloat16"):
+        tol, tdt = K4_TOL[dt], getattr(torch, dt)
+        k, v = (torch.from_numpy(rng.standard_normal((4, sk, nkv, hd), dtype=np.float32)).to(dev, tdt)
+                for _ in range(2))
+        for sq in WHISPER_K4_SQ:
+            q = torch.from_numpy(rng.standard_normal((4, sq, nh, hd), dtype=np.float32)).to(dev, tdt)
+            for rounded in (False, True):
+                before = k4.launches
+                got = ops.flash_attention_op(q, k, v, causal=False, round_scores=rounded)
+                torch.cuda.synchronize()
+                check(k4.launches == before + 1, f"K4 whisper sq {sq}: no launch")
+                err, rel = rel_err(got, flash_attention_op_ref(q, k, v, False, round_scores=rounded))
+                # as k4_card_checks holds them: max |err| without the rounding,
+                # relative to 1 + |plain| with it
+                check((rel if rounded else err) <= tol,
+                      f"K4 {dt} whisper (4, {sq}, {nh}, {hd}) against {sk} keys, non-causal, round_scores "
+                      f"{rounded}: max |err| {err}, relative to 1 + |plain| {rel} (limit {tol})")
+                worst[dt] = max(worst.get(dt, 0.0), err)
+    torch.cuda.synchronize()
+    k4.launches = saved
+    print(f"K4 vs plain at Whisper-medium's shapes, (4, sq, {nh} heads, hd {hd}) against {sk} keys, non-causal, "
+          f"sq in {WHISPER_K4_SQ}, with and without round_scores: max |err| "
+          + ", ".join(f"{d} {e:.3e} (limit {K4_TOL[d]})" for d, e in worst.items()))
+    return worst
+
+
+def encdec_k4_grad_checks(gpu):
+    """Phase 21 (b): K4 under autograd (bf16, non-causal, round_scores)
+    against autograd of its plain version at the encoder's and
+    cross-attention's training shapes.  Returns the worst gradient error,
+    and the encoder shape's forward + backward ms through the Function and
+    through the plain version."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_op, flash_attention_op_ref
+
+    dev = torch.device("cuda")
+    cfg = get_config("whisper-medium")
+    nh, nkv, hd = cfg.attn_dims()
+    g = torch.Generator(device=dev).manual_seed(21)
+    kw = dict(causal=False, round_scores=True)
+    out = dict(grad_err=0.0)
+    for label, b, sq in WHISPER_K4_GRAD:
+        q = torch.randn((b, sq, nh, hd), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((b, cfg.encoder_seq, nkv, hd), generator=g, device=dev).bfloat16() for _ in range(2))
+        fwd, grad, ms, plain_ms = function_vs_plain(lambda *t: flash_attention_op(*t, **kw),
+                                                    lambda *t: flash_attention_op_ref(*t, **kw), (q, k, v))
+        check(fwd <= K4_TOL["bfloat16"] and max(grad) <= K4_GRAD_TOL,
+              f"K4 under autograd at whisper's {label} shape: forward {fwd}, grads {grad} (limit {K4_GRAD_TOL})")
+        out["grad_err"] = max(out["grad_err"], *grad)
+        out.setdefault("ms", ms)
+        out.setdefault("plain_ms", plain_ms)
+        print(f"{gpu}: K4 under autograd at Whisper-medium's {label} shape (b {b}, sq {sq} against "
+              f"{cfg.encoder_seq} keys, {nh} heads, hd {hd}) bf16, non-causal, round_scores: forward max |err| "
+              f"{fwd:.3e} of max |plain|, gradients of q, k, v " + ", ".join(f"{e:.3e}" for e in grad)
+              + f" of max |plain grad| (limit {K4_GRAD_TOL}); forward + backward {ms:.3f} ms through the "
+              f"Function, {plain_ms:.3f} ms through the plain version")
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_path_inputs(params, cfg, frames, prompts, cache):
+    """The first K4 call of each kind on the serving path, with its inputs
+    (clones): the encoder's (``enc``), cross-attention's over the prompt
+    (``cross_prompt``) and at a decode step (``cross_decode``), recorded
+    over encode, the prompt and one decode step; the launches they make are
+    not counted."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention as k4
+    from repro_torch.models import encdec
+    from repro_torch.train.step import make_encdec_decode_step
+
+    seen = {}
+    stage = ["enc"]
+
+    def rec4(q, k, v, **kw):
+        kind = stage[0] if stage[0] != "prompt" else "self" if kw["causal"] else "cross_prompt"
+        seen.setdefault(kind, ([q.clone(), k.clone(), v.clone()], kw))
+        return ops.flash_attention_op(q, k, v, **kw)
+
+    saved = k4.launches
+    with swapped_ops(ops.zskip_matmul_op, rec4, ops.ssd_chunk_op):
+        enc = encdec.encode(params, cfg, frames)
+        stage[0] = "prompt"
+        logits, cache = encdec.decode(params, cfg, prompts, enc, cache)
+        stage[0] = "cross_decode"
+        make_encdec_decode_step(cfg)(params, cache, enc, torch.argmax(logits[:, -1], -1)[:, None])
+    torch.cuda.synchronize()
+    k4.launches = saved
+    check({"enc", "cross_prompt", "cross_decode", "self"} <= set(seen), f"whisper path inputs: {sorted(seen)}")
+    return seen
+
+
+def encdec_serve(gpu):
+    """Phase 21 (c): Whisper-medium served at full width and depth on the
+    card: random parameters and N(0, 1) frames from one seeded generator,
+    ``encode``, the prompt into an empty cache (``decode``), then
+    ``gen - 1`` ``make_encdec_decode_step`` calls, with K4's count set to 0
+    just before and read after the prefill and the decode; the prefill step
+    apart; what came out; timings, busy shares, peak memory and K4 per
+    launch on the path's own inputs."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as k4
+    from repro_torch.models import encdec
+    from repro_torch.train.step import make_encdec_decode_step, make_encdec_prefill_step
+
+    dev = torch.device("cuda")
+    cfg = get_config("whisper-medium")
+    b, plen, gen = WHISPER["batch"], WHISPER["prompt_len"], WHISPER["gen"]
+    label = "whisper-medium"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = encdec.init_encdec_params(cfg, generator=g, device=dev)
+    frames = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=g, device=dev)
+    prompts = torch.randint(0, cfg.vocab, (b, plen), generator=g, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    out = {"setup_s": time.perf_counter() - t0, "params": n_params}
+    print(f"{label}: {cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers, {n_params} parameters (float32, "
+          f"seeded torch.Generator) on the card in {out['setup_s']:.3f} s; {b} x {cfg.encoder_seq} frames, "
+          f"prompts of {plen} tokens, {gen} generated")
+    want = encdec_launches(cfg)
+    step = make_encdec_decode_step(cfg)
+    prefill_step = make_encdec_prefill_step(cfg)
+
+    def new_cache():
+        return encdec.init_decoder_cache(cfg, b, plen + gen, device=dev)
+
+    def prefill(cache):
+        enc = encdec.encode(params, cfg, frames)
+        logits, cache = encdec.decode(params, cfg, prompts, enc, cache)
+        return enc, logits, cache
+
+    def decode(enc, cache, tok, steps, counted=False):
+        toks = []
+        for i in range(steps):
+            before = k4.launches
+            tok, cache = step(params, cache, enc, tok[:, None])
+            check(not counted or k4.launches - before == want["decode_step"],
+                  f"{label}: decode step {i} launched K4 {k4.launches - before} times, want {want['decode_step']}")
+            toks.append(tok)
+        return torch.stack(toks, dim=1), cache
+
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        k4.launches = 0
+        enc, logits, cache = prefill(new_cache())
+        torch.cuda.synchronize()
+        in_prefill = k4.launches
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        rest, cache = decode(enc, cache, tok, gen - 1, counted=True)
+        torch.cuda.synchronize()
+        on_path = k4.launches
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        path_want = (want["prefill"], want["prefill"] + (gen - 1) * want["decode_step"])
+        check((in_prefill, on_path) == path_want,
+              f"{label}: K4 launched {in_prefill} times in the prefill, {on_path} on the path, want {path_want}")
+        k4.launches = 0
+        last = prefill_step(params, frames, prompts)
+        torch.cuda.synchronize()
+        check(k4.launches == want["prefill_step"],
+              f"{label}: make_encdec_prefill_step launched K4 {k4.launches} times, want {want['prefill_step']}")
+        out.update(k4_prefill=in_prefill, k4_launches=on_path, k4_decode_step=want["decode_step"],
+                   k4_prefill_step=k4.launches)
+        print(f"{label}: main path ran (encode, the prompt into the cache, {gen - 1} decode steps), K4 launches in the "
+              f"prefill / on the path: {in_prefill} / {on_path} ({cfg.n_encoder_layers} encoder, {cfg.n_layers} "
+              f"decoder self, {cfg.n_layers} cross, then {want['decode_step']} cross at each decode step, checked "
+              f"at each); "
+              f"make_encdec_prefill_step {k4.launches}")
+
+        # what came out
+        toks = torch.cat([tok[:, None], rest], dim=1)
+        check(tuple(enc.shape) == (b, cfg.encoder_seq, cfg.d_model) and enc.dtype == torch.bfloat16
+              and bool(torch.isfinite(enc).all()), f"{label}: encoder output {tuple(enc.shape)} {enc.dtype}")
+        check(tuple(logits.shape) == (b, plen, cfg.vocab) and logits.dtype == torch.bfloat16
+              and bool(torch.isfinite(logits).all()), f"{label}: logits {tuple(logits.shape)} {logits.dtype}")
+        check(tuple(toks.shape) == (b, gen) and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+              f"{label}: tokens {tuple(toks.shape)}")
+        check(cache["layers"]["len"] == plen + gen - 1 and bool(torch.isfinite(cache["layers"]["k"]).all())
+              and bool(torch.isfinite(cache["layers"]["v"]).all()), f"{label}: cache len {cache['layers']['len']}")
+        # the prefill step (no cache) computes the same last logits
+        same = float((last.float() - logits[:, -1].float()).abs().max() / logits[:, -1].float().abs().max())
+        check(same <= E2E_TOL, f"{label}: make_encdec_prefill_step's logits {same} of max |logit| from the prefill's")
+        out["sample"] = toks[0, :8].tolist()
+        del logits, last
+        print(f"{label}: encoder output and logits finite, shapes {(b, cfg.encoder_seq, cfg.d_model)} and "
+              f"{(b, plen, cfg.vocab)}; make_encdec_prefill_step's last logits {same:.3e} of max |logit| from the "
+              f"cached prefill's; tokens of prompt 0: {out['sample']}; peak device memory on the path "
+              f"{out['peak_gb']:.2f} GB (torch.cuda.max_memory_allocated)")
+
+        # timings (CUDA events, warm)
+        out["encode_ms"] = timed(lambda: encdec.encode(params, cfg, frames), reps=3)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        pre = []
+        for _ in range(3):
+            c = new_cache()
+            torch.cuda.synchronize()
+            ev[0].record()
+            prefill(c)
+            ev[1].record()
+            ev[1].synchronize()
+            pre.append(ev[0].elapsed_time(ev[1]))
+        out["prefill_ms"] = pre
+        out["prefill_step_ms"] = timed(lambda: prefill_step(params, frames, prompts), reps=3)
+        dec = []
+        for _ in range(2):
+            enc2, lg2, c2 = prefill(new_cache())
+            tok2 = torch.argmax(lg2[:, -1], dim=-1)
+            torch.cuda.synchronize()
+            ev[0].record()
+            decode(enc2, c2, tok2, gen - 1)
+            ev[1].record()
+            ev[1].synchronize()
+            dec.append(ev[0].elapsed_time(ev[1]))
+        del c, c2, lg2
+        out["decode_ms"] = dec
+        out["decode_tok_per_s"] = [b * (gen - 1) / (ms * 1e-3) for ms in dec]
+        share, win_ms, by_name = device_busy(lambda: prefill(new_cache()))
+        out["busy"], out["busy_window_ms"] = share, win_ms
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        print(f"{gpu}: {label} encode {out['encode_ms']:.3f} ms; prefill (encode + the prompt into the cache) ms "
+              f"(CUDA events, warm): " + ", ".join(f"{x:.3f}" for x in pre)
+              + f"; make_encdec_prefill_step {out['prefill_step_ms']:.3f} ms; decode {gen - 1} steps: "
+              + ", ".join(f"{x:.3f} ms = {t:.1f} tok/s" for x, t in zip(dec, out["decode_tok_per_s"])))
+        print(f"{gpu}: {label} prefill under torch.profiler: window {win_ms:.3f} ms, device busy {share:.4f} "
+              f"(idle {1 - share:.4f}); top device time: " + "; ".join(f"{n[:60]} {t:.3f} ms" for n, t in top))
+        enc3, lg3, c3 = prefill(new_cache())
+        tok3 = torch.argmax(lg3[:, -1], dim=-1)
+        dshare, dwin_ms, dby_name = device_busy(lambda: decode(enc3, c3, tok3, 1))
+        del c3, lg3
+        out["decode_busy"], out["decode_window_ms"] = dshare, dwin_ms
+        dtop = sorted(dby_name.items(), key=lambda kv: -kv[1])[:5]
+        print(f"{gpu}: {label} one decode step under torch.profiler: window {dwin_ms:.3f} ms, device busy "
+              f"{dshare:.4f} (idle {1 - dshare:.4f}); top device time: "
+              + "; ".join(f"{n[:60]} {t:.3f} ms" for n, t in dtop))
+        seen = encdec_path_inputs(params, cfg, frames, prompts, new_cache())
+        del enc, enc2, enc3, cache
+    out["k4"] = {}
+    for key, what, count in (("enc", "encoder", cfg.n_encoder_layers),
+                             ("cross_prompt", "cross-attention over the prompt", cfg.n_layers),
+                             ("cross_decode", "cross-attention at a decode step", cfg.n_layers)):
+        (q, k, v), kw = seen[key]
+        out["k4"][key] = k4_numbers(q, k, v, kw, f"{gpu}: {label} {what}:", f"{count} per "
+                                    + ("decode step" if key == "cross_decode" else "prefill"), count,
+                                    host_ahead=True)
+    del params, seen
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_e2e_vs_plain(gpu):
+    """Phase 21 (d): Whisper-medium at full width and depth in float32,
+    WHISPER_E2E: encode, the prompt into the cache and greedy decode steps
+    with K4 (launched as ``encdec_launches`` says), then with the plain
+    version swapped in (no launch): prefill logits within E2E_TOL of max
+    |logit|, tokens equal."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as k4
+    from repro_torch.models import encdec
+    from repro_torch.train.step import make_encdec_decode_step
+
+    dev = torch.device("cuda")
+    saved = k4.launches
+    cfg = get_config("whisper-medium").with_(dtype="float32")
+    b, plen, gen = WHISPER_E2E["batch"], WHISPER_E2E["prompt_len"], WHISPER_E2E["gen"]
+    g = torch.Generator(device=dev).manual_seed(2)
+    params = encdec.init_encdec_params(cfg, generator=g, device=dev)
+    frames = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=g, device=dev)
+    prompts = torch.randint(0, cfg.vocab, (b, plen), generator=g, device=dev)
+    want = encdec_launches(cfg)
+    step = make_encdec_decode_step(cfg)
+    runs = {}
+    with torch.inference_mode():
+        for name, swap in (("kernels", contextlib.nullcontext()), ("plain", swapped_ops.plain())):
+            before = k4.launches
+            with swap:
+                enc = encdec.encode(params, cfg, frames)
+                logits, cache = encdec.decode(params, cfg, prompts, enc, encdec.init_decoder_cache(cfg, b, plen + gen,
+                                                                                                 device=dev))
+                tok = torch.argmax(logits[:, -1], dim=-1)
+                toks = [tok]
+                for _ in range(gen - 1):
+                    tok, cache = step(params, cache, enc, tok[:, None])
+                    toks.append(tok)
+            torch.cuda.synchronize()
+            used = k4.launches - before
+            expect = want["prefill"] + (gen - 1) * want["decode_step"] if name == "kernels" else 0
+            check(used == expect, f"end to end whisper-medium, {name}: K4 launched {used}, want {expect}")
+            runs[name] = (logits.float(), torch.stack(toks, dim=1))
+            del logits, cache, enc
+    (lk, tk), (lp, tp) = runs["kernels"], runs["plain"]
+    rel = float((lk - lp).abs().max() / lp.abs().max())
+    check(bool(torch.isfinite(lk).all()), "end to end whisper-medium: non-finite logits")
+    check(rel <= E2E_TOL, f"end to end whisper-medium: kernels vs plain logits off by {rel} (limit {E2E_TOL})")
+    check(torch.equal(tk, tp), f"end to end whisper-medium: tokens differ {tk.tolist()} vs {tp.tolist()}")
+    print(f"{gpu}: whisper-medium float32 ({cfg.n_encoder_layers} + {cfg.n_layers} layers), {b} x "
+          f"{cfg.encoder_seq} frames, prompts of {plen} + {gen} tokens: kernels (K4 launches "
+          f"{want['prefill'] + (gen - 1) * want['decode_step']}) vs plain versions end to end, logits max |diff| "
+          f"{rel:.3e} of max |logit| (limit {E2E_TOL}), tokens equal {tk[0].tolist()}")
+    del params, runs, lk, lp
+    torch.cuda.empty_cache()
+    k4.launches = saved
+    return rel
+
+
+def encdec_smoke_card_vs_host(gpu):
+    """Phase 21 (e): the Whisper SMOKE config in float32 from one set of
+    parameters on the host (plain versions) and on the card (K4): encode, a
+    prompt into the cache and greedy decode steps (logits within 1e-4 of
+    max |logit|, tokens equal); then the loss and every gradient and one
+    ``make_encdec_train_step`` on random frames, tokens and targets, within
+    phase 20's card-vs-host tolerances.  (Not on the example's synth_batch:
+    its tokens are one constant a sequence, so every decoder position holds
+    the same values, the self-attention's output does not depend on its
+    scores, and its wq and wk get a gradient of zero up to rounding, about
+    1e-8 of the others', which no two devices round alike.)"""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as k4
+    from repro_torch.models import encdec
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train.step import make_encdec_decode_step, make_encdec_train_step
+
+    saved = k4.launches
+    small = get_config("whisper-medium", smoke=True).with_(dtype="float32")
+    b, plen, gen = WHISPER_SMOKE["batch"], WHISPER_SMOKE["prompt_len"], WHISPER_SMOKE["gen"]
+    host = encdec.init_encdec_params(small, generator=torch.Generator().manual_seed(0), device="cpu")
+    card = encdec.EncDec(small, None, torch.device("cuda"))
+    card.load_state_dict(host.state_dict())
+    g = torch.Generator().manual_seed(1)
+    frames = torch.randn((b, small.encoder_seq, small.d_model), generator=g)
+    toks = torch.randint(0, small.vocab, (b, plen), generator=g)
+    seq = torch.randint(0, small.vocab, (b, TRAIN_SMOKE["seq"] + 1), generator=g)
+    want = encdec_launches(small)
+    step = make_encdec_decode_step(small)
+    serve, train = [], []
+    for model, d in ((host, "cpu"), (card, "cuda")):
+        before = k4.launches
+        with torch.inference_mode():
+            enc = encdec.encode(model, small, frames.to(d))
+            logits, cache = encdec.decode(model, small, toks.to(d), enc, encdec.init_decoder_cache(small, b, plen + gen,
+                                                                                                 device=d))
+            tok = torch.argmax(logits[:, -1], dim=-1)
+            out = [tok]
+            for _ in range(gen - 1):
+                tok, cache = step(model, cache, enc, tok[:, None])
+                out.append(tok)
+        torch.cuda.synchronize()
+        serve.append((logits.float().cpu(), torch.stack(out, 1).cpu(), k4.launches - before))
+        batch = {"frames": frames.to(d), "tokens": seq[:, :-1].to(d), "targets": seq[:, 1:].to(d)}
+        for p in model.parameters():
+            p.requires_grad_(True)
+        loss = encdec.encdec_loss_fn(model, small, batch["frames"], batch["tokens"], batch["targets"])
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        missing = [n for n, gr in grads.items() if gr is None]
+        check(not missing, f"whisper smoke on {d}: no gradient for {missing}")
+        grads = {n: gr.detach().cpu() for n, gr in grads.items()}
+        for p in model.parameters():
+            p.grad = None
+            p.requires_grad_(False)
+        before = k4.launches
+        model, state, m = make_encdec_train_step(small, AdamWConfig(**TRAIN_SMOKE_OPT))(model, adamw_init(model), batch)
+        train.append((float(loss.detach()), grads, float(m["loss"]),
+                      {n: p.detach().cpu() for n, p in model.named_parameters()}, k4.launches - before))
+    torch.cuda.synchronize()
+    (lh, th, _), (lc, tc, used) = serve
+    serve_want = want["prefill"] + (gen - 1) * want["decode_step"]
+    check(used == serve_want, f"whisper smoke: K4 launched {used} on the card's serving path, want {serve_want}")
+    rel_s = float((lh - lc).abs().max() / lh.abs().max())
+    check(rel_s <= 1e-4 and torch.equal(th, tc), f"whisper smoke: card vs host logits {rel_s}, tokens "
+                                                 f"{th.tolist()} vs {tc.tolist()}")
+    (llh, gh, mh, ph, _), (llc, gc, mc, pc, tused) = train
+    check(tused == want["train_step"], f"whisper smoke: K4 launched {tused} in the card's step, want "
+                                       f"{want['train_step']}")
+    loss_rel = max(abs(llc - llh) / abs(llh), abs(mc - mh) / abs(mh))
+    check(loss_rel <= TRAIN_LOSS_TOL, f"whisper smoke: card loss {llc} vs host {llh}")
+    gerr = _leaf_rel(gc, gh)
+    worst = max(gerr, key=gerr.get)
+    check(gerr[worst] <= TRAIN_CARD_HOST_TOL, f"whisper smoke: gradient of {worst} off by {gerr[worst]}")
+    off, total, pmax = updated_params_check(pc, ph, "whisper smoke")
+    print(f"{gpu}: whisper-medium SMOKE float32, card (K4) vs host (plain versions): serving (K4 launches {used}) "
+          f"logits max |diff| {rel_s:.3e} of max |logit| (limit 1e-4), tokens equal {tc[0].tolist()}; train step (K4 "
+          f"launches {tused}) loss {llc:.6f} vs {llh:.6f} ({loss_rel:.3e} relative, limit {TRAIN_LOSS_TOL}), all "
+          f"{len(gc)} parameters have a gradient, worst leaf {worst} {gerr[worst]:.3e} of max |host grad| (limit "
+          f"{TRAIN_CARD_HOST_TOL}); updated parameters: {off} of {total} entries more than {TRAIN_PARAM_TOL} of their "
+          f"leaf's max |p| apart, max |diff| {pmax:.3e}")
+    k4.launches = saved
+    return {"serve_rel": rel_s, "grad_rel": gerr[worst]}
+
+
+def encdec_train_full(gpu):
+    """Phase 21 (f): Whisper-medium trained at full width and depth, bf16
+    compute on float32 masters, remat as published: examples/whisper_train.py's
+    synth_batch at WHISPER_TRAIN, AdamW as that example sets it with the run's
+    step count as its total, ``make_encdec_train_step``, K4's count set to 0
+    just before each step and read just after."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.examples.whisper_train import synth_batch
+    from repro_torch.kernels.flash_attention import flash_attention as k4
+    from repro_torch.models import encdec
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train.step import make_encdec_train_step
+
+    dev = torch.device("cuda")
+    cfg = get_config("whisper-medium")
+    bsz, seq, steps = WHISPER_TRAIN["batch"], WHISPER_TRAIN["seq"], WHISPER_TRAIN["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    params = encdec.init_encdec_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    state = adamw_init(params)
+    opt = AdamWConfig(lr=WHISPER_TRAIN["lr"], warmup_steps=WHISPER_TRAIN["warmup"], total_steps=steps)
+    step = make_encdec_train_step(cfg, opt)
+    n_params = sum(p.numel() for p in params.parameters())
+    n_enc = sum(p.numel() for p in params.enc_layers.parameters()) + params.enc_norm.scale.numel()
+    torch.cuda.synchronize()
+    setup_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = encdec_launches(cfg)["train_step"]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    losses, ms = [], []
+    for s in range(steps):
+        batch = synth_batch(cfg, s, batch=bsz, seq=seq, device=dev)
+        torch.cuda.synchronize()
+        k4.launches = 0
+        ev[0].record()
+        params, state, m = step(params, state, batch)
+        ev[1].record()
+        ev[1].synchronize()
+        check(k4.launches == want, f"train whisper-medium step {s}: K4 launched {k4.launches}, want {want}")
+        losses.append(float(m["loss"]))
+        ms.append(ev[0].elapsed_time(ev[1]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(x) for x in losses), f"train whisper-medium: losses {losses}")
+    check(losses[-1] < losses[0], f"train whisper-medium: loss did not fall, {losses}")
+    check(all(bool(torch.isfinite(p).all()) for p in params.parameters()), "train whisper-medium: non-finite parameters")
+    check(peak_gb <= WHISPER_TRAIN_PEAK_GB, f"train whisper-medium: peak {peak_gb:.2f} GB over {WHISPER_TRAIN_PEAK_GB}")
+    tokens, frames = bsz * seq, bsz * cfg.encoder_seq
+    best = min(ms[1:])
+    flops = 6 * (n_enc * frames + (n_params - n_enc) * tokens)
+    out = dict(n_params=n_params, n_enc=n_enc, losses=losses, ms=ms, peak_gb=peak_gb, setup_gb=setup_gb,
+               launches=want, tok_per_s=tokens / (best * 1e-3), frames_per_s=frames / (best * 1e-3),
+               mfu=flops / (best * 1e-3) / BF16_OPS_PER_S, flops=flops)
+    print(f"{gpu}: whisper-medium trained at full width and depth: {cfg.n_encoder_layers} + {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab}, {n_params} parameters ({n_enc} in the encoder; float32 masters, "
+          f"{cfg.dtype} compute, remat {cfg.remat}); {steps} make_encdec_train_step steps of synth_batch {bsz} x "
+          f"{cfg.encoder_seq} frames -> {seq} tokens, AdamW lr {opt.lr} warmup {opt.warmup_steps} total {steps}; K4 "
+          f"launches a step {want} (checked at every step); losses " + ", ".join(f"{x:.4f}" for x in losses))
+    print(f"{gpu}: whisper-medium train step ms (CUDA events, one step each): " + ", ".join(f"{x:.2f}" for x in ms)
+          + f"; warm best {best:.2f} ms, mean {sum(ms[1:]) / len(ms[1:]):.2f} ms = {out['tok_per_s']:.0f} decoder "
+          f"tokens/s ({out['frames_per_s']:.0f} frames/s) at best; model FLOPs 6 x ({n_enc} encoder parameters x "
+          f"{frames} frames + {n_params - n_enc} decoder and head parameters x {tokens} tokens) = {flops:.4e} a step "
+          f"(attention's s^2 terms, the cross K/V's 1500-frame products and remat's recomputation not counted "
+          f"apart), {out['mfu']:.4f} of the {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16 peak; peak device memory "
+          f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated; {setup_gb:.2f} GB after setup; limit "
+          f"{WHISPER_TRAIN_PEAK_GB})")
+    n_dev = {}
+    share, win_ms, by_name = device_busy(lambda: step(params, state, synth_batch(cfg, steps, batch=bsz, seq=seq,
+                                                                                 device=dev)), n_dev)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out.update(busy=share, busy_window_ms=win_ms, device_ops=sum(n_dev.values()))
+    print(f"{gpu}: whisper-medium one train step under torch.profiler (its batch made on the host inside the "
+          f"window): window {win_ms:.3f} ms, device busy {share:.4f} (idle {1 - share:.4f}), {out['device_ops']} "
+          f"device kernels and copies; top device time: " + "; ".join(f"{n[:60]} {t:.3f} ms ({n_dev[n]}x)"
+                                                                     for n, t in top))
+    del params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_runner_checks(gpu):
+    """Phase 21 (g): under ``torch.use_deterministic_algorithms(True)``, the
+    Whisper SMOKE config on the card: one step alone, then ``TrainRunner``
+    clean and with injected failures on examples/whisper_train.py's
+    synth_batch, the replayed run equal to the clean one bit for bit; then
+    that example's ``main`` on the card (10 steps, checkpoints every 5, the
+    loss falling)."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.examples import whisper_train
+    from repro_torch.models import encdec
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import FaultInjector, RunnerConfig, TrainRunner
+    from repro_torch.train.step import make_encdec_train_step
+
+    dev = torch.device("cuda")
+    cfg = get_config("whisper-medium", smoke=True)
+    step = make_encdec_train_step(cfg, AdamWConfig(**TRAIN_SMOKE_OPT))
+
+    def fresh():
+        model = encdec.init_encdec_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        return model, adamw_init(model)
+
+    def batch(s):
+        return whisper_train.synth_batch(cfg, s, device=dev)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            step(*fresh(), batch(0))  # a step alone: any non-deterministic op raises here
+            runs = {}
+            for name, hook in (("clean", None), ("faulty", FaultInjector(fail_at=dict(WHISPER_RUNNER_FAILS)))):
+                runner = TrainRunner(RunnerConfig(ckpt_dir=os.path.join(tmp, name), ckpt_every=3), step, batch,
+                                     fingerprint="whisper-smoke", fault_hook=hook)
+                params, state = runner.run(*fresh(), TRAIN_RUNNER_STEPS)
+                runs[name] = (params, state, {h.step: h.metrics["loss"] for h in runner.history}, runner.restores)
+            (pc, sc, lc, _), (pf, sf, lf, restores) = runs["clean"], runs["faulty"]
+            check(restores == len(WHISPER_RUNNER_FAILS), f"runner whisper: {restores} restores")
+            diff = max(float((a - b).abs().max()) for a, b in zip(pc.parameters(), pf.parameters()))
+            mdiff = max(float((sc[k][n] - sf[k][n]).abs().max()) for k in ("m", "v") for n in sc["m"])
+            check(diff == 0.0 and mdiff == 0.0 and lc == lf and int(sc["step"]) == int(sf["step"]),
+                  f"runner whisper: replayed run differs from the clean one: parameters {diff}, moments {mdiff}, "
+                  f"losses {lc} vs {lf}")
+            print(f"{gpu}: whisper-medium SMOKE ({cfg.dtype}) TrainRunner, {TRAIN_RUNNER_STEPS} steps, checkpoints "
+                  f"every 3, failures injected at steps {sorted(WHISPER_RUNNER_FAILS)}: {restores} restores and "
+                  f"replays; parameters, AdamW moments and every step's loss equal to the clean run bit for bit "
+                  f"(torch.use_deterministic_algorithms); losses " + ", ".join(f"{lc[s]:.4f}" for s in sorted(lc)))
+            ck = os.path.join(tmp, "example")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                check(whisper_train.main(["--steps", "10", "--ckpt", ck, "--device", "cuda"]) == 0,
+                      "whisper_train: non-zero")
+            res = json.loads(buf.getvalue().strip().splitlines()[-1])
+            check(res["last"] < res["first"], f"whisper_train on the card did not learn: {res}")
+            with np.load(os.path.join(ck, "step_00000010", "arrays.npz")) as npz:
+                keys = set(npz.files)
+                wk = npz["params/dec_layers/cross/wk"].shape
+            check({"params/enc_layers/attn/wq", "opt/m/dec_layers/cross/wq", "opt/step"} <= keys
+                  and wk == (cfg.n_layers, cfg.d_model, cfg.d_model), f"whisper_train checkpoint keys, wk {wk}")
+            print(f"{gpu}: python -m repro_torch.examples.whisper_train --steps 10 --device cuda: {res}; checkpoint "
+                  f"in the reference's layout ({len(keys)} arrays, params/dec_layers/cross/wk {wk})")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return {"restores": restores, "example": res}
+
+
+def encdec_phase(gpu):
+    """Phase 21: Whisper-medium (enc-dec) served and trained on the card
+    (K4 at its shapes against the plain version is part of phase 9,
+    ``k4_card_checks``).  Returns the numbers of the summary and the kernels
+    line."""
+    import torch
+
+    t0 = time.perf_counter()
+    grads = encdec_k4_grad_checks(gpu)
+    serve = encdec_serve(gpu)
+    e2e = encdec_e2e_vs_plain(gpu)
+    smoke = encdec_smoke_card_vs_host(gpu)
+    full = encdec_train_full(gpu)
+    runner = encdec_runner_checks(gpu)
+    print(f"{gpu}: phase 21 (enc-dec; K4 at its shapes against the plain version ran in phase 9) took "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    return {"grads": grads, "serve": serve, "e2e": e2e, "smoke": smoke, "full": full, "runner": runner}
 
 
 def main() -> int:
@@ -3519,6 +4183,12 @@ def main() -> int:
     train = train_phase(gpu)
     tg, tfull = train["grads"], train["full"]
 
+    # ---- 21. enc-dec: Whisper-medium at full width and depth, K4 on the
+    # encoder's bidirectional attention and on cross-attention, served and
+    # trained, the example's flow through the fault-tolerant runner
+    ed = encdec_phase(gpu)
+    ek4, eserve = ed["serve"]["k4"], ed["serve"]
+
     nnum = dnum["nemotron-4-15b"]
     print(gpu)
     print(json.dumps({"kernels": [{
@@ -3577,7 +4247,8 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:31",
         "launches": nem["k4_launches"],
-        "max_abs_err": max(k4_err, znum["k4"]["err"], gnum["err"], *(dnum[a]["k4"]["err"] for a in DENSE_ARCHS)),
+        "max_abs_err": max(k4_err, znum["k4"]["err"], gnum["err"], *(dnum[a]["k4"]["err"] for a in DENSE_ARCHS),
+                           *(x["err"] for x in ek4.values())),
         "ms": nnum["k4"]["ms"],
         "plain_ms": nnum["k4"]["plain_ms"],
         "bound_ms": nnum["k4"]["bound_ms"],
@@ -3593,6 +4264,16 @@ def main() -> int:
         "train_fwd_bwd_ms": tg["k4"]["ms"],  # Zamba2's shape
         "train_plain_fwd_bwd_ms": tg["k4"]["plain_ms"],
         "backward": "autograd of a recomputation of the plain version (no backward kernel)",
+        "whisper_prefill_launches": eserve["k4_prefill"],  # encode + the prompt into an empty cache
+        "whisper_decode_launches": eserve["k4_decode_step"],  # per decode step (cross-attention only)
+        "whisper_train_launches": ed["full"]["launches"],  # per train step, remat full
+        # per launch on the serving path's own bf16 inputs (device time alone):
+        # the encoder's (4, 1500) non-causal square, cross-attention over the
+        # 64-token prompt and at a decode step, each against 1500 keys
+        **{f"whisper_{tag}_{key}": ek4[part][key] for tag, part in (("enc", "enc"), ("cross64", "cross_prompt"),
+                                                                  ("cross1", "cross_decode"))
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "whisper_train_grad_max_rel_err": ed["grads"]["grad_err"],
     }, {
         "name": "ssd_chunk",
         "route": "cuda",

@@ -16,8 +16,11 @@ A tree is nested dicts whose leaves are numpy arrays, numpy scalars or
 tensors; an ``nn.Module`` stands for its named parameters, and a name
 ``layers.<i>.<rest>`` (a module's, or the key of a dict keyed like its
 parameters, as the optimizer's moments are) is layer i of the stacked
-``layers/<rest>`` (``convert.lm_param_path``, the mapping of
-``convert.lm_params_from_numpy`` and its inverse).  A restore copies into
+``layers/<rest>``, and likewise ``enc_layers.<i>.<rest>`` and
+``dec_layers.<i>.<rest>`` of the enc-dec model (``convert.lm_param_path``,
+the mapping of ``convert.lm_params_from_numpy``,
+``convert.encdec_params_from_numpy`` and their inverse), so an LM's or a
+Whisper checkpoint written by either package restores in the other.  A restore copies into
 the tensors of ``like`` in place (the model's parameters, the optimizer's
 state); a tensor of ``like`` on the meta device, or a module whose
 parameters are, is made on ``device`` (the card by default; it raises

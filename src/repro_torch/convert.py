@@ -14,7 +14,11 @@ once and hands them over:
     pytree (stacked layers) of a module or of a dict keyed like its
     parameters (the optimizer's moments); ``lm_param_path`` maps one
     parameter name to the reference's ``/``-joined path and layer index,
-    the keys of the reference's checkpoints.
+    the keys of the reference's checkpoints;
+  * ``encdec_params_from_numpy`` / ``encdec_params_to_numpy`` — the same for
+    the enc-dec model (``models.encdec.EncDec``), whose reference tree
+    stacks ``enc_layers`` on ``n_encoder_layers`` and ``dec_layers`` on
+    ``n_layers``.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from .core.cim.profile import ActivationCapture, LayerCapture
 __all__ = [
     "capture_from_numpy",
     "capture_inputs_from_numpy",
+    "encdec_params_from_numpy",
+    "encdec_params_to_numpy",
     "lm_param_path",
     "lm_params_from_numpy",
     "lm_params_to_numpy",
@@ -96,29 +102,22 @@ def _flatten(tree, prefix=""):
             yield f"{prefix}{key}", val
 
 
-def lm_params_from_numpy(tree, cfg, device: str | torch.device = "cuda"):
-    """An ``models.lm.LM`` for ``cfg`` on ``device`` holding the reference's
-    parameter pytree ``tree`` (nested dicts of arrays, as
-    ``repro.models.lm.init_params`` returns them, converted with
-    ``np.asarray``): ``tree["layers"]`` carries a leading layer axis, which
-    becomes the module list (the MoE family's expert banks too, e.g.
-    ``layers.moe.experts.w_up`` of shape (L, n_phys, d, ff)).  Every
-    parameter must be present with its shape; values are stored as
+def _load_numpy(model, tree, depth: dict):
+    """Load the reference's pytree ``tree`` into ``model``: a top-level key
+    of ``depth`` carries a leading layer axis of that length, which becomes
+    the module list of that name; every other parameter is its own path.
+    Every parameter must be present with its shape; values are stored as
     float32."""
-    from .models.lm import LM
-
-    dev = resolve_device(device)
-    model = LM(cfg, None, dev)
     want = model.state_dict()
     got = {}
     for name, arr in _flatten(tree):
         arr = np.asarray(arr, dtype=np.float32)
-        if name.startswith("layers."):
-            if arr.shape[0] != cfg.n_layers:
-                raise ValueError(f"{name}: leading axis {arr.shape[0]} != n_layers {cfg.n_layers}")
-            rest = name[len("layers."):]
-            for i in range(cfg.n_layers):
-                got[f"layers.{i}.{rest}"] = arr[i]
+        head, _, rest = name.partition(".")
+        if head in depth and rest:
+            if arr.shape[0] != depth[head]:
+                raise ValueError(f"{name}: leading axis {arr.shape[0]} != {depth[head]} {head}")
+            for i in range(depth[head]):
+                got[f"{head}.{i}.{rest}"] = arr[i]
         else:
             got[name] = arr
     missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
@@ -131,20 +130,51 @@ def lm_params_from_numpy(tree, cfg, device: str | torch.device = "cuda"):
     return model
 
 
+def lm_params_from_numpy(tree, cfg, device: str | torch.device = "cuda"):
+    """An ``models.lm.LM`` for ``cfg`` on ``device`` holding the reference's
+    parameter pytree ``tree`` (nested dicts of arrays, as
+    ``repro.models.lm.init_params`` returns them, converted with
+    ``np.asarray``): ``tree["layers"]`` carries a leading layer axis, which
+    becomes the module list (the MoE family's expert banks too, e.g.
+    ``layers.moe.experts.w_up`` of shape (L, n_phys, d, ff)).  Every
+    parameter must be present with its shape; values are stored as
+    float32."""
+    from .models.lm import LM
+
+    return _load_numpy(LM(cfg, None, resolve_device(device)), tree, {"layers": cfg.n_layers})
+
+
+def encdec_params_from_numpy(tree, cfg, device: str | torch.device = "cuda"):
+    """A ``models.encdec.EncDec`` for ``cfg`` on ``device`` holding the
+    reference's enc-dec parameter pytree (``repro.models.encdec.
+    init_encdec_params``, converted with ``np.asarray``): ``enc_layers``
+    stacked on ``n_encoder_layers``, ``dec_layers`` on ``n_layers``."""
+    from .models.encdec import EncDec
+
+    model = EncDec(cfg, None, resolve_device(device))
+    return _load_numpy(model, tree, {"enc_layers": cfg.n_encoder_layers, "dec_layers": cfg.n_layers})
+
+
+_STACKED = ("layers", "enc_layers", "dec_layers")
+
+
 def lm_param_path(name: str) -> tuple[str, int | None]:
     """(the reference's ``/``-joined pytree path, layer index or None) of the
-    port's parameter ``name``: ``layers.<i>.<rest>`` is layer i of the
-    reference's stacked ``layers/<rest>``, any other name its own path."""
+    port's parameter ``name``: ``<stack>.<i>.<rest>`` is layer i of the
+    reference's stacked ``<stack>/<rest>`` for the stacks ``layers`` (the
+    LM) and ``enc_layers`` and ``dec_layers`` (the enc-dec model), any other
+    name its own path."""
     parts = name.split(".")
-    if len(parts) > 2 and parts[0] == "layers" and parts[1].isdigit():
-        return "/".join(["layers", *parts[2:]]), int(parts[1])
+    if len(parts) > 2 and parts[0] in _STACKED and parts[1].isdigit():
+        return "/".join([parts[0], *parts[2:]]), int(parts[1])
     return "/".join(parts), None
 
 
 def lm_params_to_numpy(params) -> dict:
-    """Inverse of ``lm_params_from_numpy``: the reference's parameter pytree
-    (nested dicts of numpy arrays, ``layers`` stacked on a leading axis) of
-    an ``LM`` module or of a dict of tensors keyed like its parameters."""
+    """Inverse of ``lm_params_from_numpy`` and ``encdec_params_from_numpy``:
+    the reference's parameter pytree (nested dicts of numpy arrays, each
+    stack of ``lm_param_path`` on a leading axis) of an ``LM`` or ``EncDec``
+    module or of a dict of tensors keyed like its parameters."""
     from torch import nn
 
     items = params.named_parameters() if isinstance(params, nn.Module) else params.items()
@@ -168,3 +198,6 @@ def lm_params_to_numpy(params) -> dict:
             node = node.setdefault(h, {})
         node[leaf] = val
     return tree
+
+
+encdec_params_to_numpy = lm_params_to_numpy  # one mapping for both models' names

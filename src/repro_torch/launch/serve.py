@@ -8,7 +8,8 @@ It runs on the card unless ``--device cpu`` is given, and raises without
 one.  ``--arch`` defaults to glm4-9b, as the reference's does.  Families
 ``dense``, ``moe`` (DeepSeek-V2 with MLA, Grok-1 with GQA), ``ssm`` and
 ``hybrid`` are ported; the enc-dec arch is refused here as the reference
-refuses it.  One device, so there is no mesh: the MoE runs the reference's
+refuses it (it runs through ``models.encdec`` and
+``repro_torch.examples.whisper_train``).  One device, so there is no mesh: the MoE runs the reference's
 local path.
 
 ``setup``, ``prefill`` and ``decode`` are the loop's three stages, for
@@ -80,7 +81,8 @@ def main(argv=None) -> int:
 
     cfg = get_config(args.arch, smoke=args.smoke)
     if cfg.family == "encdec":
-        raise SystemExit("use examples/whisper_serve for the enc-dec arch")
+        raise SystemExit("the enc-dec arch is served through repro_torch.models.encdec (encode, decode) and trained by "
+                         "python -m repro_torch.examples.whisper_train")
     dev = resolve_device(args.device)
     with torch.inference_mode():
         params, cache, prompts = setup(cfg, args.batch, args.prompt_len, args.gen, dev)

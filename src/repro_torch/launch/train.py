@@ -11,7 +11,8 @@ to glm4-9b.  Parameters are random, from a ``torch.Generator`` seeded with
 0; the data is ``SyntheticLM`` (seed 0), AdamW with warmup 5 and the run's
 step count as its total.  One device, so there is no mesh:
 ``--production-mesh`` raises, and the enc-dec arch is refused as the
-reference refuses it.  The last line is the reference's JSON summary.
+reference refuses it (``python -m repro_torch.examples.whisper_train``
+trains it).  The last line is the reference's JSON summary.
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ def main(argv=None) -> int:
 
     cfg = get_config(args.arch, smoke=args.smoke)
     if cfg.family == "encdec":
-        raise SystemExit("use examples/whisper_train.py for the enc-dec arch")
+        raise SystemExit("use python -m repro_torch.examples.whisper_train for the enc-dec arch")
     if args.production_mesh:
         raise NotImplementedError(
             "--production-mesh needs the distrib and launch slices (ROADMAP.md section 1, item 6); "

@@ -28,7 +28,8 @@ stacks of ``Block``s; their cache is ``{"layers": {"k", "v" (L, b, max_seq,
 nkv, hd), "len"}}``, or with MLA ``{"layers": {"ckv" (L, b, max_seq,
 kv_lora), "k_rope" (L, b, max_seq, 1, rope), "len"}}``, with one host-int
 ``len`` where the reference stacks one per layer.  The family ``encdec``
-raises ``NotImplementedError``: it comes with a later slice (ROADMAP.md).
+is ``models.encdec``'s: here it raises ``ValueError``, as the reference's
+``init_params`` does for a family it does not build.
 
 Remat follows the reference's structure with
 ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, and only when
@@ -78,16 +79,15 @@ from .ssm import Mamba2, init_mamba2_cache, mamba2_step
 __all__ = ["LM", "Block", "SSMBlock", "forward", "init_cache", "init_params", "loss_fn"]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid")
-_LATER = {"encdec": "the enc-dec slice"}
 
 
 def _check_family(cfg: ModelConfig):
     if cfg.family in FAMILIES:
         return
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: it comes with "
-            f"{_LATER[cfg.family]}, ROADMAP.md section 1"
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"family 'encdec' ({cfg.name}) is built by models.encdec (init_encdec_params, "
+            "init_decoder_cache, encode, decode), not models.lm"
         )
     raise ValueError(f"unsupported family {cfg.family!r}")
 
@@ -115,6 +115,14 @@ def _remat(fn, cfg: ModelConfig, policy: bool = True):
         return checkpoint(fn, *args, use_reentrant=False, **kw)
 
     return wrapped
+
+
+def _remat_on(model: nn.Module) -> bool:
+    """Whether a forward of ``model`` without a cache checkpoints: its
+    config asks for remat, grad mode is on and a parameter requires a
+    gradient (so serving never checkpoints)."""
+    return (model.cfg.remat != "none" and torch.is_grad_enabled()
+            and any(p.requires_grad for p in model.parameters()))
 
 
 def _block_size(L: int) -> int:
@@ -208,9 +216,7 @@ class LM(nn.Module):
                 base = cache["shared_sites"]["len"]
             positions = (base + torch.arange(s, device=x.device))[None, :].expand(b, s)
 
-        if cache is None and cfg.remat != "none" and torch.is_grad_enabled() and any(
-            p.requires_grad for p in self.parameters()
-        ):
+        if cache is None and _remat_on(self):
             x = self._remat_layers(x, positions)
         elif cfg.family in ("dense", "moe"):
             x = self._dense_layers(x, positions, cache)
@@ -333,10 +339,7 @@ def init_cache(
     dtype = dtype or _dtype(cfg)
     if cfg.family in ("dense", "moe"):
         make = init_mla_cache if cfg.attn.kind == "mla" else init_gqa_cache
-        one = make(cfg, batch, max_seq, dtype, "meta")
-        layers = {k: torch.zeros((cfg.n_layers, *v.shape), dtype=dtype, device=dev)
-                  for k, v in one.items() if k != "len"}
-        return {"layers": {**layers, "len": 0}}
+        return {"layers": _stacked_attn_cache(make(cfg, batch, max_seq, dtype, "meta"), cfg.n_layers, dev)}
     one = init_mamba2_cache(cfg, batch, dtype, dev)
     layers = {
         k: torch.zeros((cfg.n_layers, *v.shape), dtype=v.dtype, device=dev) for k, v in one.items()
@@ -351,6 +354,13 @@ def init_cache(
             "len": 0,
         }
     return cache
+
+
+def _stacked_attn_cache(one: dict, n_layers: int, device) -> dict:
+    """One layer's attention cache (made on the meta device) stacked over
+    ``n_layers`` in zeros on ``device``, with one ``len`` of 0."""
+    return {**{k: torch.zeros((n_layers, *v.shape), dtype=v.dtype, device=device)
+               for k, v in one.items() if k != "len"}, "len": 0}
 
 
 def forward(params: LM, cfg: ModelConfig, tokens, cache: dict | None = None, positions=None):

@@ -20,8 +20,9 @@ port runs its kernels' plain versions (K4, K5) on the host.
     different directions, and no bf16 run meets 5e-2 against another.  At
     that init the check is that the port's bf16 logits are no farther from
     the float32 reference than twice the reference's own bf16 logits.
-* ``launch.serve.main`` on the host, the family not ported yet (enc-dec)
-  and the MoE family's parameters and cache on the host.
+* ``launch.serve.main`` on the host, the enc-dec family refused by
+  ``models.lm`` (``models.encdec`` builds it) and the MoE family's
+  parameters and cache on the host.
 """
 
 import json
@@ -192,14 +193,23 @@ def test_serve_main_on_the_host(capsys):
 
 @pytest.mark.parametrize("name", ["grok-1-314b", "deepseek-v2-236b", "whisper-medium"])
 def test_other_families_wait_for_their_slice(name):
-    """The enc-dec family still waits for its slice; the MoE family (GQA and
-    MLA) builds its parameters and cache on the host."""
+    """The enc-dec family is refused by ``models.lm`` with a ValueError that
+    names ``models.encdec``, which builds its SMOKE tree; the MoE family
+    (GQA and MLA) builds its parameters and cache on the host."""
     cfg = get_config(name, smoke=True)
     if cfg.family == "encdec":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlm.init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlm.init_cache(cfg, 1, 8, device="cpu")
+        from repro_torch.models import encdec
+
+        for call in (lambda: tlm.init_params(cfg, device="cpu"), lambda: tlm.init_cache(cfg, 1, 8, device="cpu"),
+                     lambda: tlm.LM(cfg)):
+            with pytest.raises(ValueError, match="models.encdec"):
+                call()
+        model = encdec.init_encdec_params(cfg, device="cpu")
+        assert len(model.enc_layers) == cfg.n_encoder_layers and len(model.dec_layers) == cfg.n_layers
+        assert all(hasattr(layer, "cross") for layer in model.dec_layers)
+        cache = encdec.init_decoder_cache(cfg, 1, 8, device="cpu")
+        assert sorted(cache["layers"]) == ["k", "len", "v"] and cache["layers"]["len"] == 0
+        assert cache["layers"]["k"].shape[:3] == (cfg.n_layers, 1, 8)
         return
     model = tlm.init_params(cfg, device="cpu")
     assert all(hasattr(layer, "moe") and not hasattr(layer, "mlp") for layer in model.layers)

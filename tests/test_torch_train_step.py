@@ -113,10 +113,13 @@ def test_missing_gradient_fails_the_step(monkeypatch):
 
 @pytest.mark.parametrize("fn", ["make_compressed_train_step", "make_encdec_train_step"])
 def test_later_slices_raise(fn):
-    cfg = get_config("glm4-9b", smoke=True)
-    args = (cfg, AdamWConfig(), None) if fn == "make_compressed_train_step" else (cfg, AdamWConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(tstep, fn)(*args)
-    for fn in ("make_encdec_prefill_step", "make_encdec_decode_step"):
+    """The compressed step still waits for the distrib slice; the enc-dec
+    factories (ported with models.encdec) return their steps."""
+    if fn == "make_compressed_train_step":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(tstep, fn)(cfg)
+            tstep.make_compressed_train_step(get_config("glm4-9b", smoke=True), AdamWConfig(), None)
+        return
+    cfg = get_config("whisper-medium", smoke=True)
+    for step in (tstep.make_encdec_train_step(cfg, AdamWConfig()), tstep.make_encdec_prefill_step(cfg),
+                 tstep.make_encdec_decode_step(cfg)):
+        assert callable(step)
