@@ -176,6 +176,24 @@ sources.  Phases, each of which fails the run on any mismatch:
      config under ``TrainRunner`` with injected failures equal to a clean
      run bit for bit, and ``python -m repro_torch.examples.whisper_train``.
 
+ 22. distrib and launch (slice 13), on one-rank meshes over a process
+     group of one rank (gloo on the host, NCCL on the card): (a)
+     Zamba2-1.2B at full width and depth trained 4 steps by
+     ``make_compressed_train_step`` on a (pod 1, data 1, model 1) mesh, the
+     parameters DTensors placed by ``param_specs`` (K4 12 and K5 112
+     launches a step, checked; the loss falling; every error-feedback
+     residual within half its int8 scale), its step time beside phase 20's;
+     (b) Grok-1 at full width cut to 2 layers, a 4 x 1024 prefill and 8
+     decode steps through ``moe_fwd``'s EP path and ``gqa_fwd``'s mesh
+     branch (K4 inside ``compat.shard_map``), logits and tokens against the
+     local path from the same weights, and ``_decode_attn_seq_sharded`` at
+     its decode shape against ``_sdpa``; (c) Qwen2-VL-2B's 28 layers through
+     the GPipe schedule on a pipe-1 mesh, 4 microbatches of 1 x 1024,
+     outputs and gradients against the layer loop; (d) the dry run of
+     GLM-4-9B x train_4k on one pod (256 fake ranks) and DeepSeek-V2 x
+     decode_32k on two (512), each in a process of its own on the host,
+     their bytes, FLOPs, collectives and roofline on the H100's data sheet.
+
 The line before the last is ``{"kernels": [...]}`` (each kernel's launches
 on the main path, max |kernel - plain|, times and bound); the last line is
 ``{"ok": true, "device": {...}}``.  Numbers are this card's, printed beside
@@ -185,6 +203,7 @@ its name and power limit.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -315,6 +334,20 @@ WHISPER_SMOKE = dict(batch=2, prompt_len=12, gen=4)
 WHISPER_K4_SQ = (1500, 1, 64, 448)  # against 1500 keys: the encoder's square, then cross-attention's queries
 WHISPER_K4_GRAD = (("encoder", 4, 1500), ("cross", 4, 448))  # (b, sq) against 1500 keys, 16 heads of 64
 WHISPER_RUNNER_FAILS = {4: 1, 7: 1}
+# phase 22, distrib and launch (slice 13): one-rank meshes over a process
+# group of one rank (gloo for the host, NCCL for the card, a FileStore).  (a)
+# Zamba2-1.2B trained as phase 20 trains it, by make_compressed_train_step on
+# a (pod 1, data 1, model 1) mesh; (b) Grok-1 cut to MOE_DEPTH layers as
+# phase 19 serves it, on a (data 1, model 1) mesh through moe_fwd's EP path,
+# then the sequence-sharded decode attention at its decode shape; (c)
+# Qwen2-VL-2B's 28 layers through the GPipe schedule on a pipe-1 mesh; (d)
+# two production-mesh dry-run cells on the host, in processes of their own
+MESH_TRAIN_STEPS = 4
+MESH_MOE = dict(batch=4, prompt_len=1024, gen=8)
+MESH_MOE_TOL = 2e-3  # of max |logit|, if the mesh path is not equal to the local one (tests/test_distrib.py:163)
+MESH_SEQ_DECODE_TOL = 1e-5  # float32, of max |out|
+MESH_PIPE = dict(arch="qwen2-vl-2b", n_micro=4, mb=1, seq=1024)
+MESH_DRYRUN = (("glm4-9b", "train_4k", False), ("deepseek-v2-236b", "decode_32k", True))
 # the fabric phase: the reference's fabric_tail (benchmarks/run.py:349-379: VGG11
 # profiled at 2 images, 128 samples; 2x the minimum PEs; 400 Poisson requests at
 # 5 loads, arrival seed 5, service seed 3; latency-aware provisioning calibrated
@@ -3750,6 +3783,387 @@ def encdec_phase(gpu):
     return {"grads": grads, "serve": serve, "e2e": e2e, "smoke": smoke, "full": full, "runner": runner}
 
 
+def _full(t):
+    """A DTensor's whole value (a plain tensor as it is)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def mesh_dryrun_start():
+    """Phase 22 (d): the two production-mesh dry-run cells, each in a
+    process of its own (a fake process group of 256 or 512 ranks cannot
+    share this process with the card's group), kept off the card."""
+    import tempfile
+
+    out_dir = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    src = str(Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, PYTHONPATH=src, CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape, multi in MESH_DRYRUN:
+        out = out_dir / f"{arch}_{shape}.json"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+               "--multi-pod", "on" if multi else "off", "--out", str(out)]
+        procs.append((arch, shape, multi, out, time.perf_counter(),
+                      subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def mesh_dryrun_finish(gpu, procs):
+    """Phase 22 (d): wait for the dry-run processes and print each cell's
+    record: bytes a device, FLOPs, collective bytes by op, the bottleneck and
+    the roofline share against one H100's data sheet (a static count, not a
+    measurement)."""
+    recs = []
+    try:
+        for arch, shape, multi, path, t0, proc in procs:
+            log, _ = proc.communicate(timeout=600)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0, f"dry run {arch} x {shape} failed:\n{log[-3000:]}")
+            rec = json.loads(path.read_text())[0]
+            check(rec["status"] == "ok", f"dry run {arch} x {shape}: {rec}")
+            roof, mem = rec["roofline"], rec["memory"]
+            check(roof["flops"] > 0 and roof["collective_bytes"] > 0, f"dry run {arch} x {shape}: nothing counted")
+            rec["wall_s"] = wall
+            recs.append(rec)
+            print(f"{gpu}: dry run {arch} x {shape} on {rec['chips']} fake ranks ({'two pods' if multi else 'one pod'}; "
+                  f"one rank's step under FakeTensorMode on the host, traced in {rec['trace_s']} s, {wall:.1f} s of "
+                  f"process): bytes a device {(mem['argument_bytes'] + mem['temp_bytes']) / 1e9:.2f} GB (arguments "
+                  f"{mem['argument_bytes'] / 1e9:.3f}, live op outputs at the peak {mem['temp_bytes'] / 1e9:.2f}, "
+                  f"unfused), FLOPs {roof['flops']:.4e} over all chips (model {roof['model_flops']:.4e}, useful "
+                  f"{roof['useful_flop_fraction']:.4f}), HBM bytes {roof['bytes']:.4e}, collective bytes "
+                  + ", ".join(f"{k} {v:.4e} ({rec['collectives']['count'][k]}x)"
+                              for k, v in sorted(rec["collectives"]["bytes"].items()))
+                  + f"; terms compute {roof['compute_s']:.4f} s, memory {roof['memory_s']:.4f} s, collective "
+                  f"{roof['collective_s']:.4f} s: bottleneck {roof['bottleneck']}, roofline_fraction "
+                  f"{roof['roofline_fraction']:.4f} (H100 SXM data sheet: 989 TFLOP/s bf16, 3.35 TB/s, NVLink "
+                  f"450 GB/s a direction; static count, not measured)")
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return recs
+
+
+def mesh_train(gpu, plain_ms):
+    """Phase 22 (a): Zamba2-1.2B at full width and depth trained by
+    ``make_compressed_train_step`` on a (pod 1, data 1, model 1) mesh, the
+    parameters placed by ``param_specs``: MESH_TRAIN_STEPS steps of phase
+    20's batches, K4's and K5's counts set to 0 just before each step and
+    read just after, the loss falling, and every error-feedback residual
+    within half its tensor's int8 scale."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.distrib.sharding import distribute, param_specs
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim import compress
+    from repro_torch.train.step import make_compressed_train_step
+
+    dev = torch.device("cuda")
+    counts = _kernel_counts()
+    cfg = get_config(TRAIN["arch"])
+    bsz, seq, steps = TRAIN["batch"], TRAIN["seq"], MESH_TRAIN_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_device_mesh((1, 1, 1), ("pod", "data", "model"), "cuda")
+    params = lm.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    state, ef = adamw_init(params), compress.init_error_feedback(params)
+    distribute(params, param_specs(cfg, params, mesh), mesh)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=bsz), device=dev)
+    seen = []  # (scale, max |residual|) of every tensor the ring reduced, device tensors
+    ring = compress.compressed_psum
+
+    def recording(x, group=None, generator=None):
+        mean, err = ring(x, group, generator)
+        seen.append((compress.quantize_int8(x)[1], err.abs().max()))
+        return mean, err
+
+    compress.compressed_psum = recording  # the step looks it up when it is made
+    try:
+        step = make_compressed_train_step(cfg, AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"],
+                                                            total_steps=steps), mesh)
+    finally:
+        compress.compressed_psum = ring
+    want = train_launches(cfg)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    losses, ms, largest = [], [], 0.0
+    for s in range(steps):
+        batch = data.batch(s)
+        seen.clear()
+        torch.cuda.synchronize()
+        for k in counts.values():
+            k.launches = 0
+        ev[0].record()
+        params, state, ef, m = step(params, state, ef, batch)
+        ev[1].record()
+        ev[1].synchronize()
+        used = {n: k.launches for n, k in counts.items()}
+        check(used == want, f"mesh train {cfg.name} step {s}: K3/K4/K5 launched {used}, want {want}")
+        losses.append(float(m["loss"]))
+        ms.append(ev[0].elapsed_time(ev[1]))
+        worst = max(float(_full(e)) / float(_full(sc)) for sc, e in seen)
+        # |x / scale - round(x / scale)| <= 1/2, less the float32 rounding of
+        # the quotient (|x / scale| <= 127: half an ulp, 2^-18, at most)
+        check(worst <= 0.5 + 2.0**-17, f"mesh train step {s}: a residual is {worst:.7f} of its int8 scale (> 1/2)")
+        largest = max(largest, worst)
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], f"mesh train: losses {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    best = min(ms[1:])
+    out = dict(losses=losses, ms=ms, best_ms=best, launches=want, peak_gb=peak_gb, n_tensors=len(seen),
+               largest_residual=largest)
+    print(f"{gpu}: phase 22 (a) {cfg.name} at full width and depth (remat {cfg.remat}) trained {steps} steps by "
+          f"make_compressed_train_step on a (pod 1, data 1, model 1) NCCL mesh, parameters placed by param_specs as "
+          f"DTensors, SyntheticLM {bsz} x {seq}: losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; launches a step K3 {want['k3']}, K4 {want['k4']}, K5 {want['k5']} (checked at each); "
+          f"{len(seen)} tensors through the int8 ring a step, every residual within half its scale (the largest "
+          f"{largest:.7f} of it); step ms "
+          "(CUDA events) " + ", ".join(f"{x:.2f}" for x in ms) + f"; warm best {best:.2f} ms against phase 20's "
+          f"make_train_step {plain_ms:.2f} ms ({best / plain_ms:.3f}x: the mesh machinery, DTensor dispatch and the "
+          f"int8 round trip on one card); peak {peak_gb:.2f} GB")
+    del params, state, ef, step, seen, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_moe(gpu):
+    """Phase 22 (b): Grok-1 at full width cut to MOE_DEPTH layers, served on
+    the local path and then, from the same weights, on a (data 1, model 1)
+    mesh through moe_fwd's EP path and gqa_fwd's mesh branch (K4 inside
+    compat.shard_map): prefill logits and decode tokens against the local
+    path's; then the sequence-sharded decode attention called at Grok-1's
+    decode shape on the one-rank mesh, held against _sdpa on the same cache
+    in float32."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.distrib import compat
+    from repro_torch.distrib.compat import P
+    from repro_torch.distrib.context import use_mesh
+    from repro_torch.distrib.sharding import cache_specs, data_specs, distribute, moe_ep_axes, param_specs
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import layers, lm
+    from repro_torch.train.step import _greedy, make_decode_step
+
+    arch = "grok-1-314b"
+    cfg = get_config(arch).with_(n_layers=MOE_DEPTH[arch])
+    bsz, prompt_len, gen = MESH_MOE["batch"], MESH_MOE["prompt_len"], MESH_MOE["gen"]
+    dev = torch.device("cuda")
+    k4 = _kernel_counts()["k4"]
+    mesh = make_device_mesh((1, 1), ("data", "model"), "cuda")
+    check(moe_ep_axes(cfg, mesh) == ("data", "model"), f"{arch}: EP axes {moe_ep_axes(cfg, mesh)}")
+    params, cache, prompts = serve.setup(cfg, bsz, prompt_len, gen, device=dev, seed=0)
+    decode_step = make_decode_step(cfg)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def run(c, toks, warm_cache):
+        lm.forward(params, cfg, toks, cache=warm_cache)  # warm-up, into a cache of its own
+        torch.cuda.synchronize()
+        k4.launches = 0
+        ev[0].record()
+        logits, c = lm.forward(params, cfg, toks, cache=c)
+        tok = _greedy(logits)
+        ev[1].record()
+        ev[1].synchronize()
+        prefill_ms, in_prefill = ev[0].elapsed_time(ev[1]), k4.launches
+        out = [tok]
+        ev[0].record()
+        for _ in range(gen):
+            t = _full(tok)[:, None]
+            tok, c = decode_step(params, c, t if not hasattr(toks, "placements")
+                                 else distribute(t, data_specs(mesh, bsz), mesh))
+            out.append(tok)
+        ev[1].record()
+        ev[1].synchronize()
+        return logits, torch.stack([_full(t) for t in out], 1), prefill_ms, ev[0].elapsed_time(ev[1]) / gen, in_prefill
+
+    with torch.inference_mode():
+        local_logits, local_toks, l_ms, l_dms, l_k4 = run(cache, prompts,
+                                                          lm.init_cache(cfg, bsz, prompt_len + gen, device=dev))
+        local_logits = local_logits.float()
+        del cache
+        distribute(params, param_specs(cfg, params, mesh), mesh)
+        def placed_cache():
+            c = lm.init_cache(cfg, bsz, prompt_len + gen, device=dev)
+            return distribute(c, cache_specs(cfg, c, mesh), mesh)
+
+        mcache = placed_cache()
+        with use_mesh(mesh), compat.auto_region():
+            mesh_logits, mesh_toks, m_ms, m_dms, m_k4 = run(mcache, distribute(prompts, data_specs(mesh, bsz), mesh),
+                                                            placed_cache())
+        mesh_logits = _full(mesh_logits).float()
+        diff = float((mesh_logits - local_logits).abs().max() / local_logits.abs().max())
+        equal = bool(torch.equal(mesh_logits, local_logits))
+        check(equal or diff <= MESH_MOE_TOL, f"{arch} mesh vs local: logits {diff:.3e} of max |logit|")
+        check(torch.equal(mesh_toks, local_toks), f"{arch} mesh vs local: tokens differ")
+        check(m_k4 == l_k4 == cfg.n_layers, f"{arch}: K4 launched {m_k4} (mesh) / {l_k4} (local), want {cfg.n_layers}")
+        del local_logits, mesh_logits
+        # the sequence-sharded decode attention at Grok-1's decode shape
+        nh, nkv, hd = cfg.attn_dims()
+        kv_len = prompt_len + gen
+        g = torch.Generator(device=dev).manual_seed(3)
+        q = torch.randn((bsz, 1, nh, hd), generator=g, device=dev)
+        k, v = (torch.randn((bsz, kv_len, nkv, hd), generator=g, device=dev) for _ in range(2))
+        with use_mesh(mesh), compat.auto_region():
+            pl = compat.placements(P(("data",), "model", None, None), mesh)
+            got = layers._decode_attn_seq_sharded(
+                distribute_tensor(q, mesh, compat.placements(P(("data",), None, None, None), mesh)),
+                distribute_tensor(k, mesh, pl), distribute_tensor(v, mesh, pl), kv_len, mesh)
+        want = layers._sdpa(q, k, v, True, q_offset=kv_len - 1, kv_len=kv_len)
+        seq_err = float((_full(got) - want).abs().max() / want.abs().max())
+        check(seq_err <= MESH_SEQ_DECODE_TOL, f"{arch}: sequence-sharded decode {seq_err:.3e} from _sdpa")
+    out = dict(diff=diff, equal=equal, prefill_ms=m_ms, local_prefill_ms=l_ms, decode_ms=m_dms,
+               local_decode_ms=l_dms, k4_launches=m_k4, seq_err=seq_err)
+    print(f"{gpu}: phase 22 (b) {arch} at full width, {cfg.n_layers} layers, {bsz} x {prompt_len} prefill + {gen} "
+          f"decode steps on a (data 1, model 1) NCCL mesh through moe_fwd's EP path (all_to_all over ('data', "
+          f"'model')) and gqa_fwd's mesh branch: logits {'equal to' if equal else f'{diff:.3e} of max |logit| from'} "
+          f"the local path's, tokens equal; K4 {m_k4} launches in the prefill (inside compat.shard_map); prefill "
+          f"{m_ms:.2f} ms against {l_ms:.2f} ms local (CUDA events, after a warm-up prefill), a decode step "
+          f"{m_dms:.2f} ms against {l_dms:.2f} ms (the mean of {gen}, the first included); _decode_attn_seq_sharded at ({bsz}, 1, {nh} / {nkv}, {hd}) over {kv_len} keys in "
+          f"float32 {seq_err:.3e} of max |out| from _sdpa (limit {MESH_SEQ_DECODE_TOL})")
+    del params, mcache, got, want, q, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_pipeline(gpu):
+    """Phase 22 (c): Qwen2-VL-2B's 28 layers at full width through the GPipe
+    schedule (make_pipeline_fn) on a pipe-1 mesh, MESH_PIPE microbatches,
+    the stage's parameters the layers' stacked: outputs against the plain
+    layer loop on the same inputs, then a backward through the schedule and
+    its gradients against the loop's."""
+    import torch
+    from torch.func import functional_call
+
+    from repro_torch.configs import get_config
+    from repro_torch.distrib.pipeline import make_pipeline_fn, stack_stages
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import lm
+
+    cfg = get_config(MESH_PIPE["arch"])
+    n_micro, mb, seq = MESH_PIPE["n_micro"], MESH_PIPE["mb"], MESH_PIPE["seq"]
+    dev = torch.device("cuda")
+    k4 = _kernel_counts()["k4"]
+    model = lm.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    template = model.layers[0]
+    names = [n for n, _ in template.named_parameters()]
+    stacked = {n: torch.stack([dict(layer.named_parameters())[n].detach() for layer in model.layers]) for n in names}
+    stages, _ = stack_stages(stacked, [1.0] * cfg.n_layers, 1)
+    stages = {n: t.detach().requires_grad_(True) for n, t in stages.items()}
+    positions = torch.arange(seq, device=dev)[None].expand(mb, seq)
+    g = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (n_micro, mb, seq), generator=g, device=dev)
+    xs = model.embed.detach()[toks].to(getattr(torch, cfg.dtype))
+
+    def stage_fn(sp, x):
+        for i in range(next(iter(sp.values())).shape[0]):
+            x = functional_call(template, {n: sp[n][i] for n in names}, (x, positions))[0]
+        return x
+
+    mesh = make_device_mesh((1,), ("pipe",), "cuda")
+    fn = make_pipeline_fn(stage_fn, mesh, n_micro=n_micro)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    k4.launches = 0
+    ev[0].record()
+    out = fn(stages, xs).to_local()
+    ev[1].record()
+    (out.float() ** 2).sum().backward()
+    ev[2].record()
+    ev[2].synchronize()
+    pipe_launches = k4.launches
+    fwd_ms, bwd_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    check(pipe_launches == n_micro * cfg.n_layers,
+          f"pipeline: K4 launched {pipe_launches}, want {n_micro * cfg.n_layers} (a layer a microbatch; the backward "
+          "is autograd of the plain version)")
+    grads = {n: t.grad[0] for n, t in stages.items()}
+    with torch.no_grad():
+        ev[0].record()
+        fn(stages, xs)
+        ev[1].record()
+        ev[1].synchronize()
+    warm_fwd_ms = ev[0].elapsed_time(ev[1])
+    # the plain loop over the layers, from the same inputs
+    for p in model.parameters():
+        p.requires_grad_(True)
+    with torch.no_grad():
+        ev[0].record()
+        for m in range(n_micro):
+            x = xs[m]
+            for layer in model.layers:
+                x = layer(x, positions)[0]
+        ev[1].record()
+        ev[1].synchronize()
+    warm_loop_ms = ev[0].elapsed_time(ev[1])
+    ev[0].record()
+    ys = []
+    for m in range(n_micro):
+        x = xs[m]
+        for layer in model.layers:
+            x = layer(x, positions)[0]
+        ys.append(x)
+    ref = torch.stack(ys)
+    ev[1].record()
+    (ref.float() ** 2).sum().backward()
+    ev[2].record()
+    ev[2].synchronize()
+    loop_fwd_ms, loop_bwd_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    out_err = float((out.detach().float() - ref.detach().float()).abs().max() / ref.detach().float().abs().max())
+    grad_err = max(float((grads[n] - torch.stack([dict(l.named_parameters())[n].grad for l in model.layers])).abs().max()
+                         / torch.stack([dict(l.named_parameters())[n].grad for l in model.layers]).abs().max())
+                   for n in names)
+    check(out_err == 0.0 or out_err <= 1e-6, f"pipeline: outputs {out_err:.3e} from the layer loop's")
+    check(grad_err <= 1e-5, f"pipeline: gradients {grad_err:.3e} from the layer loop's")
+    print(f"{gpu}: phase 22 (c) {cfg.name} at full width and depth ({cfg.n_layers} layers, grouped K4) through "
+          f"make_pipeline_fn on a pipe-1 NCCL mesh, {n_micro} microbatches of {mb} x {seq}: outputs "
+          f"{'equal to' if out_err == 0 else f'{out_err:.3e} of max from'} the layer loop's, gradients of sum(out^2) "
+          f"over the stacked stage {grad_err:.3e} of max from the loop's; K4 {pipe_launches} launches (a layer a "
+          f"microbatch; its backward is autograd of the plain version); schedule forward {fwd_ms:.2f} ms (first "
+          f"run), backward {bwd_ms:.2f} ms against the loop's {loop_fwd_ms:.2f} / {loop_bwd_ms:.2f} ms; forward again "
+          f"without gradients {warm_fwd_ms:.2f} ms against the loop's {warm_loop_ms:.2f} ms (CUDA events; bubble "
+          f"(P-1)/(M+P-1) = 0 at one stage)")
+    res = dict(out_err=out_err, grad_err=grad_err, k4_launches=pipe_launches, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+               loop_fwd_ms=loop_fwd_ms, loop_bwd_ms=loop_bwd_ms, warm_fwd_ms=warm_fwd_ms, warm_loop_ms=warm_loop_ms)
+    del model, stages, grads, stacked, out, ref, ys
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def mesh_phase(gpu, plain_train_ms):
+    """Phase 22: distrib and launch on one card (the module docstring).  The
+    dry-run processes run on the host while (a) to (c) run on the card."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    procs = mesh_dryrun_start()
+    try:
+        store = dist.FileStore(tempfile.mktemp(prefix="mesh_store_"), 1)
+        dist.init_process_group("cpu:gloo,cuda:nccl", store=store, rank=0, world_size=1,
+                                device_id=torch.device("cuda", 0))
+        try:
+            train = mesh_train(gpu, plain_train_ms)
+            moe = mesh_moe(gpu)
+            pipe = mesh_pipeline(gpu)
+        finally:
+            dist.destroy_process_group()
+        dry = mesh_dryrun_finish(gpu, procs)
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"{gpu}: phase 22 (distrib and launch) took {time.perf_counter() - t0:.1f} s")
+    return {"train": train, "moe": moe, "pipe": pipe, "dry": dry}
+
+
 def main() -> int:
     # phase 20 holds a replayed training run to a clean one bit for bit under
     # torch.use_deterministic_algorithms, whose cuBLAS calls need a fixed
@@ -4189,6 +4603,10 @@ def main() -> int:
     ed = encdec_phase(gpu)
     ek4, eserve = ed["serve"]["k4"], ed["serve"]
 
+    # ---- 22. distrib and launch: training, MoE serving and the GPipe
+    # schedule on one-rank meshes, and two production-mesh dry-run cells
+    mp = mesh_phase(gpu, min(tfull["ms"][1:]))
+
     nnum = dnum["nemotron-4-15b"]
     print(gpu)
     print(json.dumps({"kernels": [{
@@ -4274,6 +4692,9 @@ def main() -> int:
                                                                   ("cross1", "cross_decode"))
            for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "whisper_train_grad_max_rel_err": ed["grads"]["grad_err"],
+        "mesh_train_launches": mp["train"]["launches"]["k4"],  # phase 22 (a): per compressed step on the mesh
+        "mesh_moe_prefill_launches": mp["moe"]["k4_launches"],  # phase 22 (b): Grok-1's EP prefill, in shard_map
+        "mesh_pipeline_launches": mp["pipe"]["k4_launches"],  # phase 22 (c): the schedule, forward and backward
     }, {
         "name": "ssd_chunk",
         "route": "cuda",
@@ -4292,6 +4713,7 @@ def main() -> int:
         "train_fwd_bwd_ms": tg["k5"]["ms"],
         "train_plain_fwd_bwd_ms": tg["k5"]["plain_ms"],
         "backward": "autograd of a recomputation of the plain version (no backward kernel)",
+        "mesh_train_launches": mp["train"]["launches"]["k5"],  # phase 22 (a): per compressed step on the mesh
     }, {
         "name": "vtime_scan",
         "route": "cuda",

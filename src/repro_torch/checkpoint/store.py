@@ -24,7 +24,9 @@ Whisper checkpoint written by either package restores in the other.  A restore c
 the tensors of ``like`` in place (the model's parameters, the optimizer's
 state); a tensor of ``like`` on the meta device, or a module whose
 parameters are, is made on ``device`` (the card by default; it raises
-without one); any other leaf comes back as a numpy array of its dtype.
+without one); any other leaf comes back as a numpy array of its dtype.  A
+DTensor (a model placed on a mesh) is saved whole and restored into its
+placement, each rank keeping its shard.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from .. import resolve_device
 from ..convert import lm_param_path
@@ -68,6 +71,8 @@ def _entries(tree: Any, prefix: str = "", index: int | None = None):
 
 
 def _numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()  # a placed tensor is saved whole
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
@@ -167,6 +172,14 @@ class _Payload:
         return arr
 
 
+def _placed_like(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """``src`` placed as ``dst`` is when ``dst`` is a DTensor (each rank
+    keeps its shard of the whole array it read)."""
+    if isinstance(dst, DTensor):
+        return distribute_tensor(src.to(dst.device_mesh.device_type), dst.device_mesh, dst.placements)
+    return src
+
+
 def _restore(node, payload: _Payload, device, prefix: str = "", index: int | None = None):
     if isinstance(node, nn.Module):
         if any(p.is_meta for p in node.parameters()):
@@ -174,7 +187,7 @@ def _restore(node, payload: _Payload, device, prefix: str = "", index: int | Non
         with torch.no_grad():
             for name, p in node.named_parameters():
                 path, i = lm_param_path(name)
-                p.copy_(torch.from_numpy(payload.read(_join(prefix, path), i, p)))
+                p.copy_(_placed_like(torch.from_numpy(payload.read(_join(prefix, path), i, p)), p))
         return node
     if isinstance(node, dict):
         out = {}
@@ -187,7 +200,7 @@ def _restore(node, payload: _Payload, device, prefix: str = "", index: int | Non
         if node.is_meta:
             return torch.from_numpy(np.array(arr)).to(device=resolve_device(device), dtype=node.dtype)
         with torch.no_grad():
-            node.copy_(torch.from_numpy(np.array(arr)))
+            node.copy_(_placed_like(torch.from_numpy(np.array(arr)), node))
         return node
     return np.asarray(arr).astype(getattr(node, "dtype", np.asarray(node).dtype))
 

@@ -1,8 +1,34 @@
-"""Device-parallel helpers.  Ported so far: ``sharding.shard_map_batch``,
-which splits a batched evaluation's config axis over the local devices.
-The LM side's sharding rules, pipeline and context parallelism are still to
-come (ROADMAP.md §1)."""
+"""Distribution over a ``DeviceMesh`` (reference: ``src/repro/distrib``):
+the sharding rules (``sharding``), ``shard_map`` and its collectives
+(``compat``), the current mesh (``context``), the GPipe schedule
+(``pipeline``), and ``sharding.shard_map_batch``, which splits a batched
+evaluation's config axis over the local devices."""
 
-from .sharding import local_eval_devices, shard_map_batch
+from .pipeline import bubble_fraction, make_pipeline_fn, report_stage_plan, stack_stages
+from .sharding import (
+    batch_axes,
+    cache_specs,
+    data_specs,
+    local_eval_devices,
+    named,
+    opt_specs,
+    param_specs,
+    shard_map_batch,
+    tp_size,
+)
 
-__all__ = ["local_eval_devices", "shard_map_batch"]
+__all__ = [
+    "bubble_fraction",
+    "make_pipeline_fn",
+    "report_stage_plan",
+    "stack_stages",
+    "batch_axes",
+    "cache_specs",
+    "data_specs",
+    "local_eval_devices",
+    "named",
+    "opt_specs",
+    "param_specs",
+    "shard_map_batch",
+    "tp_size",
+]

@@ -34,9 +34,10 @@ Attention, by where it runs:
     length (a prompt, a training sequence, one decode token) against the
     encoder's keys: it has no RoPE, no mask, no ``q_offset`` and no
     ``kv_len``, so it is the reference's unmasked ``_sdpa_block`` exactly.
-    It calls K4 through ``layers.flash_attention_op``, the models' one K4
-    entry point, so that what swaps or counts that entry sees every
-    attention.  As in the reference, each decoder layer recomputes the
+    It calls K4 through ``layers.attention_op`` (a ``shard_map`` over heads
+    for DTensors under a mesh), which calls ``layers.flash_attention_op``,
+    the models' one K4 entry point, so that what swaps or counts that entry
+    sees every attention.  As in the reference, each decoder layer recomputes the
     encoder's K and V from ``enc_out`` on every call, decode steps
     included: there is no cross-K/V cache.
 
@@ -69,7 +70,7 @@ from torch import nn
 from .. import resolve_device
 from . import layers
 from .config import ModelConfig
-from .layers import MLP, GQAttention, RMSNorm, _dense, gqa_fwd, init_gqa_cache
+from .layers import MLP, GQAttention, RMSNorm, _dense, gold_logits, gqa_fwd, init_gqa_cache, settle
 from .lm import _dtype, _remat, _remat_on, _stacked_attn_cache
 
 __all__ = [
@@ -111,8 +112,8 @@ def enc_kv(p: CrossAttention, cfg: ModelConfig, enc_out: torch.Tensor):
     _, nkv, hd = cfg.attn_dims()
     b, s, _ = enc_out.shape
     dt = enc_out.dtype
-    k = (enc_out @ p.wk.to(dt)).reshape(b, s, nkv, hd)
-    v = (enc_out @ p.wv.to(dt)).reshape(b, s, nkv, hd)
+    k = layers.as_heads(enc_out @ p.wk.to(dt), b, s, nkv, hd)
+    v = layers.as_heads(enc_out @ p.wv.to(dt), b, s, nkv, hd)
     return k, v
 
 
@@ -122,8 +123,8 @@ def cross_fwd(p: CrossAttention, cfg: ModelConfig, x: torch.Tensor, k: torch.Ten
     nh, _, hd = cfg.attn_dims()
     b, s, _ = x.shape
     dt = x.dtype
-    q = (x @ p.wq.to(dt)).reshape(b, s, nh, hd)
-    out = layers.flash_attention_op(q, k, v, causal=False, round_scores=True)
+    q = layers.as_heads(x @ p.wq.to(dt), b, s, nh, hd)
+    out = layers.attention_op(q, k, v, False)
     return out.reshape(b, s, nh * hd) @ p.wo.to(dt)
 
 
@@ -143,8 +144,8 @@ class EncLayer(nn.Module):
     def forward(self, x, positions):
         eps = self.cfg.norm_eps
         h, _ = gqa_fwd(self.attn, self.noncausal, self.attn_norm(x, eps), positions)
-        x = x + h
-        return x + self.mlp(self.mlp_norm(x, eps))
+        x = x + settle(h)
+        return x + settle(self.mlp(self.mlp_norm(x, eps)))
 
 
 class DecLayer(nn.Module):
@@ -165,10 +166,10 @@ class DecLayer(nn.Module):
         cfg = self.cfg
         eps = cfg.norm_eps
         h, new_cache = gqa_fwd(self.attn, cfg, self.attn_norm(x, eps), positions, cache)
-        x = x + h
+        x = x + settle(h)
         k, v = enc_kv(self.cross, cfg, enc_out)
-        x = x + cross_fwd(self.cross, cfg, self.cross_norm(x, eps), k, v)
-        x = x + self.mlp(self.mlp_norm(x, eps))
+        x = x + settle(cross_fwd(self.cross, cfg, self.cross_norm(x, eps), k, v))
+        x = x + settle(self.mlp(self.mlp_norm(x, eps)))
         return x, new_cache
 
 
@@ -201,7 +202,7 @@ class EncDec(nn.Module):
         """(logits (b, s, vocab) in ``cfg.dtype``, cache); with a cache its
         k and v are written in place and its ``len`` advanced."""
         cfg = self.cfg
-        x = self.embed[tokens].to(_dtype(cfg))
+        x = layers.embed_lookup(self.embed, tokens).to(_dtype(cfg))
         b, s, _ = x.shape
         base = cache["layers"]["len"] if cache is not None else 0
         positions = (base + torch.arange(s, device=x.device))[None, :].expand(b, s)
@@ -280,5 +281,5 @@ def encdec_loss_fn(params: EncDec, cfg: ModelConfig, frames, tokens, targets) ->
     logits, _ = decode(params, cfg, tokens, enc_out)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    gold = gold_logits(logits, targets)
     return (lse - gold).sum() / lse.numel()

@@ -62,22 +62,44 @@ contributions are summed one at a time in ascending slot order from zero in
 the output type (the order XLA's scatter-add takes on the host), which also
 keeps the card's result free of atomics and the same from run to run.
 
-The mesh-only paths (``_constrain_heads``, ``_decode_attn_seq_sharded``, and
-``moe_fwd``'s expert- and tensor-parallel ``shard_map`` paths) need a mesh
-and are not ported; on one device the reference takes the paths ported
-here.
+With a mesh (``distrib.context``) the model's tensors are DTensors over
+it, placed by ``distrib.sharding``, and DTensor propagates through the
+plain torch here as GSPMD partitions the reference.  The reference's mesh
+paths are ``distrib.compat.shard_map`` regions on local tensors:
+
+  * ``_constrain_heads`` redistributes q / k / v to heads on 'model' and
+    batch on the DP axes, under the reference's conditions;
+  * ``_decode_attn_seq_sharded``: with kv heads the TP degree does not
+    divide, the cache's sequence dim is sharded (``cache_specs``), and a
+    decode step takes each rank's partial softmax over its slice of the
+    cache, combined by a ``pmax`` and two ``psum``s over 'model';
+  * ``moe_fwd``'s EP path (local routing, ``all_to_all`` of each slot's
+    bucket to its owner and back, ``moe_ep_axes``) and TP path (each
+    expert's ff dim sharded, ``psum`` over the ff axes, ``serve_ff_2d``);
+  * the kernels take local tensors only: ``attention_op`` reaches K4
+    through a ``shard_map`` over heads (kv heads replicated and sliced per
+    rank where they do not shard with the q heads), ``mlp_fwd`` K3 over
+    rows (and the ff dim, with a ``psum``), ``ssm.ssd_chunked`` K5 over
+    heads;
+  * a cache write into a DTensor cache writes each rank's part of its
+    shard (``_write_cache``).
 """
 
 from __future__ import annotations
 
 import functools
 import math
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ..distrib import compat
+from ..distrib.compat import P
+from ..distrib.context import get_mesh
 from ..kernels.ops import flash_attention_op, zskip_matmul_op
 from .config import ModelConfig
 
@@ -89,6 +111,11 @@ __all__ = [
     "MoE",
     "RMSNorm",
     "apply_rope",
+    "as_heads",
+    "attention_op",
+    "embed_lookup",
+    "gold_logits",
+    "settle",
     "capture_routing",
     "expert_replication_table",
     "gqa_fwd",
@@ -115,6 +142,80 @@ def _dense(shape, generator: torch.Generator | None, device, scale: float = 1.0,
         return _param(torch.zeros(shape, dtype=torch.float32, device=device))
     w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
     return _param(w.mul_(scale / math.sqrt(shape[scale_axis])))  # in place: no second copy
+
+
+def _vocab_parallel(table_or_logits: torch.Tensor, ids: torch.Tensor, lookup):
+    """``lookup(local, local_ids)`` over a DTensor whose vocab dim (0 of a
+    table, -1 of logits) may be sharded: each rank looks up the ids that
+    fall in its slice of the vocab, zeros elsewhere, and a ``psum`` over
+    the vocab's axes adds the one real value to zeros (exact).  Rows go by
+    the ids' DP axes.  The Megatron vocab-parallel lookup, in place of
+    DTensor's masked partial placement."""
+    t = table_or_logits
+    mesh = t.device_mesh
+    spec = compat.spec_of(t.placements, mesh, t.dim())
+    spec = tuple(spec) + (None,) * (t.dim() - len(spec))
+    vdim = 0 if t.dim() == 2 else t.dim() - 1
+    vaxes = compat.axes_of(spec[vdim])
+    rows = _dp_spec(mesh, ids.shape[0])
+    ispec = P(rows, *(None,) * (ids.dim() - 1))
+    tspec = P(spec[0], None) if vdim == 0 else P(rows, *(None,) * (t.dim() - 2), spec[vdim])
+
+    def local(tl, il):
+        n = tl.shape[vdim]
+        idx = il.long() - (compat.axis_index(vaxes) * n if vaxes else 0)
+        ok = (idx >= 0) & (idx < n)
+        y = lookup(tl, idx.clamp(0, n - 1), ok)
+        return compat.psum(y, vaxes) if vaxes else y
+
+    out_spec = P(rows, *(None,) * (ids.dim() - 1 + (1 if vdim == 0 else 0)))
+    return compat.shard_map(local, mesh=mesh, in_specs=(tspec, ispec), out_specs=out_spec)(t, ids)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; a DTensor table through the vocab-parallel lookup
+    (``_vocab_parallel``): the same rows."""
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    return _vocab_parallel(table, tokens, lambda tl, idx, ok: tl[idx] * ok[..., None].to(tl.dtype))
+
+
+def gold_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """``logits[..., targets]`` (a gather along the vocab); DTensor logits
+    through the vocab-parallel lookup."""
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return _vocab_parallel(
+        logits, targets, lambda tl, idx, ok: torch.gather(tl, -1, idx[..., None])[..., 0] * ok.to(tl.dtype))
+
+
+def _canonical(t: DTensor) -> DTensor:
+    last = t.dim() - 1
+    pls = [Replicate() if pl.is_partial() or type(pl) not in (Shard, Replicate)
+           or (pl.is_shard() and pl.dim not in (0, last)) else pl for pl in t.placements]
+    return t if list(t.placements) == pls else t.redistribute(t.device_mesh, pls)
+
+
+class _Settle(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        out = _canonical(t)
+        return out.view_as(out) if out is t else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _canonical(g)
+
+
+def settle(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor activation, and its gradient, in the canonical layout:
+    pending partial sums (a product over a sharded dim) reduced, and any
+    shard of a dim other than the first (the batch) and the last (the
+    features) gathered, so that flattening it for a product never needs a
+    strided shard.  Anything else as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    return _Settle.apply(t)
 
 
 # --------------------------------------------------------------------- norms
@@ -225,6 +326,157 @@ def _sdpa(q, k, v, causal: bool, q_offset: int = 0, kv_len: int | None = None, q
     return torch.cat(outs, dim=1)
 
 
+def _dp_spec(mesh, rows: int):
+    """The DP axes of ``mesh`` when they divide ``rows``, else None (the
+    reference's ``bspec``)."""
+    sizes = compat.mesh_sizes(mesh)
+    dp = tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
+    return dp if dp and rows % math.prod(sizes[a] for a in dp) == 0 else None
+
+
+def as_heads(t: torch.Tensor, *shape) -> torch.Tensor:
+    """``t.reshape(*shape)``, its last dim split into (heads, head dim).  A
+    DTensor whose last dim is sharded over more ranks than divide the heads
+    is gathered along it first (GSPMD reshards there; a DTensor view
+    cannot)."""
+    if isinstance(t, DTensor):
+        last = t.dim() - 1
+        sizes = dict(zip(t.device_mesh.mesh_dim_names, t.device_mesh.shape))
+        n = math.prod(sizes[a] for a, pl in zip(t.device_mesh.mesh_dim_names, t.placements) if pl.is_shard(last))
+        if shape[-2] % n:
+            t = t.redistribute(t.device_mesh, [Replicate() if pl.is_shard(last) else pl for pl in t.placements])
+    return t.reshape(*shape)
+
+
+def _constrain_heads(t: torch.Tensor) -> torch.Tensor:
+    """(b, s, h, hd) -> heads over 'model', batch over the DP axes (the
+    reference's ``with_sharding_constraint``), for a DTensor under a mesh
+    with 'model' whose size divides h; anything else as it is."""
+    mesh = get_mesh()
+    if mesh is None or "model" not in mesh.mesh_dim_names or t.dim() != 4 or not isinstance(t, DTensor):
+        return t
+    b, _, h, _ = t.shape
+    if h % compat.mesh_sizes(mesh)["model"]:
+        return t
+    return t.redistribute(t.device_mesh, compat.placements(P(_dp_spec(mesh, b), None, "model", None),
+                                                           t.device_mesh))
+
+
+def _heads_map(fn, q, k, v):
+    """``fn(q, k, v)`` (an attention over (b, s, h, hd) q and (b, sk, kv,
+    hd) k / v) on DTensors, in a ``shard_map`` over heads: q's heads over
+    'model' where it divides them, k / v's too where it divides the kv
+    heads, else k / v replicated and each rank taking the kv heads its q
+    heads use; heads replicated where neither works.  Batch over the DP
+    axes.  Plain tensors go to ``fn`` as they are."""
+    if not isinstance(q, DTensor):
+        return fn(q, k, v)
+    mesh = q.device_mesh
+    b, _, h, _ = q.shape
+    nkv = k.shape[2]
+    tp = compat.mesh_sizes(mesh).get("model", 1)
+    bspec = _dp_spec(mesh, b)
+    per = h // tp if h % tp == 0 else 0  # q heads a rank
+    rep = h // nkv
+    kv_of = None
+    if tp > 1 and nkv % tp == 0:
+        qs = ks = P(bspec, None, "model", None)
+    elif tp > 1 and per and (rep % per == 0 or per % rep == 0):
+        qs, ks = P(bspec, None, "model", None), P(bspec, None, None, None)
+        kv_of = max(per // rep, 1)  # kv heads a rank's q heads use
+    else:
+        qs = ks = P(bspec, None, None, None)
+
+    def local(ql, kl, vl):
+        if kv_of is not None:
+            first = compat.axis_index("model") * per // rep
+            kl, vl = kl[:, :, first : first + kv_of], vl[:, :, first : first + kv_of]
+        return fn(ql, kl, vl)
+
+    return compat.shard_map(local, mesh=mesh, in_specs=(qs, ks, ks), out_specs=qs)(q, k, v)
+
+
+def attention_op(q, k, v, causal: bool):
+    """K4 on (b, s, h, hd) q and (b, s, kv, hd) k / v with the scores rounded
+    as the reference's ``_sdpa`` rounds them.  DTensors go through
+    ``_heads_map``: the kernel only ever sees local tensors."""
+    return _heads_map(lambda ql, kl, vl: flash_attention_op(ql, kl, vl, causal=causal, round_scores=True), q, k, v)
+
+
+def _sdpa_heads(q, k, v, causal: bool, q_offset: int = 0, kv_len: int | None = None):
+    """``_sdpa``, through ``_heads_map`` for DTensors."""
+    return _heads_map(lambda ql, kl, vl: _sdpa(ql, kl, vl, causal, q_offset=q_offset, kv_len=kv_len), q, k, v)
+
+
+def _write_cache(buf: torch.Tensor, new: torch.Tensor, at: int) -> None:
+    """``buf[:, at : at + s] = new`` in place; into a DTensor cache each
+    rank writes the positions that fall in its shard."""
+    s = new.shape[1]
+    if not isinstance(buf, DTensor):
+        buf[:, at : at + s] = new.full_tensor() if isinstance(new, DTensor) else new
+        return
+    mesh = buf.device_mesh
+    spec = compat.spec_of(buf.placements, mesh, buf.dim())
+    spec = P(*(tuple(spec) + (None,) * (buf.dim() - len(spec))))
+    seq_axes = compat.axes_of(spec[1])
+
+    def local(bl, nl):
+        n = bl.shape[1]
+        lo = compat.axis_index(seq_axes) * n if seq_axes else 0
+        a, e = max(at, lo), min(at + s, lo + n)
+        if a < e:
+            bl[:, a - lo : e - lo] = nl[:, a - at : e - at]
+        return bl
+
+    compat.shard_map(local, mesh=mesh, in_specs=(spec, P(spec[0], None, *spec[2:])), out_specs=spec)(buf, new)
+
+
+def _valid(buf: torch.Tensor, n: int) -> torch.Tensor:
+    """``buf[:, :n]``; a DTensor cache sharded along its sequence dim is
+    gathered along it first."""
+    if isinstance(buf, DTensor) and any(getattr(pl, "dim", None) == 1 for pl in buf.placements):
+        pls = [Replicate() if getattr(pl, "dim", None) == 1 else pl for pl in buf.placements]
+        buf = buf.redistribute(buf.device_mesh, pls)
+    return buf[:, :n]
+
+
+def _decode_attn_seq_sharded(q, k, v, kv_len: int, mesh):
+    """Distributed flash decode: q (b, 1, h, hd) replicated over 'model', k
+    and v (b, S, kv, hd) with S sharded over it.  Each rank takes a partial
+    softmax over its slice of the cache; a ``pmax`` and two ``psum``s
+    combine them, in place of gathering the cache (the reference's
+    expressions, in its order)."""
+    b = q.shape[0]
+    bspec = _dp_spec(mesh, b)
+    s_shard = k.shape[1] // compat.mesh_sizes(mesh)["model"]
+
+    def local(ql, kl, vl):
+        bb, sq, h, hd = ql.shape
+        kv = kl.shape[2]
+        rep = h // kv
+        idx = compat.axis_index("model")
+        kpos = idx * s_shard + torch.arange(s_shard, device=ql.device)
+        valid = kpos[None, :] < kv_len  # (1, s_shard)
+        qg = ql.reshape(bb, sq, kv, rep, hd)
+        scores = torch.einsum("bqkrh,bskh->bkrqs", qg, kl).float() / math.sqrt(hd)
+        scores = scores.masked_fill(~valid[None, None, None], -math.inf)
+        m_l = scores.amax(dim=-1, keepdim=True)
+        m_g = torch.clamp(compat.pmax(m_l, "model"), min=-1e30)  # guard all-masked shards
+        p_ = torch.exp(torch.clamp(scores, min=-1e30) - m_g)
+        l_g = compat.psum(p_.sum(dim=-1, keepdim=True), "model")
+        acc = torch.einsum("bkrqs,bskh->bkrqh", p_.to(vl.dtype), vl)
+        acc_g = compat.psum(acc, "model")
+        out = acc_g / torch.clamp(l_g, min=1e-30).to(acc_g.dtype)
+        return torch.movedim(out, 3, 1).reshape(bb, sq, h, hd)
+
+    return compat.shard_map(
+        local,
+        mesh=mesh,
+        in_specs=(P(bspec, None, None, None), P(bspec, "model", None, None), P(bspec, "model", None, None)),
+        out_specs=P(bspec, None, None, None),
+    )(q, k, v)
+
+
 class GQAttention(nn.Module):
     """Grouped-query attention with RoPE (reference: ``init_gqa``,
     ``gqa_fwd``)."""
@@ -261,13 +513,13 @@ def gqa_fwd(p: GQAttention, cfg: ModelConfig, x, positions, cache: dict | None =
         q = q + p.bq.to(dt)
         k = k + p.bk.to(dt)
         v = v + p.bv.to(dt)
-    q = q.reshape(b, s, nh, hd)
-    k = k.reshape(b, s, nkv, hd)
-    v = v.reshape(b, s, nkv, hd)
+    q = _constrain_heads(as_heads(q, b, s, nh, hd))
+    k = _constrain_heads(as_heads(k, b, s, nkv, hd))
+    v = _constrain_heads(as_heads(v, b, s, nkv, hd))
     q = apply_rope(q, positions, a.rope_theta, a.mrope_sections)
     k = apply_rope(k, positions, a.rope_theta, a.mrope_sections)
     if cache is None:
-        out = flash_attention_op(q, k, v, causal=a.causal, round_scores=True)
+        out = attention_op(q, k, v, a.causal)
         new_cache = None
     else:
         start = int(cache["len"])
@@ -278,18 +530,23 @@ def gqa_fwd(p: GQAttention, cfg: ModelConfig, x, positions, cache: dict | None =
         # dynamic_update_slice_in_dim clamps its start index
         at = min(start, max_s - s)
         new_len = start + s
-        cache["k"][:, at : at + s] = k
-        cache["v"][:, at : at + s] = v
-        if start == 0:
+        _write_cache(cache["k"], k, at)
+        _write_cache(cache["v"], v, at)
+        mesh = get_mesh()
+        tp = compat.mesh_sizes(mesh)["model"] if mesh is not None and "model" in mesh.mesh_dim_names else 0
+        if tp and s == 1 and a.causal and nkv % tp != 0 and max_s % tp == 0:
+            # heads not shardable: the cache is sequence-sharded
+            out = _decode_attn_seq_sharded(q, cache["k"], cache["v"], new_len, mesh)
+        elif start == 0:
             # a whole prompt from position 0: the reference's masked _sdpa
             # over the cache is exactly attention over the s new tokens
-            out = flash_attention_op(q, k, v, causal=a.causal, round_scores=True)
+            out = attention_op(q, k, v, a.causal)
         else:
             # positions past new_len are masked in the reference; they add
             # exp(finfo.min - max) = 0 to the softmax, so they are cut here
             # (past the cache's end the slice is the whole cache, all valid)
-            out = _sdpa(q, cache["k"][:, :new_len], cache["v"][:, :new_len], a.causal,
-                        q_offset=start, kv_len=new_len)
+            out = _sdpa_heads(q, _valid(cache["k"], new_len), _valid(cache["v"], new_len), a.causal,
+                              q_offset=start, kv_len=new_len)
         new_cache = {"k": cache["k"], "v": cache["v"], "len": new_len}
     y = out.reshape(b, s, nh * hd) @ p.wo.to(dt)
     return y, new_cache
@@ -341,7 +598,7 @@ def mla_fwd(p: MLAttention, cfg: ModelConfig, x, positions, cache: dict | None =
     dt = x.dtype
     eps = cfg.norm_eps
     cq = p.q_norm(x @ p.wdq.to(dt), eps)
-    q = (cq @ p.wuq.to(dt)).reshape(b, s, nh, a.qk_nope_dim + a.qk_rope_dim)
+    q = _constrain_heads(as_heads(cq @ p.wuq.to(dt), b, s, nh, a.qk_nope_dim + a.qk_rope_dim))
     q_nope, q_rope = q.split([a.qk_nope_dim, a.qk_rope_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, a.rope_theta)
 
@@ -357,18 +614,18 @@ def mla_fwd(p: MLAttention, cfg: ModelConfig, x, positions, cache: dict | None =
             raise ValueError(f"cache holds {max_s} positions, {s} new tokens asked for")
         at = min(start, max_s - s)  # clamped as gqa_fwd clamps it
         new_len = start + s
-        cache["ckv"][:, at : at + s] = ckv
-        cache["k_rope"][:, at : at + s] = k_rope
+        _write_cache(cache["ckv"], ckv, at)
+        _write_cache(cache["k_rope"], k_rope, at)
         # positions past new_len are masked in the reference and add nothing
-        ckv, k_rope = cache["ckv"][:, :new_len], cache["k_rope"][:, :new_len]
+        ckv, k_rope = _valid(cache["ckv"], new_len), _valid(cache["k_rope"], new_len)
         new_cache = {"ckv": cache["ckv"], "k_rope": cache["k_rope"], "len": new_len}
         q_offset, kv_len = start, new_len
 
     sk = ckv.shape[1]
-    k_nope = (ckv @ p.wuk.to(dt)).reshape(b, sk, nh, a.qk_nope_dim)
-    v = (ckv @ p.wuv.to(dt)).reshape(b, sk, nh, a.v_head_dim)
+    k_nope = _constrain_heads(as_heads(ckv @ p.wuk.to(dt), b, sk, nh, a.qk_nope_dim))
+    v = _constrain_heads(as_heads(ckv @ p.wuv.to(dt), b, sk, nh, a.v_head_dim))
     k = torch.cat([k_nope, k_rope.expand(b, sk, nh, a.qk_rope_dim)], dim=-1)
-    out = _sdpa(torch.cat([q_nope, q_rope], dim=-1), k, v, a.causal, q_offset=q_offset, kv_len=kv_len)
+    out = _sdpa_heads(torch.cat([q_nope, q_rope], dim=-1), k, v, a.causal, q_offset=q_offset, kv_len=kv_len)
     y = out.reshape(b, s, nh * a.v_head_dim) @ p.wo.to(dt)
     return y, new_cache
 
@@ -413,13 +670,33 @@ def mlp_fwd(p: MLP, x: torch.Tensor, activation: str) -> torch.Tensor:
     elif activation == "sq_relu":  # Nemotron-4: squared ReLU
         h = torch.square(F.relu(up))
         # K3 skips the all-zero tiles of the squared-ReLU activations
-        y = zskip_matmul_op(h.reshape(-1, h.shape[-1]), p.w_down.to(dt))
+        y = _zskip(h.reshape(-1, h.shape[-1]), p.w_down.to(dt), h.shape[0])
         return y.reshape(*h.shape[:-1], y.shape[-1])
     elif activation == "gelu":
         h = F.gelu(up, approximate="tanh")
     else:
         raise ValueError(activation)
     return h @ p.w_down.to(dt)
+
+
+def _zskip(a: torch.Tensor, w: torch.Tensor, batch: int) -> torch.Tensor:
+    """K3 on (M, K) @ (K, N), M the flattened (batch, seq); DTensors go
+    through a ``shard_map`` over rows (the DP axes, where they divide the
+    batch) and, where 'model' divides K, over K too, the partial products
+    summed by a ``psum`` (the row-parallel product)."""
+    if not isinstance(a, DTensor):
+        return zskip_matmul_op(a, w)
+    mesh = a.device_mesh
+    tp = compat.mesh_sizes(mesh).get("model", 1)
+    kspec = "model" if tp > 1 and a.shape[1] % tp == 0 else None
+    rows = _dp_spec(mesh, batch)
+
+    def local(al, wl):
+        y = zskip_matmul_op(al, wl)
+        return compat.psum(y, "model") if kspec else y
+
+    return compat.shard_map(local, mesh=mesh, in_specs=(P(rows, kspec), P(kspec, None)),
+                            out_specs=P(rows, None))(a, w)
 
 
 # ----------------------------------------------------------------------- MoE
@@ -588,8 +865,16 @@ def _moe_capacity(cfg: ModelConfig, n_tok: int, n_phys: int) -> int:
 
 
 def moe_fwd(p: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Capacity-bucketed top-k MoE with optional expert replication, the
-    reference's local path (one device, no mesh)."""
+    """Capacity-bucketed top-k MoE with optional expert replication.  Three
+    paths, as the reference's: local (no mesh), EP (the slots over
+    ``moe_ep_axes``; tokens over the DP axes and 'model'; local routing,
+    then ``all_to_all`` to each slot's owner and back; n_phys must divide,
+    which replication can arrange) and TP (each expert's ff dim over
+    'model', or ('data', 'model') with ``serve_ff_2d``; routing replicated
+    per data shard; the down-projection ``psum``ed)."""
+    mesh = get_mesh()
+    if mesh is not None and "model" in mesh.mesh_dim_names:
+        return _moe_mesh(p, cfg, x, mesh)
     b, s, d = x.shape
     n_phys = sum(_replication(cfg))
     xt = x.reshape(b * s, d)
@@ -598,3 +883,75 @@ def moe_fwd(p: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.moe.n_shared:
         y = y + mlp_fwd(p.shared, xt, cfg.activation)
     return y.reshape(b, s, d)
+
+
+def _moe_mesh(p: MoE, cfg: ModelConfig, x: torch.Tensor, mesh) -> torch.Tensor:
+    """``moe_fwd``'s EP and TP paths (the reference's ``shard_map``s)."""
+    from ..distrib.sharding import moe_ep_axes
+
+    m = cfg.moe
+    b, s, d = x.shape
+    n_phys = sum(_replication(cfg))
+    sizes = compat.mesh_sizes(mesh)
+    dp = tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
+    tp = sizes["model"]
+    dp_n = math.prod(sizes[a] for a in dp) if dp else 1
+    batch_ok = b % dp_n == 0
+    bspec = dp if batch_ok else None
+    experts = dict(p.experts.named_parameters())
+    shared = dict(p.shared.named_parameters()) if m.n_shared else {}
+
+    def mlp_shared(sh, xt):
+        return mlp_fwd(SimpleNamespace(**sh), xt, cfg.activation)
+
+    ep = moe_ep_axes(cfg, mesh, seq_len=s)
+    if ep:
+        seq_split = tp if s % tp == 0 else 1
+        n_local = (b // dp_n if batch_ok else b) * (s // seq_split)
+        cap = _moe_capacity(cfg, n_local, n_phys)
+
+        def ep_local(xl, router, ex, sh):
+            bl, sl, _ = xl.shape
+            xt = xl.reshape(bl * sl, d)
+            expert_in, state = _route_and_bucket(SimpleNamespace(router=router), cfg, xt, n_phys, cap)
+            # each slot's bucket to its owner: (n_phys / ep_n, cap * ep_n, d)
+            expert_in = compat.all_to_all(expert_in, ep, split_axis=0, concat_axis=1)
+            expert_out = _expert_ffn(SimpleNamespace(**ex), expert_in, cfg.activation)
+            expert_out = compat.all_to_all(expert_out, ep, split_axis=1, concat_axis=0)  # (n_phys, cap, d)
+            y = _combine(expert_out, state, d)
+            if m.n_shared:
+                y = y + mlp_shared(sh, xt)
+            return y.reshape(bl, sl, d)
+
+        x_spec = P(bspec, "model" if seq_split > 1 else None, None)
+        return compat.shard_map(
+            ep_local,
+            mesh=mesh,
+            in_specs=(x_spec, P(None, None), P(ep, None, None), P(None, None)),
+            out_specs=x_spec,
+        )(x, p.router, experts, shared)
+
+    ff_2d = m.serve_ff_2d and "data" in sizes and m.d_ff_expert % (sizes["data"] * tp) == 0
+    ff_axes = ("data", "model") if ff_2d else ("model",)
+    x_spec = P(None, None, None) if ff_2d else P(bspec, None, None)
+    n_local = b * s if ff_2d else (b // dp_n if batch_ok else b) * s
+    cap = _moe_capacity(cfg, n_local, n_phys)
+
+    def tp_local(xl, router, ex, sh):
+        bl, sl, _ = xl.shape
+        xt = xl.reshape(bl * sl, d)
+        expert_in, state = _route_and_bucket(SimpleNamespace(router=router), cfg, xt, n_phys, cap)
+        expert_out = compat.psum(_expert_ffn(SimpleNamespace(**ex), expert_in, cfg.activation), ff_axes)
+        y = _combine(expert_out, state, d)
+        if m.n_shared:
+            y = y + mlp_shared(sh, xt)  # replicated weights
+        return y.reshape(bl, sl, d)
+
+    expert_specs = {k: P(None, None, ff_axes) if w.shape[-1] == m.d_ff_expert else P(None, ff_axes, None)
+                    for k, w in experts.items()}
+    return compat.shard_map(
+        tp_local,
+        mesh=mesh,
+        in_specs=(x_spec, P(None, None), expert_specs, P(None, None)),
+        out_specs=x_spec,
+    )(x, p.router, experts, shared)

@@ -73,7 +73,9 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 
 from .. import resolve_device
 from .config import ModelConfig
-from .layers import MLP, GQAttention, MLAttention, MoE, RMSNorm, _dense, init_gqa_cache, init_mla_cache
+from .layers import (MLP, GQAttention, MLAttention, MoE, RMSNorm, _dense, embed_lookup, gold_logits,
+                     init_gqa_cache, settle,
+                     init_mla_cache)
 from .ssm import Mamba2, init_mamba2_cache, mamba2_step
 
 __all__ = ["LM", "Block", "SSMBlock", "forward", "init_cache", "init_params", "loss_fn"]
@@ -154,9 +156,9 @@ class Block(nn.Module):
     def forward(self, x, positions, cache=None):
         eps = self.cfg.norm_eps
         h, new_cache = self.attn(self.attn_norm(x, eps), positions, cache)
-        x = x + h
+        x = x + settle(h)
         ffn = self.moe if self.cfg.family == "moe" else self.mlp
-        x = x + ffn(self.mlp_norm(x, eps))
+        x = x + settle(ffn(self.mlp_norm(x, eps)))
         return x, new_cache
 
 
@@ -174,15 +176,15 @@ class SSMBlock(nn.Module):
         z = self.norm(x, self.cfg.norm_eps)
         if cache is None:
             h, _ = self.mamba(z)
-            return x + h, None
+            return x + settle(h), None
         if x.shape[1] == 1:
             h, cache = mamba2_step(self.mamba, self.cfg, z, cache)
-            return x + h, cache
+            return x + settle(h), cache
         # prefill with a cache: carry the SSM state out; the conv windows
         # stay as they were (the reference's behaviour, ROADMAP.md F4)
         h, S = self.mamba(z, init_state=cache["ssm"].to(z.dtype))
         cache["ssm"].copy_(S)
-        return x + h, cache
+        return x + settle(h), cache
 
 
 class LM(nn.Module):
@@ -206,7 +208,7 @@ class LM(nn.Module):
         """(logits (b, s, vocab) in ``cfg.dtype``, cache).  tokens: (b, s)
         integer ids on the parameters' device."""
         cfg = self.cfg
-        x = self.embed[tokens].to(_dtype(cfg))
+        x = embed_lookup(self.embed, tokens).to(_dtype(cfg))
         b, s, _ = x.shape
         if positions is None:
             base = 0
@@ -380,7 +382,7 @@ def loss_fn(params: LM, cfg: ModelConfig, tokens, targets, z_loss: float = 1e-4)
     logits, _ = forward(params, cfg, tokens)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    gold = gold_logits(logits, targets)
     n = lse.numel()
     loss = (lse - gold).sum() / n
     if z_loss:

@@ -19,7 +19,10 @@ Everything computes in the activations' type except where the reference
 leaves it: ``dt`` is ``softplus(dt.f32 + dt_bias)`` cast back, and K5
 works in float32 inside (its chunk states are cast back to the
 activations' type before the recurrence, as the reference's einsum leaves
-them).  ``mamba2_step`` writes the decode cache in place.
+them).  ``mamba2_step`` writes the decode cache in place.  Under a mesh
+(DTensors), ``ssd_chunked`` and ``ssd_step`` run in a
+``distrib.compat.shard_map`` over heads (and the DP axes over the batch),
+so that K5 takes local tensors.
 """
 
 from __future__ import annotations
@@ -27,10 +30,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
+from ..distrib import compat
+from ..distrib.compat import P
 from ..kernels.ops import ssd_chunk_op
 from .config import ModelConfig
-from .layers import RMSNorm, _dense, _param, rmsnorm
+from .layers import RMSNorm, _dense, _dp_spec, _param, as_heads, rmsnorm, settle
 
 __all__ = [
     "Mamba2",
@@ -45,7 +51,33 @@ __all__ = [
 # ------------------------------------------------------------------ SSD core
 
 
-def ssd_chunked(
+def _heads(x: torch.Tensor, h: int):
+    """(rows spec, heads spec) of a DTensor with h heads: the DP axes over
+    the batch, 'model' over the heads where it divides them."""
+    mesh = x.device_mesh
+    tp = compat.mesh_sizes(mesh).get("model", 1)
+    return _dp_spec(mesh, x.shape[0]), ("model" if tp > 1 and h % tp == 0 else None)
+
+
+def ssd_chunked(x, dt, A, B, C, chunk: int = 128, init_state=None):
+    """Chunked state-space-duality scan (``_ssd_chunked``); DTensors in a
+    ``shard_map`` over heads, so that K5 takes local tensors."""
+    if not isinstance(x, DTensor):
+        return _ssd_chunked(x, dt, A, B, C, chunk, init_state)
+    rows, hs = _heads(x, x.shape[2])
+    specs = (P(rows, None, hs, None), P(rows, None, hs), P(hs), P(rows, None, None), P(rows, None, None))
+    args = (x, dt, A, B, C)
+    if init_state is not None:
+        specs, args = specs + (P(rows, hs, None, None),), args + (init_state,)
+    return compat.shard_map(
+        lambda xl, dtl, al, bl, cl, s0=None: _ssd_chunked(xl, dtl, al, bl, cl, chunk, s0),
+        mesh=x.device_mesh,
+        in_specs=specs,
+        out_specs=(P(rows, None, hs, None), P(rows, hs, None, None)),
+    )(*args)
+
+
+def _ssd_chunked(
     x: torch.Tensor,  # (b, s, h, p)   inputs (already conv'd / activated)
     dt: torch.Tensor,  # (b, s, h)      softplus'd step sizes
     A: torch.Tensor,  # (h,)           negative decay rates
@@ -102,7 +134,21 @@ def ssd_chunked(
     return y[:, :s], S
 
 
-def ssd_step(
+def ssd_step(state, x, dt, A, B, C):
+    """Single-token recurrence (``_ssd_step``); DTensors in a ``shard_map``
+    over heads."""
+    if not isinstance(x, DTensor):
+        return _ssd_step(state, x, dt, A, B, C)
+    rows, hs = _heads(x, x.shape[1])
+    return compat.shard_map(
+        _ssd_step,
+        mesh=x.device_mesh,
+        in_specs=(P(rows, hs, None, None), P(rows, hs, None), P(rows, hs), P(hs), P(rows, None), P(rows, None)),
+        out_specs=(P(rows, hs, None), P(rows, hs, None, None)),
+    )(state, x, dt, A, B, C)
+
+
+def _ssd_step(
     state: torch.Tensor,  # (b, h, n, p)
     x: torch.Tensor,  # (b, h, p)
     dt: torch.Tensor,  # (b, h)
@@ -171,13 +217,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
 
 def _project(p: Mamba2, x: torch.Tensor):
     dt_ = x.dtype
-    return (
-        x @ p.wz.to(dt_),
-        x @ p.wx.to(dt_),
-        x @ p.wB.to(dt_),
-        x @ p.wC.to(dt_),
-        x @ p.wdt.to(dt_),
-    )
+    return tuple(settle(x @ w.to(dt_)) for w in (p.wz, p.wx, p.wB, p.wC, p.wdt))
 
 
 def mamba2_fwd(p: Mamba2, cfg: ModelConfig, x: torch.Tensor, init_state=None):
@@ -192,7 +232,7 @@ def mamba2_fwd(p: Mamba2, cfg: ModelConfig, x: torch.Tensor, init_state=None):
     C = _causal_conv(C, p.conv_C_w, p.conv_C_b)
     dt = F.softplus(dt.float() + p.dt_bias).to(x.dtype)
     A = -torch.exp(p.A_log).to(x.dtype)
-    xh = xin.reshape(b, s, nh, s_cfg.head_dim)
+    xh = as_heads(xin, b, s, nh, s_cfg.head_dim)
     y, S = ssd_chunked(xh, dt, A, B, C, chunk=s_cfg.chunk, init_state=init_state)
     y = y + p.D.to(x.dtype)[None, None, :, None] * xh
     y = y.reshape(b, s, di)
@@ -238,7 +278,7 @@ def mamba2_step(p: Mamba2, cfg: ModelConfig, x: torch.Tensor, cache: dict):
     C, conv_C = _conv_step(cache["conv_C"], C, p.conv_C_w, p.conv_C_b)
     dt1 = F.softplus(dt.float() + p.dt_bias).to(x.dtype)
     A = -torch.exp(p.A_log).to(x.dtype)
-    xh = xin.reshape(b, nh, s_cfg.head_dim)
+    xh = as_heads(xin, b, nh, s_cfg.head_dim)
     y, S = ssd_step(cache["ssm"].to(x.dtype), xh, dt1, A, B, C)
     y = y + p.D.to(x.dtype)[None, :, None] * xh
     y = y.reshape(b, 1, di)

@@ -183,5 +183,14 @@ def test_init_error_feedback_shapes():
 
 
 def test_compressed_psum_needs_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcomp.compressed_psum(torch.zeros(3), "pod", 2)
+    """One rank (no process group): the int8 ring has no hop, so the mean
+    is the dequantised tensor and the error what quantising lost, x - q *
+    scale rounded once, as XLA fuses the reference's expression (the
+    multi-rank ring is ``test_torch_compress_dist.py``'s)."""
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((5, 7)).astype(np.float32))
+    mean, err = tcomp.compressed_psum(x)
+    q, scale = tcomp.quantize_int8(x)
+    assert mean.dtype == x.dtype and err.dtype == torch.float32
+    assert torch.equal(mean, tcomp.dequantize_int8(q, scale))
+    assert torch.equal(err, (x.double() - q.double() * scale.double()).float())
+    assert float(err.abs().max()) <= float(scale) / 2

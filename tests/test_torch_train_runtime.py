@@ -15,7 +15,8 @@ trainer against the reference.
   ``FaultInjector.from_trace`` over the port's failure generator equal to
   the reference's.
 * ``launch.train.main`` on the host: a run with ``--ckpt``, a ``--resume``,
-  the reference's JSON keys, and the refusals (enc-dec, ``--production-mesh``).
+  the reference's JSON keys, the enc-dec refusal, and ``--production-mesh``
+  raising from ``make_production_mesh`` in one process.
 """
 
 import contextlib
@@ -379,5 +380,6 @@ def test_launch_train_on_host(tmp_path):
     assert np.isfinite(json.loads(lines[-1])["last_loss"])
     with pytest.raises(SystemExit, match="enc-dec"):
         ltrain.main(["--arch", "whisper-medium", "--smoke", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the production mesh needs 256 ranks (torchrun); one process names the world size it found
+    with pytest.raises(RuntimeError, match="256 ranks, found world size 1"):
         ltrain.main(["--arch", "glm4-9b", "--smoke", "--production-mesh", "--device", "cpu"])

@@ -113,11 +113,38 @@ def test_missing_gradient_fails_the_step(monkeypatch):
 
 @pytest.mark.parametrize("fn", ["make_compressed_train_step", "make_encdec_train_step"])
 def test_later_slices_raise(fn):
-    """The compressed step still waits for the distrib slice; the enc-dec
-    factories (ported with models.encdec) return their steps."""
+    """The factories of later slices return working steps: the compressed
+    step (slice 13) trains at pod 1, on a (1, 1, 1) mesh over a one-rank
+    gloo group, its error feedback within half a quantum of each gradient
+    (the reference's ring at pods 1 and 2 is ``test_torch_compress_dist.py``'s);
+    the enc-dec factories (ported with models.encdec) return their steps."""
     if fn == "make_compressed_train_step":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tstep.make_compressed_train_step(get_config("glm4-9b", smoke=True), AdamWConfig(), None)
+        import torch.distributed as dist
+
+        from repro_torch.distrib.sharding import distribute, param_specs
+        from repro_torch.launch.mesh import make_device_mesh
+        from repro_torch.optim.compress import init_error_feedback
+
+        cfg = get_config("glm4-9b", smoke=True).with_(dtype="float32")
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+        try:
+            mesh = make_device_mesh((1, 1, 1), ("pod", "data", "model"), "cpu")
+            model = tlm.init_params(cfg, device="cpu")
+            state, ef = adamw_init(model), init_error_feedback(model)
+            before = {k: p.detach().clone() for k, p in model.named_parameters()}
+            distribute(model, param_specs(cfg, model, mesh), mesh)
+            step = tstep.make_compressed_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10), mesh)
+            losses = []
+            for s in range(2):
+                toks, tgts = batch(cfg.vocab, seed=s)
+                model, state, ef, m = step(model, state, ef, {"tokens": torch.from_numpy(toks),
+                                                            "targets": torch.from_numpy(tgts)})
+                losses.append(float(m["loss"]))
+            assert np.isfinite(losses).all() and int(state["step"]) == 2
+            assert all(not torch.equal(p.full_tensor(), before[k]) for k, p in model.named_parameters())
+            assert any(float(e.full_tensor().abs().max()) > 0 for e in ef.values())
+        finally:
+            dist.destroy_process_group()
         return
     cfg = get_config("whisper-medium", smoke=True)
     for step in (tstep.make_encdec_train_step(cfg, AdamWConfig()), tstep.make_encdec_prefill_step(cfg),
