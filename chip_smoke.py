@@ -1778,18 +1778,44 @@ def vt_chain_ns(device, with_min=True, iters=1 << 22) -> float:
     return ms * 1e6 / iters
 
 
+def vt_paths(lanes, blocks, jobs, n, conc, chain):
+    """(critical-path job steps, its ns, serial job steps) of a launch's
+    longest config: the longest dependency path through the (request,
+    layer) grid (``kernels.vtime_scan.critical_path``), each job priced at
+    the probe's add alone where every pool of its layer has at most one
+    server, else add + min (``chain`` = (add + min ns, add ns)); the serial
+    chain is every job of a config one after another (N x sum_l jobs_l), the
+    bound before stages."""
+    import numpy as np
+
+    from repro_torch.kernels.vtime_scan import chain_weights, critical_path
+
+    jobs = np.broadcast_to(np.asarray(jobs, dtype=np.int64), (lanes.shape[0], len(blocks)))
+    w = chain_weights(lanes, blocks, chain[1], chain[0])
+    keys = {(tuple(j), tuple(x)) for j, x in zip(jobs.tolist(), w.tolist())}
+    crit_ns = max(critical_path(j, n, conc, x) for j, x in keys)
+    crit_steps = max(critical_path(j, n, conc) for j in {k[0] for k in keys})
+    return int(crit_steps), crit_ns, int(n * jobs.sum(axis=1).max())
+
+
+def stage_jobs(plan, jobs):
+    """Each stage's jobs a request (the most over configs) under ``plan``."""
+    import numpy as np
+
+    top = np.asarray(jobs, dtype=np.int64).reshape(-1, plan.split[-1]).max(axis=0)
+    return [int(top[a:b].sum()) for a, b in zip(plan.split[:-1], plan.split[1:])]
+
+
 def vt_work(args, kw):
-    """(serial job steps of the longest config, bytes a call must move, FP64
-    operations this run's data needs) for one VT call: a config's chain is
-    N x sum_l P_l jobs; the bytes are the sample indices, the tables, the
-    lanes, variants, arrivals and transfers read once and the outputs
-    written once; the operations are, per job and pool with d servers, one
-    add and d max + d min (pools without servers do none)."""
+    """(bytes a call must move, FP64 operations this run's data needs) for
+    one VT call: the sample indices, the tables, the lanes, variants,
+    arrivals and transfers read once and the outputs written once; the
+    operations are, per job and pool with d servers, one add and d max + d
+    min (pools without servers do none)."""
     tables, idx, variant, lanes = args
     n = kw["n_requests"]
     C = variant.shape[0]
     patches = [int(i.shape[1]) for i in idx]
-    steps = n * sum(patches)
     nbytes = sum(t.numel() * 8 for t in tables) + sum(i.numel() * 4 for i in idx) + lanes.numel() * 4 + C * 4
     for key in ("arrivals", "xfer"):
         if kw.get(key) is not None:
@@ -1802,52 +1828,67 @@ def vt_work(args, kw):
         d = ln[:, off : off + b]
         off += b
         ops += n * p * int(((1 + 2 * d) * (d > 0)).sum())
-    return steps, nbytes, ops
+    return nbytes, ops
 
 
 def vt_numbers(call, chain_ns, reps):
     """VT on one recorded call's inputs: ms through the wrapper (with its
     checks) and alone (the packed problem, CUDA events), and its bound: the
-    larger of the chain (the longest config's serial jobs x one dependent
-    FP64 add + min) and the bytes at the memory's rate."""
+    larger of the critical path (``vt_paths``) and the bytes at the
+    memory's rate.  The old serial chain (every job of the longest config
+    one after another at one add + min) is kept beside it.  No launch may
+    read below its bound."""
     from repro_torch.kernels import vtime_scan as vtk
 
     args, kw = call
     saved = vtk.vtime_scan.launches
     ms = timed(lambda: vtk.vtime_scan(*args, **kw), reps=reps)
+    stats = kw.get("collect_stats", False)
     packed = vtk._pack(vtk._prepare(*args, kw["n_requests"], kw.get("arrivals"), kw.get("concurrency"),
-                                    kw.get("xfer")))
-    kernel_ms = timed(lambda: vtk._launch(packed, kw.get("collect_stats", False)), reps=reps)
+                                    kw.get("xfer")), stats)
+    kernel_ms = timed(lambda: vtk._launch(packed, stats), reps=reps)
     vtk.vtime_scan.launches = saved
-    steps, nbytes, ops = vt_work(args, kw)
-    chain_ms = steps * chain_ns * 1e-6
+    nbytes, ops = vt_work(args, kw)
+    lanes = args[3].cpu().numpy()
+    blocks = [t.shape[2] for t in args[0]]
+    patches = [int(i.shape[1]) for i in args[1]]
+    crit_steps, crit_ns, steps = vt_paths(lanes, blocks, patches, kw["n_requests"], kw.get("concurrency"), chain_ns)
+    chain_ms, serial_ms = crit_ns * 1e-6, steps * chain_ns[0] * 1e-6
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return dict(ms=ms, kernel_ms=kernel_ms, steps=steps, nbytes=nbytes, ops=ops, chain_ms=chain_ms,
-                bytes_ms=bytes_ms, ops_ms=ops / FP64_OPS_PER_S * 1e3, bound_ms=max(chain_ms, bytes_ms),
-                bound_by="operations" if chain_ms >= bytes_ms else "bytes", configs=args[2].shape[0],
-                plan=packed.plan)
+    out = dict(ms=ms, kernel_ms=kernel_ms, steps=steps, crit_steps=crit_steps, nbytes=nbytes, ops=ops,
+               chain_ms=chain_ms, serial_ms=serial_ms, bytes_ms=bytes_ms, ops_ms=ops / FP64_OPS_PER_S * 1e3,
+               bound_ms=max(chain_ms, bytes_ms), bound_by="operations" if chain_ms >= bytes_ms else "bytes",
+               configs=args[2].shape[0], plan=packed.plan, stage_jobs=stage_jobs(packed.plan, patches))
+    check(kernel_ms >= out["bound_ms"], f"VT read {kernel_ms:.4f} ms, below its bound {out['bound_ms']:.4f} ms")
+    return out
+
+
+def plan_text(n):
+    p = n["plan"]
+    return (f"S {p.stages}, split {list(p.split)} (jobs a request by stage {n['stage_jobs']}), {p.threads} threads "
+            f"({p.consumer_warps} warps on the pools, {p.loader_warps} staging), KMAX {p.kmax}, chunks of {p.chunk}, "
+            f"{p.state_stride} lanes of state a stage in {'shared' if p.smem_state else 'global'} memory")
 
 
 def vt_line(gpu, label, n, cold_s=None, warm_s=None):
     extra = ""
     if warm_s is not None:
         extra = f"; run_batch {warm_s * 1e3:.3f} ms warm, {cold_s * 1e3:.3f} ms cold (host clock, synchronised)"
-    print(f"{gpu}: VT {label}: {n['configs']} configs, {n['steps']} serial job steps each "
-          f"({n['plan'].threads} threads, {n['plan'].consumer_warps} warps on the pools, KMAX {n['plan'].kmax}, "
-          f"chunks of {n['plan'].chunk}, "
-          f"{n['plan'].state_stride} lanes of state in "
-          f"{'shared' if n['plan'].smem_state else 'global'} memory): {n['kernel_ms']:.4f} ms alone, "
-          f"{n['ms']:.4f} ms through the wrapper; {n['steps'] / (n['kernel_ms'] * 1e-3):.4e} job steps/s a config; "
-          f"bound {n['bound_ms']:.4f} ms ({n['bound_by']}: chain {n['chain_ms']:.4f} ms, bytes "
-          f"{n['bytes_ms']:.4f} ms for {n['nbytes']} B, all FP64 work {n['ops_ms']:.4f} ms for {n['ops']:.4e} ops "
-          f"at {FP64_OPS_PER_S / 1e12:.0f} TFLOP/s), alone at {n['kernel_ms'] / n['bound_ms']:.2f}x the bound{extra}")
+    print(f"{gpu}: VT {label}: {n['configs']} configs ({plan_text(n)}): {n['kernel_ms']:.4f} ms alone, "
+          f"{n['ms']:.4f} ms through the wrapper; {n['steps'] / (n['kernel_ms'] * 1e-3):.4e} job steps/s a config; bound {n['bound_ms']:.4f} ms ({n['bound_by']}: critical path "
+          f"{n['crit_steps']} job steps, {n['chain_ms']:.4f} ms; bytes {n['bytes_ms']:.4f} ms for {n['nbytes']} B; "
+          f"all FP64 work {n['ops_ms']:.4f} ms for {n['ops']:.4e} ops at {FP64_OPS_PER_S / 1e12:.0f} TFLOP/s), alone "
+          f"at {n['kernel_ms'] / n['bound_ms']:.2f}x the bound; old serial chain {n['steps']} job steps, "
+          f"{n['serial_ms']:.4f} ms (alone at {n['kernel_ms'] / n['serial_ms']:.2f}x it){extra}")
 
 
 def vt_lane_costs(gpu, dev, clock_hz):
     """VT's cost by path on synthetic problems (random integer cycles, one
-    config, 100 Poisson requests): cycles a job for one pool of d servers
-    and 1,024 jobs a request (a thread runs d <= 8, a warp more), and
-    cycles a (request, layer) for 20 layers of one one-job pool."""
+    config, 100 Poisson requests, one stage): cycles a job for one pool of
+    d servers and 1,024 jobs a request (a thread runs d <= 8, a warp more,
+    in registers up to 1,024: 512 is the widest of the KMAX 16 build, 686
+    F8's widest pool, in the KMAX 32 build), and cycles a (request, layer)
+    for 20 layers of one one-job pool."""
     import numpy as np
     import torch
 
@@ -1863,15 +1904,15 @@ def vt_lane_costs(gpu, dev, clock_hz):
         arr = torch.as_tensor(np.cumsum(rng.exponential(1e4, (1, n)), axis=1), device=dev)
         saved = vtk.vtime_scan.launches
         packed = vtk._pack(vtk._prepare(tables, idx, torch.zeros(1, dtype=torch.int32, device=dev), lanes, n, arr,
-                                        None, None))
+                                        None, None), stages=1)
         ms = timed(lambda: vtk._launch(packed, False), reps=3)
         vtk.vtime_scan.launches = saved
         return ms * 1e-3 * clock_hz / n
 
-    per_job = {d: ms_of(1, 1024, d) / 1024 for d in (1, 2, 4, 8, 32, 64, 128, 256)}
+    per_job = {d: ms_of(1, 1024, d) / 1024 for d in (1, 2, 4, 8, 32, 64, 128, 256, 512, 686)}
     per_layer = ms_of(20, 1, 1) / 20
-    print(f"{gpu}: VT cycles a job by servers in the pool (one 1,024-job pool; a thread runs <= 8, a warp more): "
-          + ", ".join(f"{d}: {c:.1f}" for d, c in per_job.items())
+    print(f"{gpu}: VT cycles a job by servers in the pool (one 1,024-job pool, one stage; a thread runs <= 8, a "
+          f"warp more): " + ", ".join(f"{d}: {c:.1f}" for d, c in per_job.items())
           + f"; a (request, layer) of one job costs {per_layer:.0f} cycles (staging, barrier, completion)")
     return per_job, per_layer
 
@@ -1894,9 +1935,9 @@ def fabric_phase(gpu, dev):
 
     t_phase = time.perf_counter()
     out = {"launches": {}}
-    chain_ns = vt_chain_ns(dev)
-    print(f"{gpu}: one thread's dependent FP64 add + min: {chain_ns:.3f} ns a step; add alone "
-          f"{vt_chain_ns(dev, with_min=False):.3f} ns")
+    chain_ns = (vt_chain_ns(dev), vt_chain_ns(dev, with_min=False))  # (add + min, add alone)
+    print(f"{gpu}: one thread's dependent FP64 add + min: {chain_ns[0]:.3f} ns a step; add alone "
+          f"{chain_ns[1]:.3f} ns")
 
     profiles = {}
     for name, fn, kw in (("vgg11", T.vgg11_cifar10, FABRIC_VGG_PROFILE), ("resnet18", T.resnet18_imagenet, FABRIC_R18_PROFILE)):
@@ -2152,13 +2193,12 @@ class StreamRecorder:
 
 
 def stream_work(args, kw):
-    """(serial job steps of one config, bytes, FP64 operations) of one
-    streaming VT call: a config's chain is N x sum_l (its layer's jobs:
-    macro-jobs, then the exact tail); the bytes are the tables, lanes and
-    arrivals read once, the carry (lanes, ring, sketch, moments, horizon)
-    read and written once, and the emitted (C, N) pairs written; the
-    operations are, per job and pool with d lanes, one add and d max + d
-    min."""
+    """(jobs a request (C, L), bytes, FP64 operations) of one streaming VT
+    call: a layer's jobs are its macro-jobs, then the exact tail; the bytes
+    are the tables, lanes and arrivals read once, the carry (lanes, ring,
+    sketch, moments, horizon) read and written once, and the emitted (C, N)
+    pairs written; the operations are, per job and pool with d lanes, one
+    add and d max + d min."""
     import numpy as np
 
     tables, variant, lanes, carry = args
@@ -2167,7 +2207,6 @@ def stream_work(args, kw):
     plans = np.ones((variant.shape[0], len(tables), 2), dtype=np.int64) * np.array([1, 0]) \
         if kw.get("plans") is None else np.broadcast_to(np.asarray(kw["plans"]), (variant.shape[0], len(tables), 2))
     jobs = plans[..., 1] + np.asarray(patches)[None, :] - plans[..., 1] * plans[..., 0]  # (C, L)
-    steps = int(n * jobs.sum(axis=1).max())
     nbytes = sum(t.numel() * 8 for t in tables) + lanes.numel() * 4 + variant.numel() * 4
     nbytes += 2 * sum(t.numel() * 8 for t in carry)
     if kw.get("arrivals") is not None:
@@ -2181,21 +2220,34 @@ def stream_work(args, kw):
         d = ln[:, off : off + b]
         off += b
         ops += int((n * jobs[:, li] * ((1 + 2 * d) * (d > 0)).sum(axis=1)).sum())
-    return steps, nbytes, ops
+    return jobs, nbytes, ops
 
 
 def stream_numbers(call, chain_ns, ms, kernel_ms):
     """One recorded streaming launch: its times (through the wrapper and
     alone, from ``StreamRecorder``) beside its bound, the larger of the
-    chain (one config's serial job steps x one dependent FP64 add + min)
-    and the bytes at the memory's rate."""
+    critical path (``vt_paths`` over the plans' jobs) and the bytes at the
+    memory's rate, and the old serial chain.  No launch may read below its
+    bound."""
+    from repro_torch.kernels import vtime_scan as vtk
+
     args, kw = call
-    steps, nbytes, ops = stream_work(args, kw)
-    chain_ms, bytes_ms = steps * chain_ns * 1e-6, nbytes / HBM_BYTES_PER_S * 1e3
-    return dict(ms=ms, kernel_ms=kernel_ms, steps=steps, nbytes=nbytes, ops=ops, chain_ms=chain_ms,
-                bytes_ms=bytes_ms, bound_ms=max(chain_ms, bytes_ms),
-                bound_by="operations" if chain_ms >= bytes_ms else "bytes", n=kw["n_requests"],
-                configs=args[1].shape[0])
+    jobs, nbytes, ops = stream_work(args, kw)
+    tables, variant, lanes = args[:3]
+    p = vtk._prepare_stream(tables, variant, lanes, args[3], kw["n_requests"], kw.get("patches"), kw.get("salts"),
+                            kw.get("idx"), kw.get("plans"), kw.get("r0", 0), kw.get("arrivals"),
+                            kw.get("concurrency"), kw.get("xfer"), kw.get("sketch", (32, 0)))
+    plan = vtk._stream_plan(p)
+    crit_steps, crit_ns, steps = vt_paths(lanes.cpu().numpy(), [t.shape[2] for t in tables], jobs,
+                                          kw["n_requests"], kw.get("concurrency"), chain_ns)
+    chain_ms, serial_ms, bytes_ms = crit_ns * 1e-6, steps * chain_ns[0] * 1e-6, nbytes / HBM_BYTES_PER_S * 1e3
+    out = dict(ms=ms, kernel_ms=kernel_ms, steps=steps, crit_steps=crit_steps, nbytes=nbytes, ops=ops,
+               chain_ms=chain_ms, serial_ms=serial_ms, bytes_ms=bytes_ms, bound_ms=max(chain_ms, bytes_ms),
+               bound_by="operations" if chain_ms >= bytes_ms else "bytes", n=kw["n_requests"],
+               configs=variant.shape[0], plan=plan, stage_jobs=stage_jobs(plan, jobs))
+    check(kernel_ms >= out["bound_ms"],
+          f"vtime_stream read {kernel_ms:.3f} ms, below its bound {out['bound_ms']:.3f} ms")
+    return out
 
 
 def stream_vs_plain(call, n):
@@ -2418,13 +2470,17 @@ def multichip_fleet_phase(gpu, dev, fab):
           f"{fleet.total_stall_cycles.tolist()}; p50/p95/p99 ms hold "
           f"{(fleet.percentiles[0] / 1e5).round(4).tolist()}, grow {(fleet.percentiles[1] / 1e5).round(4).tolist()}")
     for k, sn in enumerate(seg_nums):
-        print(f"{gpu}: fleet segment {k} ({sn['n']} requests, {sn['configs']} configs, {sn['steps']} serial job steps): "
-              f"launch alone {sn['kernel_ms']:.3f} ms, through the wrapper {sn['ms']:.3f} ms; chain bound "
-              f"{sn['chain_ms']:.3f} ms ({sn['steps']} steps x {chain_ns:.3f} ns), bytes {sn['bytes_ms']:.4f} ms; "
-              f"alone at {sn['kernel_ms'] / sn['bound_ms']:.2f}x the bound")
-    print(f"{gpu}: vtime_stream, uncoarsened, {n} requests x 2 configs ({full['steps']} steps): alone "
+        print(f"{gpu}: fleet segment {k} ({sn['n']} requests, {sn['configs']} configs, {plan_text(sn)}): launch "
+              f"alone {sn['kernel_ms']:.3f} ms, through the wrapper {sn['ms']:.3f} ms; bound {sn['bound_ms']:.3f} ms "
+              f"(critical path {sn['crit_steps']} job steps, {sn['chain_ms']:.3f} ms; bytes {sn['bytes_ms']:.4f} ms); "
+              f"alone at {sn['kernel_ms'] / sn['bound_ms']:.2f}x the bound; old serial chain {sn['steps']} steps x "
+              f"{chain_ns[0]:.3f} ns = {sn['serial_ms']:.3f} ms ({sn['kernel_ms'] / sn['serial_ms']:.2f}x)")
+    print(f"{gpu}: vtime_stream, uncoarsened, {n} requests x 2 configs ({plan_text(full)}): alone "
           f"{full['kernel_ms']:.3f} ms, through the wrapper {full['ms']:.3f} ms, bound {full['bound_ms']:.3f} ms "
-          f"({full['bound_by']}), {full['steps'] / (full['kernel_ms'] * 1e-3):.4e} job steps/s a config")
+          f"({full['bound_by']}: critical path {full['crit_steps']} job steps), alone at "
+          f"{full['kernel_ms'] / full['bound_ms']:.2f}x; old serial chain {full['steps']} steps, "
+          f"{full['serial_ms']:.3f} ms ({full['kernel_ms'] / full['serial_ms']:.2f}x); "
+          f"{full['steps'] / (full['kernel_ms'] * 1e-3):.4e} job steps/s a config")
     out.update(stream=full, stream_plain_ms=plain_s * 1e3, stream_err=stream_err, fleet_s=fleet_s, segs=seg_nums,
                plain_n=FLEET_PLAIN_REQUESTS)
 
@@ -4728,6 +4784,8 @@ def main() -> int:
         "bound_ms": fab["tail"]["bound_ms"],
         "bound_by": fab["tail"]["bound_by"],
         "library_ms": None,
+        "stages": fab["tail"]["plan"].stages,
+        "serial_chain_ms": fab["tail"]["serial_ms"],  # the bound before stages: every job one after another
         "resnet18_kernel_ms": fab["r18"]["kernel_ms"],
         "resnet18_bound_ms": fab["r18"]["bound_ms"],
         "fused_kernel_ms": fab["fused"]["kernel_ms"],
@@ -4748,6 +4806,8 @@ def main() -> int:
         "plain_requests": mcf["plain_n"],
         "bound_ms": mcf["stream"]["bound_ms"],
         "bound_by": mcf["stream"]["bound_by"],
+        "stages": mcf["stream"]["plan"].stages,
+        "serial_chain_ms": mcf["stream"]["serial_ms"],
         "library_ms": None,
         "segment_kernel_ms": [x["kernel_ms"] for x in mcf["segs"]],
         "segment_bound_ms": [x["bound_ms"] for x in mcf["segs"]],

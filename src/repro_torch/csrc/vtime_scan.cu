@@ -25,96 +25,140 @@
 // dispatched (busy) and the queue waits f_0 - t (wait), (C, L).
 //
 // Exactness.  Completions are bit-identical to the reference's engines:
-// every operation is an IEEE double add (__dadd_rn), min or max, in the
-// reference's order per job, and max is exact in any order.  Pools with no
-// servers (the layer-wise dataflow's pools 1.. in the fused sweep's variant
-// table) hold only +inf lanes, which no job changes, so they are skipped.
-// The busy and wait sums are taken per thread, then per warp, then per
-// block, an order other than the reference's: they agree to rtol 1e-12.
-// The library is compiled with --fmad=false besides.
+// every operation is an IEEE double add (__dadd_rn), a compare or a select,
+// in the reference's order per job, and max is exact in any order.  With
+// sorted lanes and end >= f_0, min(max(f_k, end), f_{k+1}) is
+//     (f_{k+1} < end) ? f_{k+1} : (f_k < end) ? end : f_k,
+// one compare a lane (f_{k+1} < end is the next lane's compare) and two
+// selects, the same value bit for bit.  Pools with no servers hold only
+// +inf lanes, which no job changes, so they are skipped.  The busy and wait
+// sums are taken per thread, then per warp, then per stage, an order other
+// than the reference's: they agree to rtol 1e-12.  The library is compiled
+// with --fmad=false besides.
 //
-// What bounds it: latency.  The jobs of one pool are a serial chain (each
-// takes lane 0 of the state the previous one left), and the layers of one
-// request are serial, so a config is one chain of sum_l P_l jobs a request;
-// the configs are independent.  A job costs one dependent FP64 add and a
-// min on that chain: service times are >= 0 (the wrapper checks), so the
-// job's end is >= lane 0 and lane 0's sorted insert is min(end, f_1).  The
-// design:
-//   * one block per config; the pools of a layer run in parallel, with a
-//     __syncthreads per staged chunk and one per (request, layer), for the
-//     layer's completion;
+// What bounds it: latency along the critical path.  The jobs of one pool
+// are a serial chain (each takes lane 0 of the state the previous one
+// left), each link an add and a min (an add alone for one server).  Request
+// r at layer l depends on r at layer l-1 (its ready time) and on r-1 at
+// layer l (the pools' state), and a closed loop adds r - conc at the last
+// layer before r at layer 0; so the layers of a config form a wavefront,
+// and its time is the longest path through that (r, l) grid, not the sum
+// of every job (kernels/vtime_scan.py critical_path).  The design:
+//   * a config runs on a thread-block cluster of S blocks (S <= 8), its
+//     layers split into S contiguous stages (the host balances the stages'
+//     work).  Each stage's block holds its own layers' pool state and
+//     stages its own service times.  A stage hands each request's ready
+//     time (and its arrival) to the next stage through a ring of slots in
+//     the next block's shared memory (distributed shared memory), with a
+//     release / acquire count a side and a credit back, so no slot is
+//     overwritten unread; a closed loop's last stage publishes completions
+//     to stage 0 the same way.  Stage s runs request r while stage s+1 runs
+//     request r-1;
+//   * in a stage block, consumer warps run the pools and loader warps stage
+//     service times into a ring of four chunk buffers, a loader warp a
+//     chunk, signalled by each buffer's ready count and each consumer
+//     warp's done count, so the loaders run up to three chunks ahead of the
+//     slowest warp
+//     and the consumers meet no block-wide barrier: one barrier of the
+//     consumers a (request, layer), for the layer's completion;
 //   * a pool of at most 8 servers runs on one thread, its lanes in
 //     registers (1, 2, 4 or 8; one server is a plain running sum); a wider
-//     pool runs on a whole warp, 1 to 16 lanes a thread, lane 0 broadcast
-//     by a shuffle and each thread's upper neighbour lane by another; the
-//     kernel is built for the widest pool of a launch (KMAX 1, 4, 16, or 32
-//     lanes a thread), so narrower launches keep fewer registers;
-//   * min and max are a compare and a select (fmin / fmax add NaN handling,
-//     four instructions each; there are no NaNs here);
-//   * the service times are staged in shared memory a chunk of jobs at a
-//     time by the whole block (every (job, pool) load of the chunk in
-//     flight together: the sample index, then the cycle row, read across
-//     the pools of a layer at neighbouring addresses), in two alternating
-//     buffers; a pool's thread reads the next 8 jobs' times ahead;
-//   * each config's pool state (a power of two of lanes a pool, at least 32
+//     pool runs on a whole warp, 1 to 32 lanes a thread, and every thread
+//     also keeps replicas of the pool's lowest kRep + 1 lanes, updated with
+//     the warp-uniform end: a job's chain is one add and one compare and
+//     select on registers, and the shuffle that brings lane kRep + 1 from
+//     its owner has kRep jobs of slack; each thread's upper neighbour lane
+//     comes by another shuffle, off the chain;
+//   * the kernel is built for the widest pool of a launch (KMAX 1, 4, 16 or
+//     32 lanes a thread), so narrower launches keep fewer registers;
+//   * each stage's pool state (a power of two of lanes a pool, at least 32
 //     for a warp's) lives in shared memory when it fits, else in a global
-//     scratch row per config;
-//   * a pool wider than 512 servers (more than a warp's registers hold)
-//     runs, in the build for such launches (KMAX 32), on a warp with its
-//     lanes in that state memory: the warp reads
-//     lane 0 for the job's end and rewrites the sorted insert a row of 32
-//     lanes at a time, stopping at the first row that the end does not
-//     reach (every lane above it is >= end and keeps its value).  Its cost
-//     a job grows with the insert's position, not with the pool's width
-//     alone.  A pool may hold up to 65,536 servers.
-// A launch fills one SM per config; a call with few configs leaves the
-// card mostly idle, in the nature of a per-config serial recurrence.
+//     scratch row per block;
+//   * a pool wider than 1,024 servers (more than a warp's registers hold)
+//     runs, in the KMAX 32 build, on a warp with its lanes in that state
+//     memory: lane 0 comes from registers (the same replicas), and the warp
+//     rewrites the sorted insert a row of 32 lanes at a time, stopping at
+//     the first row that the end does not reach.  A pool may hold up to
+//     65,536 servers.
+// A launch with few configs still leaves most SMs idle, in the nature of a
+// per-config recurrence: the clusters take S of them a config.
 //
 // The second entry, vtime_stream_launch, is the streaming replay of the
 // fleet (the reference's _run_stream_kernel, src/repro/fabric/fleet.py:
-// 104-164): the same pool code over a segment of requests whose service
+// 104-164): the same stages over a segment of requests whose service
 // indices are hashed in the kernel (fabric.vtime.hash_service_indices) or
 // read from presampled tables, whose jobs may be coarsened into macro-jobs
 // (vtime._chunk_services, a left fold of K patches), whose latencies fold
 // into a log-bucket sketch, min / max and Welford moments
 // (fabric.metrics.sketch_update), and whose lane state, closed-loop ring,
 // sketch and horizon come from the caller and go back to it, so that one
-// launch continues the previous one.
+// launch continues the previous one.  Each stage's loaders hash a chunk's
+// sample rows once (not once a pool), then gather and fold; each stage
+// reads and writes back only its own pools' lanes of the carry; the last
+// stage keeps the sketch, moments, horizon and ring.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxLayers = 64;
 constexpr int kMaxPools = 1024;
-constexpr int kMaxThreads = 512;
+constexpr int kMaxThreads = 512;  // the shared arrays' room; a build's own bound is build_threads
+
+// The threads a block of a build runs at most (__launch_bounds__): 384 for
+// KMAX 1 and 4 (170 registers a thread), 256 for the wider builds (255
+// registers), and 192 for VT's KMAX 16 build without STATS, which keeps two
+// blocks an SM (170 registers: the fused sweep's fabric stage launches
+// hundreds of configs).
+constexpr int build_threads(int kmax, bool stats, bool stream) {
+  return kmax <= 4 ? 384 : kmax == 16 && !stats && !stream ? 192 : 256;
+}
+constexpr int kMaxStages = 8;  // the portable cluster size
 constexpr int kSmallPool = 8;  // pools of at most this many servers run on one thread
-constexpr int kWarpLanes = 512;  // the widest pool a warp holds in registers (16 lanes a thread)
-constexpr int kAhead = 8;  // jobs whose service times are read ahead
+constexpr int kRegLanes = 1024;  // the widest pool a warp holds in registers (32 lanes a thread)
+constexpr int kRep = 2;  // a warp pool's lanes 0..kRep are replicated on every thread
+constexpr int kBufs = 4;  // staging buffers of service times in a stage's ring
+constexpr int kSlots = 16;  // slots of the ring between two stages
+constexpr int kWarpRows = 1024;  // sample rows a streaming loader warp hashes once a chunk
 constexpr size_t kMaxSmem = 232448;  // the most shared memory a block may use
-constexpr size_t kStaticSmem = 12 * 1024;  // room kept for the kernel's own shared arrays
+constexpr size_t kStaticSmem = 20 * 1024;  // room kept for the kernel's own shared arrays
+constexpr unsigned long long kTrapNs = 20ull * 1000 * 1000 * 1000;  // a wait this long is a fault
 
 struct Args {
-  const double* tables;     // per layer, per variant: (S_l, B_l) row-major
-  const long long* tbl_off; // (L, V) offsets into tables
-  const long long* meta;    // (L, 4): B_l, P_l, pool offset, offset into idx
-  const int32_t* idx;       // per layer (N, P_l) sample indices, layer-major
-  const int32_t* variant;   // (C)
-  const int32_t* lanes;     // (C, Ptot) servers per pool
-  const double* arrivals;   // (C, N), or null for the closed loop
-  const double* xfer;       // (C, L), or null
-  double* t_arr;            // (C, N)
-  double* comp;             // (C, N)
-  double* busy;             // (C, L), STATS only
-  double* wait;             // (C, L), STATS only
-  double* gstate;           // (C, state_stride), when the state is not in shared memory
-  long long state_stride;   // doubles of pool state a config
-  int N, L, V, Ptot, conc;  // conc 0: open loop
-  int chunk;                // doubles of service times staged at a time (>= every B_l)
-  int consumer_warps;       // warps that run the pools; the rest stage service times
+  const double* tables;      // per layer, per variant: (S_l, B_l) row-major
+  const long long* tbl_off;  // (L, V) offsets into tables
+  const long long* meta;     // (L, 5): B_l, P_l, pool offset, offset into idx, S_l
+  const uint32_t* salts;     // (L) hash salts (streaming, hash mode), else null
+  const int32_t* idx;        // per layer (N, P_l) sample indices, layer-major, or null (hash mode)
+  const int32_t* plans;      // (C, L, 2) macro-job plans (K, n_bulk) (streaming), else null: exact
+  const int32_t* variant;    // (C)
+  const int32_t* lanes;      // (C, Ptot) servers (lane slots) per pool
+  const double* arrivals;    // (C, N), or null for the closed loop
+  const double* xfer;        // (C, L), or null
+  double* t_arr;             // (C, N), or null (streaming without emit)
+  double* comp;              // (C, N), or null (streaming without emit)
+  double* busy;              // (C, L), STATS only
+  double* wait;              // (C, L), STATS only
+  double* state;             // scan: (C * S, state_stride) scratch rows; streaming: (C, carry_stride) carry
+  double* ring;              // streaming: (C, ring_len) closed-loop completions, in and out
+  double* counts;            // streaming: (C, n_bins) sketch bucket counts, in and out
+  double* moments;           // streaming: (C, 5): n, min, max, mean, m2, in and out
+  double* horizon;           // streaming: (C) largest completion, in and out
+  long long state_stride;    // doubles of pool state one stage's block holds
+  long long carry_stride;    // streaming: doubles of a config's carried state row
+  long long r0;              // streaming: global id of the first request
+  int N, L, V, Ptot, conc;   // conc 0: open loop
+  int ring_len, n_bins, bins_per_octave, min_exp;
+  int chunk;                 // doubles of service times a staging buffer holds (>= every B_l)
+  int consumer_warps;        // warps that run the pools; the rest stage service times
   int smem_state;
+  int stages;                // S, the cluster's blocks: stage s runs layers split[s] .. split[s+1]-1
+  int split[kMaxStages + 1];
 };
 
 // min and max of non-NaN doubles as a compare and a select: the reference's
@@ -130,6 +174,49 @@ __device__ __forceinline__ int pool_cap(int d) {
   return d == 0 ? 0 : d <= kSmallPool ? pow2_ceil(d) : max(32, pow2_ceil(d));
 }
 
+// ------------------------------------------------------------ synchronisation
+// Counts in shared memory, read with acquire and written with release: at
+// block scope between a stage's loaders and consumers, at cluster scope
+// between stages (the writer stores into the reader's shared memory through
+// cluster.map_shared_rank).  A wait of more than kTrapNs traps, so that a
+// pipeline out of step ends in a CUDA error, not a hang.
+template <bool CLUSTER>
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  if (CLUSTER) asm volatile("ld.acquire.cluster.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  else asm volatile("ld.acquire.cta.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+template <bool CLUSTER>
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  if (CLUSTER) asm volatile("st.release.cluster.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+  else asm volatile("st.release.cta.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// wait until *p >= target (modulo 2^32)
+template <bool CLUSTER, bool SLEEP>
+__device__ __forceinline__ void wait_for(const unsigned* p, unsigned target) {
+  if ((int)(ld_acquire<CLUSTER>(p) - target) >= 0) return;
+  const unsigned long long t0 = now_ns();
+  for (unsigned n = 1;; ++n) {
+    if (SLEEP) __nanosleep(64);
+    if ((int)(ld_acquire<CLUSTER>(p) - target) >= 0) return;
+    if ((n & 1023u) == 0 && now_ns() - t0 > kTrapNs) __trap();
+  }
+}
+
+__device__ __forceinline__ void bar_named(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ------------------------------------------------------------------ the pools
 // A small pool's jobs j < nj of a chunk on one thread, K lanes in registers;
 // job j's service time is sv[j * B].  The service times are >= 0 (the
 // wrapper checks), so end = f_0 + s >= f_0 and the sorted insert's lane 0 is
@@ -138,6 +225,7 @@ __device__ __forceinline__ int pool_cap(int d) {
 // the next 8 times read ahead, unguarded, then the rest one by one.
 template <int K, bool STATS>
 __device__ double run_thread(double* st, const double* sv, int nj, int B, double t, double& bs, double& ws) {
+  constexpr int kAhead = 8;
   double f[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) f[k] = dmax(st[k], t);
@@ -151,9 +239,13 @@ __device__ double run_thread(double* st, const double* sv, int nj, int B, double
     if (K == 1) {
       f[0] = end;
     } else {
-      f[0] = dmin(end, f[1 % K]);
+      bool pk = true;  // f_0 < end, or end == f_0 (then either branch keeps the value)
 #pragma unroll
-      for (int k = 1; k < K; ++k) f[k] = k + 1 < K ? dmin(dmax(f[k], end), f[(k + 1) % K]) : dmax(f[k], end);
+      for (int k = 0; k < K; ++k) {
+        const bool pn = k + 1 < K && f[(k + 1) % K] < end;
+        f[k] = pn ? f[(k + 1) % K] : pk ? end : f[k];
+        pk = pn;
+      }
       mx = dmax(mx, end);
     }
   };
@@ -179,36 +271,59 @@ __device__ double run_thread(double* st, const double* sv, int nj, int B, double
   return mx;
 }
 
-// A wide pool's jobs of a chunk on a whole warp: lane w holds the pool's
-// lanes w*K .. w*K+K-1, and every thread also keeps the pool's lanes 0 and
-// 1 (z0, z1).  A job's end is z0 + s and the new lane 0 is min(end, z1) on
-// every thread, so the chain is an add and a min; the new lane 1 comes from
-// its owner by a shuffle that overlaps the next job's add, and each
-// thread's upper neighbour lane (old value) by another.  Every thread
-// computes the same end, so the warp's maximum is uniform.
+// The replicas of a warp pool's lanes 0..kRep on every thread, advanced by
+// one job with end: z_k <- (z_{k+1} < end) ? z_{k+1} : (z_k < end) ? end : z_k,
+// lane kRep + 1's old value `g` coming from its owner.
+__device__ __forceinline__ void advance_replicas(double (&z)[kRep + 1], double g, double end) {
+  bool pk = true;
+#pragma unroll
+  for (int k = 0; k <= kRep; ++k) {
+    const double up = k < kRep ? z[k + 1 > kRep ? kRep : k + 1] : g;
+    const bool pn = up < end;
+    z[k] = pn ? up : pk ? end : z[k];
+    pk = pn;
+  }
+}
+
+// A wide pool's jobs of a chunk on a whole warp: thread w holds the pool's
+// lanes w*K .. w*K+K-1 and replicas z of lanes 0..kRep.  A job's end is z_0
+// + s on every thread (warp-uniform), and the replicas advance with it, so
+// the chain from one end to the next is an add, a compare and a select on
+// registers.  Lane kRep + 1 (old value) reaches the replicas by a shuffle
+// from its owner, issued a job ahead: the replicas' lane k needs it only
+// kRep - k jobs later.  Each thread's upper neighbour lane (old value) comes
+// by another shuffle.  Every thread computes the same end, so the warp's
+// maximum is uniform.
 template <int K, bool STATS>
 __device__ double run_warp(double* st, const double* sv, int nj, int B, double t, int w, double& bs, double& ws) {
   constexpr unsigned kFull = 0xffffffffu;
-  double f[K];
+  constexpr int kAhead = K == 1 ? 8 : K >= 8 ? 2 : 4;  // service times read ahead: more for quicker jobs
+  constexpr int go = (kRep + 1) / K, gk = (kRep + 1) % K;  // owner thread and slot of lane kRep + 1
+  double f[K], z[kRep + 1];
 #pragma unroll
   for (int k = 0; k < K; ++k) f[k] = dmax(st[w * K + k], t);
-  // lane 1 is thread 0's f[1] (K > 1) or thread 1's f[0]
-  double z0 = __shfl_sync(kFull, f[0], 0);
-  double z1 = __shfl_sync(kFull, f[K > 1 ? 1 : 0], K > 1 ? 0 : 1);
+#pragma unroll
+  for (int k = 0; k <= kRep; ++k) z[k] = dmax(st[k], t);
+  double g = dmax(st[kRep + 1], t);
   double mx = -CUDART_INF;
   auto step = [&](double s) {
     double above = __shfl_down_sync(kFull, f[0], 1);
     if (w == 31) above = CUDART_INF;
-    const double end = __dadd_rn(z0, s);
+    const double end = __dadd_rn(z[0], s);
     if (STATS && w == 0) {
       bs = __dadd_rn(bs, s);
-      ws = __dadd_rn(ws, __dsub_rn(z0, t));
+      ws = __dadd_rn(ws, __dsub_rn(z[0], t));
     }
-    z0 = dmin(end, z1);
-    f[0] = w == 0 ? z0 : dmin(dmax(f[0], end), K > 1 ? f[1 % K] : above);
+    advance_replicas(z, g, end);
+    bool pk = f[0] < end;
 #pragma unroll
-    for (int k = 1; k < K; ++k) f[k] = dmin(dmax(f[k], end), k + 1 < K ? f[(k + 1) % K] : above);
-    z1 = __shfl_sync(kFull, f[K > 1 ? 1 : 0], K > 1 ? 0 : 1);
+    for (int k = 0; k < K; ++k) {
+      const double up = k + 1 < K ? f[(k + 1) % K] : above;
+      const bool pn = up < end;
+      f[k] = pn ? up : pk ? end : f[k];
+      pk = pn;
+    }
+    g = __shfl_sync(kFull, f[gk], go);
     mx = dmax(mx, end);
   };
   int j = 0;
@@ -232,13 +347,14 @@ __device__ double run_warp(double* st, const double* sv, int nj, int B, double t
   return mx;
 }
 
-// A pool wider than kWarpLanes on a whole warp, its `cap` lanes (a power of
-// two, > 512) in the state memory `st`, sorted ascending (+inf: absent).
-// The clamp to t and each job's sorted insert touch only the rows of 32
-// lanes below the first row whose lowest lane is already >= the value
-// written: lanes at or above it keep their values (they are >= end, so
-// min(max(f, end), f_next) = f).  A lane below `end` becomes
-// min(end, f_next), with f_next read before any lane of its row changes.
+// A pool wider than kRegLanes on a whole warp, its `cap` lanes (a power of
+// two) in the state memory `st`, sorted ascending (+inf: absent).  Lanes
+// 0..kRep are replicated in registers as in run_warp, so a job's end does
+// not wait on shared memory; the sorted insert then rewrites only the rows
+// of 32 lanes below the first row whose lowest lane is already >= end:
+// lanes at or above it keep their values (they are >= end, so min(max(f,
+// end), f_next) = f).  A lane below `end` becomes min(end, f_next), with
+// f_next read before any lane of its row changes.
 template <bool STATS>
 __device__ double run_mem(double* st, const double* sv, int nj, int B, double t, int cap, int w, double& bs,
                           double& ws) {
@@ -250,15 +366,19 @@ __device__ double run_mem(double* st, const double* sv, int nj, int B, double t,
     if (top >= t) break;
   }
   __syncwarp();
+  double z[kRep + 1];
+#pragma unroll
+  for (int k = 0; k <= kRep; ++k) z[k] = st[k];
   double mx = -CUDART_INF;
   for (int j = 0; j < nj; ++j) {
     const double s = sv[j * B];
-    const double z0 = st[0];
-    const double end = __dadd_rn(z0, s);
+    const double g = st[kRep + 1];  // lane kRep + 1 before this job
+    const double end = __dadd_rn(z[0], s);
     if (STATS && w == 0) {
       bs = __dadd_rn(bs, s);
-      ws = __dadd_rn(ws, __dsub_rn(z0, t));
+      ws = __dadd_rn(ws, __dsub_rn(z[0], t));
     }
+    advance_replicas(z, g, end);
     __syncwarp();
     for (int m = 0; m < cap; m += 32) {
       const int i = m + w;
@@ -266,7 +386,7 @@ __device__ double run_mem(double* st, const double* sv, int nj, int B, double t,
       const double up = i + 1 < cap ? st[i + 1] : CUDART_INF;
       const double next_row = __shfl_sync(kFull, up, 31);
       __syncwarp();
-      if (a < end) st[i] = dmin(end, up);
+      if (a < end) st[i] = up < end ? up : end;
       __syncwarp();
       if (next_row >= end) break;
     }
@@ -275,6 +395,67 @@ __device__ double run_mem(double* st, const double* sv, int nj, int B, double t,
   return mx;
 }
 
+// One chunk of a layer's jobs over its pools, by the consumer threads: the
+// layer's pools of at most 8 servers a thread each, the wider ones a warp
+// each (lists built once a block, so that no warp takes two pools while
+// another idles).  Folds each pool's largest end into mx and, with STATS,
+// the service and wait sums into bs / ws.
+template <int KMAX, bool STATS>
+__device__ __forceinline__ void run_pools(double* state, const int* s_off, const int* s_lanes, const int* list,
+                                          int n_small, int n_wide, int po, int B, const double* sv, int nj, double t,
+                                          int tid, int nc, int warp, int lane, int consumer_warps, double& mx,
+                                          double& bs, double& ws) {
+  for (int i = tid; i < n_small; i += nc) {
+    const int p = list[i];
+    const int d = s_lanes[po + p];
+    double* st = state + s_off[po + p];
+    double m;
+    switch (d) {
+      case 1: m = run_thread<1, STATS>(st, sv + p, nj, B, t, bs, ws); break;
+      case 2: m = run_thread<2, STATS>(st, sv + p, nj, B, t, bs, ws); break;
+      case 3: case 4: m = run_thread<4, STATS>(st, sv + p, nj, B, t, bs, ws); break;
+      default: m = run_thread<8, STATS>(st, sv + p, nj, B, t, bs, ws); break;
+    }
+    mx = dmax(mx, m);
+  }
+  __syncwarp();
+  for (int i = warp; i < n_wide; i += consumer_warps) {  // warp-uniform
+    const int p = list[n_small + i];
+    const int d = s_lanes[po + p];
+    double* st = state + s_off[po + p];
+    double b2 = 0.0, w2 = 0.0, m;
+    const int k = pow2_ceil(d) / 32;  // lanes a thread: 1 to KMAX
+    if constexpr (KMAX == 1) {
+      m = run_warp<1, STATS>(st, sv + p, nj, B, t, lane, b2, w2);
+    } else if constexpr (KMAX == 4) {
+      m = k <= 1   ? run_warp<1, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
+          : k == 2 ? run_warp<2, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
+                   : run_warp<4, STATS>(st, sv + p, nj, B, t, lane, b2, w2);
+    } else if constexpr (KMAX == 16) {
+      m = k <= 1   ? run_warp<1, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
+          : k == 2 ? run_warp<2, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
+          : k == 4 ? run_warp<4, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
+          : k == 8 ? run_warp<8, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
+                   : run_warp<16, STATS>(st, sv + p, nj, B, t, lane, b2, w2);
+    } else {
+      // the host gives a launch with a pool wider than 512 the KMAX 32 build
+      m = d > kRegLanes ? run_mem<STATS>(st, sv + p, nj, B, t, pool_cap(d), lane, b2, w2)
+          : k <= 1      ? run_warp<1, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
+          : k == 2      ? run_warp<2, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
+          : k == 4      ? run_warp<4, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
+          : k == 8      ? run_warp<8, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
+          : k == 16     ? run_warp<16, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
+                        : run_warp<32, STATS>(st, sv + p, nj, B, t, lane, b2, w2);
+    }
+    mx = dmax(mx, m);
+    if (STATS) {
+      bs = __dadd_rn(bs, b2);
+      ws = __dadd_rn(ws, w2);
+    }
+  }
+}
+
+// ------------------------------------------------------------------- staging
 // Stage one chunk's service times, [job][pool], for the pools that have
 // servers: thread `first` of `step` loaders takes every step-th element,
 // 8 at a time, the 8 sample indices in flight together, then the 8 times.
@@ -302,313 +483,6 @@ __device__ __forceinline__ void stage(double* dst, const double* tbl, const int3
   }
 }
 
-// One chunk of a layer's jobs over its pools, by the consumer threads: a
-// pool of at most 8 servers on one thread, a wider one on a warp (lanes in
-// registers up to 512, in state memory above).  Folds each pool's largest
-// end into mx and, with STATS, the service and wait sums into bs / ws.
-template <int KMAX, bool STATS>
-__device__ __forceinline__ void run_pools(double* state, const int* s_off, const int* s_lanes, int po, int B,
-                                          const double* sv, int nj, double t, int tid, int nc, int warp, int lane,
-                                          int consumer_warps, double& mx, double& bs, double& ws) {
-  // small pools: a thread each
-  for (int p = tid; p < B; p += nc) {
-    const int d = s_lanes[po + p];
-    if (d < 1 || d > kSmallPool) continue;
-    double* st = state + s_off[po + p];
-    double m;
-    switch (d) {
-      case 1: m = run_thread<1, STATS>(st, sv + p, nj, B, t, bs, ws); break;
-      case 2: m = run_thread<2, STATS>(st, sv + p, nj, B, t, bs, ws); break;
-      case 3: case 4: m = run_thread<4, STATS>(st, sv + p, nj, B, t, bs, ws); break;
-      default: m = run_thread<8, STATS>(st, sv + p, nj, B, t, bs, ws); break;
-    }
-    mx = dmax(mx, m);
-  }
-  __syncwarp();
-  // wide pools: a warp each (warp-uniform branches)
-  for (int p = warp; p < B; p += consumer_warps) {
-    const int d = s_lanes[po + p];
-    if (d <= kSmallPool) continue;
-    double* st = state + s_off[po + p];
-    double b2 = 0.0, w2 = 0.0, m;
-    const int k = pow2_ceil(d) / 32;  // lanes a thread: 1 to KMAX
-    if (d > kWarpLanes) {
-      // the host gives a launch with such a pool the KMAX 32 build
-      if constexpr (KMAX == 32) m = run_mem<STATS>(st, sv + p, nj, B, t, pool_cap(d), lane, b2, w2);
-      else __trap();
-    } else if constexpr (KMAX == 1) {
-      m = run_warp<1, STATS>(st, sv + p, nj, B, t, lane, b2, w2);
-    } else if constexpr (KMAX == 4) {
-      m = k <= 1   ? run_warp<1, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-          : k == 2 ? run_warp<2, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-                   : run_warp<4, STATS>(st, sv + p, nj, B, t, lane, b2, w2);
-    } else {
-      m = k <= 1   ? run_warp<1, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-          : k == 2 ? run_warp<2, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-          : k == 4 ? run_warp<4, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-          : k == 8 ? run_warp<8, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-                   : run_warp<16, STATS>(st, sv + p, nj, B, t, lane, b2, w2);
-    }
-    mx = dmax(mx, m);
-    if (STATS) {
-      bs = __dadd_rn(bs, b2);
-      ws = __dadd_rn(ws, w2);
-    }
-  }
-}
-
-// KMAX: the most lanes a thread of a wide pool holds in this launch (1: up
-// to 32 servers a pool, 4: 128, 16: 512; 32: any pool wider, whose lanes
-// stay in state memory, beside the others); fewer registers for smaller
-// ones.  The two widest builds run at most 256 threads.  VT's KMAX 16
-// build without STATS keeps two blocks an SM (128 registers: the fused
-// sweep's fabric stage launches hundreds of configs); every other 256-thread
-// build, and the streaming entry's (a few configs a launch), asks for one
-// and may keep 255.
-// The block's first `consumer_warps` warps run the pools; the rest stage the
-// next chunk's service times meanwhile (the chunks of every (request,
-// layer) in order form one sequence, whose addresses do not depend on the
-// times).  One barrier a chunk; a layer's last chunk's barrier also carries
-// the layer's completion.
-template <int KMAX, bool STATS>
-__global__ void __launch_bounds__(KMAX >= 16 ? kMaxThreads / 2 : kMaxThreads, KMAX == 16 && !STATS ? 2 : 1) vtime_scan_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ long long s_tbl[kMaxLayers], s_io[kMaxLayers];
-  __shared__ int s_nb[kMaxLayers], s_np[kMaxLayers], s_po[kMaxLayers];
-  __shared__ int s_off[kMaxPools], s_lanes[kMaxPools];
-  __shared__ double s_red[2][kMaxThreads / 32];
-  __shared__ double s_bsum[2][kMaxThreads / 32], s_wsum[2][kMaxThreads / 32];
-  __shared__ double s_acc_b[kMaxLayers], s_acc_w[kMaxLayers];
-
-  const int c = blockIdx.x;
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
-  const int nc = 32 * a.consumer_warps;  // consumer threads; the others stage
-  const bool loader = tid >= nc;
-  const int v = a.variant[c];
-  for (int l = tid; l < a.L; l += nthreads) {
-s_tbl[l] = a.tbl_off[(size_t)l * a.V + v];
-s_nb[l] = (int)a.meta[4 * l];
-s_np[l] = (int)a.meta[4 * l + 1];
-s_po[l] = (int)a.meta[4 * l + 2];
-s_io[l] = a.meta[4 * l + 3];
-s_acc_b[l] = 0.0;
-s_acc_w[l] = 0.0;
-  }
-  for (int q = tid; q < a.Ptot; q += nthreads) s_lanes[q] = a.lanes[(size_t)c * a.Ptot + q];
-  __syncthreads();
-  if (tid == 0) {  // each pool's first lane in this config's state
-int off = 0;
-for (int q = 0; q < a.Ptot; ++q) {
-  s_off[q] = off;
-  off += pool_cap(s_lanes[q]);
-}
-  }
-  // dynamic shared memory: two buffers of staged service times, then the
-  // pool state when it lives here
-  double* sbuf = reinterpret_cast<double*>(smem_raw);
-  double* state = a.smem_state ? sbuf + 2 * a.chunk : a.gstate + (size_t)c * a.state_stride;
-  // the first chunk, by every thread
-  stage(sbuf, a.tables + s_tbl[0], a.idx + s_io[0], s_lanes + s_po[0], min(a.chunk / s_nb[0], s_np[0]), s_nb[0],
-    tid, nthreads);
-  __syncthreads();
-  for (int q = warp; q < a.Ptot; q += nwarps) {
-const int d = s_lanes[q], cap = pool_cap(d);
-for (int i = lane; i < cap; i += 32) state[s_off[q] + i] = i < d ? 0.0 : CUDART_INF;
-  }
-  __syncthreads();
-
-  double t = 0.0, t0 = 0.0, t_prev = 0.0, mx = -CUDART_INF, bs = 0.0, ws = 0.0;
-  int parity = 0, cb = 0;
-  int r = 0, l = 0, j0 = 0;
-  while (r < a.N) {
-const int B = s_nb[l], P = s_np[l], po = s_po[l];
-const int per = a.chunk / B;  // jobs a chunk
-const int nj = min(per, P - j0);
-if (j0 == 0) {
-  if (l == 0) {
-    if (a.conc == 0) t = a.arrivals[(size_t)c * a.N + r];
-    else if (r < a.conc) t = 0.0;
-    else if (a.conc == 1) t = t_prev;
-    // written by thread 0 at the end of request r - conc; the barriers
-    // of request r - 1 have synchronised the block since
-    else t = a.comp[(size_t)c * a.N + r - a.conc];
-    t0 = t;
-  }
-  if (a.xfer) t = __dadd_rn(t, a.xfer[(size_t)c * a.L + l]);
-}
-// the chunk after this one
-int r2 = r, l2 = l, j2 = j0 + per;
-const bool last = j2 >= P;  // this layer's last chunk
-if (last) {
-  j2 = 0;
-  if (++l2 == a.L) {
-    l2 = 0;
-    ++r2;
-  }
-}
-const double* sv = sbuf + cb * a.chunk;
-if (loader) {
-  if (r2 < a.N) {
-    const int B2 = s_nb[l2];
-    stage(sbuf + (cb ^ 1) * a.chunk, a.tables + s_tbl[l2], a.idx + s_io[l2] + (size_t)r2 * s_np[l2] + j2,
-          s_lanes + s_po[l2], min(a.chunk / B2, s_np[l2] - j2), B2, tid - nc, nthreads - nc);
-  }
-} else {
-  run_pools<KMAX, STATS>(state, s_off, s_lanes, po, B, sv, nj, t, tid, nc, warp, lane, a.consumer_warps, mx,
-                         bs, ws);
-}
-if (last) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) mx = dmax(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  if (STATS) {
-#pragma unroll
-    for (int o = 16; o; o >>= 1) {
-      bs = __dadd_rn(bs, __shfl_down_sync(0xffffffffu, bs, o));
-      ws = __dadd_rn(ws, __shfl_down_sync(0xffffffffu, ws, o));
-    }
-  }
-  if (lane == 0) {
-    s_red[parity][warp] = mx;
-    if (STATS) {
-      s_bsum[parity][warp] = bs;
-      s_wsum[parity][warp] = ws;
-    }
-  }
-}
-// the chunk's barrier: the staging buffers alternate, so the next
-// chunk's staging cannot overtake this one's reads; the layer-end
-// buffers alternate by layer for the same reason
-__syncthreads();
-cb ^= 1;
-if (last) {
-  double done = lane < nwarps ? s_red[parity][lane] : -CUDART_INF;
-#pragma unroll
-  for (int o = 16; o; o >>= 1) done = dmax(done, __shfl_xor_sync(0xffffffffu, done, o));
-  if (STATS && tid == 0) {
-    double sb = 0.0, sw = 0.0;
-    for (int w = 0; w < nwarps; ++w) {
-      sb = __dadd_rn(sb, s_bsum[parity][w]);
-      sw = __dadd_rn(sw, s_wsum[parity][w]);
-    }
-    s_acc_b[l] = __dadd_rn(s_acc_b[l], sb);
-    s_acc_w[l] = __dadd_rn(s_acc_w[l], sw);
-  }
-  t = dmax(done, t);
-  parity ^= 1;
-  mx = -CUDART_INF;
-  bs = ws = 0.0;
-  if (l + 1 == a.L) {
-    if (tid == 0) {
-      a.t_arr[(size_t)c * a.N + r] = t0;
-      a.comp[(size_t)c * a.N + r] = t;
-    }
-    t_prev = t;
-  }
-}
-r = r2;
-l = l2;
-j0 = j2;
-  }
-  if (STATS && tid == 0) {
-for (int q = 0; q < a.L; ++q) {
-  a.busy[(size_t)c * a.L + q] = s_acc_b[q];
-  a.wait[(size_t)c * a.L + q] = s_acc_w[q];
-}
-  }
-}
-
-template <int KMAX, bool STATS>
-int launch(const Args& a, int C, int threads, size_t smem, cudaStream_t stream) {
-  static size_t smem_set[64] = {};  // the shared-memory limit raised so far, per device
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e != cudaSuccess) return (int)e;
-  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
-  if (smem > 48 * 1024 - kStaticSmem && smem > smem_set[device]) {
-    e = cudaFuncSetAttribute(vtime_scan_kernel<KMAX, STATS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_set[device] = smem;
-  }
-  vtime_scan_kernel<KMAX, STATS><<<C, threads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <bool STATS>
-int dispatch(const Args& a, int C, int kmax, int threads, size_t smem, cudaStream_t s) {
-  switch (kmax) {
-    case 1: return launch<1, STATS>(a, C, threads, smem, s);
-    case 4: return launch<4, STATS>(a, C, threads, smem, s);
-    case 16: return launch<16, STATS>(a, C, threads, smem, s);
-    case 32: return launch<32, STATS>(a, C, threads, smem, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
-
-// Plain C entry point, loaded with ctypes.  Pointers are device pointers of
-// contiguous tensors on the current device; `stream` is a cudaStream_t.
-// `state_stride` is the doubles of pool state a config needs: the sum over
-// its pools of pool_cap(lanes) (a power of two up to 8 for a pool of at most
-// 8 servers, max(32, the power of two) above).  `kmax` is 1, 4, 16 or
-// 32: at least the lanes a warp's thread holds for the widest pool
-// (pow2(servers) / 32), and 32 when a pool is wider than 512 servers.
-// `chunk` is the doubles of service times staged at a time, at least every layer's pool count; the dynamic shared memory is two
-// such buffers and, with `smem_state` 1, the pool state (the caller has
-// checked it fits), else the state is in `gstate` (C x state_stride
-// doubles).  `threads` is a multiple of 32, at most 512, of which the first
-// 32 * `consumer_warps` run the pools (enough for every layer's pools and
-// its wide pools, or as many as fit) and at least one warp stages; 256
-// threads at most for kmax 16 and 32, whose threads hold up to 16 lanes.  The caller has
-// checked every index (variant < V, sample index < S_l), lanes <= 65536,
-// service times >= 0 and not NaN, L <= 64 and Ptot <= 1024.  Returns
-// cudaGetLastError() after the launch (0 when the launch was accepted).
-extern "C" int vtime_scan_launch(const void* tables, const void* tbl_off, const void* meta, const void* idx,
-                                 const void* variant, const void* lanes, const void* arrivals, const void* xfer,
-                                 void* t_arr, void* comp, void* busy, void* wait, void* gstate, long long state_stride,
-                                 int C, int N, int L, int V, int Ptot, int conc, int kmax, int chunk, int threads,
-                                 int consumer_warps, int smem_state, int stats, void* stream) {
-  if (C == 0 || N == 0) return 0;
-  if (L < 1 || L > kMaxLayers || Ptot < 1 || Ptot > kMaxPools || threads < 32 || threads > kMaxThreads ||
-      threads % 32 || chunk < 1 || consumer_warps < 1 || 32 * consumer_warps >= threads ||
-      (kmax >= 16 && threads > kMaxThreads / 2))
-    return (int)cudaErrorInvalidValue;
-  Args a;
-  a.tables = static_cast<const double*>(tables);
-  a.tbl_off = static_cast<const long long*>(tbl_off);
-  a.meta = static_cast<const long long*>(meta);
-  a.idx = static_cast<const int32_t*>(idx);
-  a.variant = static_cast<const int32_t*>(variant);
-  a.lanes = static_cast<const int32_t*>(lanes);
-  a.arrivals = static_cast<const double*>(arrivals);
-  a.xfer = static_cast<const double*>(xfer);
-  a.t_arr = static_cast<double*>(t_arr);
-  a.comp = static_cast<double*>(comp);
-  a.busy = static_cast<double*>(busy);
-  a.wait = static_cast<double*>(wait);
-  a.gstate = static_cast<double*>(gstate);
-  a.state_stride = state_stride;
-  a.N = N;
-  a.L = L;
-  a.V = V;
-  a.Ptot = Ptot;
-  a.conc = conc;
-  a.chunk = chunk;
-  a.consumer_warps = consumer_warps;
-  a.smem_state = smem_state != 0;
-  const size_t smem = (2 * (size_t)chunk + (a.smem_state ? (size_t)state_stride : 0)) * sizeof(double);
-  if (smem > kMaxSmem - kStaticSmem) return (int)cudaErrorInvalidValue;
-  if (!a.smem_state && gstate == nullptr) return (int)cudaErrorInvalidValue;
-  if (conc == 0 && arrivals == nullptr) return (int)cudaErrorInvalidValue;
-  if (stats && (busy == nullptr || wait == nullptr)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return stats ? dispatch<true>(a, C, kmax, threads, smem, s) : dispatch<false>(a, C, kmax, threads, smem, s);
-}
-
-namespace {
-
 // fabric.vtime.hash_service_indices for one (salt, request, patch): uint32
 // arithmetic wraps as numpy's does
 __device__ __forceinline__ uint32_t hash_index(uint32_t salt, uint32_t r, uint32_t p) {
@@ -622,38 +496,29 @@ __device__ __forceinline__ uint32_t hash_index(uint32_t salt, uint32_t r, uint32
   return h;
 }
 
-struct StreamArgs {
-  const double* tables;      // per layer, per variant: (S_l, B_l) row-major
-  const long long* tbl_off;  // (L, V) offsets into tables
-  const long long* meta;     // (L, 5): B_l, P_l, pool offset, offset into idx, S_l
-  const uint32_t* salts;     // (L) hash salts (hash mode)
-  const int32_t* idx;        // per layer (N, P_l) presampled indices, or null: hash mode
-  const int32_t* plans;      // (C, L, 2) macro-job plan (K, n_bulk); (1, 0) exact
-  const int32_t* variant;    // (C)
-  const int32_t* lanes;      // (C, Ptot) lane slots per pool (0: no servers)
-  const double* arrivals;    // (C, N), or null for the closed loop
-  const double* xfer;        // (C, L), or null
-  double* state;             // (C, state_stride) lane free-times, in and out
-  double* ring;              // (C, ring_len) closed-loop completions, in and out
-  double* counts;            // (C, n_bins) sketch bucket counts, in and out
-  double* moments;           // (C, 5): n, min, max, mean, m2, in and out
-  double* horizon;           // (C) largest completion, in and out
-  double* t_arr;             // (C, N) with emit, else null
-  double* comp;              // (C, N) with emit, else null
-  long long state_stride;
-  long long r0;              // global id of the first request
-  int N, L, V, Ptot, conc, ring_len, chunk, consumer_warps, smem_state;
-  int n_bins, bins_per_octave, min_exp;
-};
+// first patch of streaming job jj: macro-jobs jj < nbulk fold K patches each
+__device__ __forceinline__ int first_patch(int jj, int K, int nbulk) {
+  return jj < nbulk ? jj * K : nbulk * K + (jj - nbulk);
+}
 
-// Stage one chunk of a layer's jobs j0 .. j0 + nj - 1, [job][pool], for the
-// pools that have servers.  Job jj < n_bulk is the left fold of the K
-// patches jj*K .. jj*K+K-1 (vtime._chunk_services), a later job one patch;
-// a patch's sample row is hashed from (salt, r, patch) or read from `ix`.
-// Eight elements at a time, their loads in flight together.
-__device__ __forceinline__ void stage_stream(double* dst, const double* tbl, const int32_t* ix, uint32_t salt,
-                                             uint32_t r, int S, const int* lanes, int j0, int nj, int B, int K,
-                                             int nbulk, int first, int step) {
+// Stage one streaming chunk of a layer's jobs j0 .. j0 + nj - 1, [job][pool],
+// for the pools that have servers, by one loader warp.  Job jj < n_bulk is
+// the left fold of the K patches jj*K .. jj*K+K-1 (vtime._chunk_services), a
+// later job one patch.  The chunk's patches are contiguous: first their
+// sample rows, hashed from (salt, r, patch) or read from `ix`, once each
+// into the warp's `rows` (not once a pool); then the gathers and folds,
+// eight elements a thread at a time, their loads in flight together.
+__device__ __forceinline__ void stage_stream(double* dst, int* rows, const double* tbl, const int32_t* ix,
+                                             uint32_t salt, uint32_t r, int S, const int* lanes, int j0, int nj,
+                                             int B, int K, int nbulk, int first, int step) {
+  const int p_lo = first_patch(j0, K, nbulk);
+  const int last = j0 + nj - 1;
+  const int np = first_patch(last, K, nbulk) + (last < nbulk ? K : 1) - p_lo;
+  for (int q = first; q < np; q += step) {
+    const int p = p_lo + q;
+    rows[q] = ix ? __ldg(ix + p) : (int)(hash_index(salt, r, (uint32_t)p) % (uint32_t)S);
+  }
+  __syncwarp();
   const int n = nj * B;
   for (int e0 = first; e0 < n; e0 += 8 * step) {
     int p0[8], k[8], pp[8];
@@ -663,7 +528,7 @@ __device__ __forceinline__ void stage_stream(double* dst, const double* tbl, con
       pp[u] = e - (e / B) * B;
       const bool live = e < n && lanes[pp[u]];
       k[u] = !live ? 0 : jj < nbulk ? K : 1;
-      p0[u] = jj < nbulk ? jj * K : nbulk * K + (jj - nbulk);
+      p0[u] = first_patch(jj, K, nbulk) - p_lo;
     }
     const int kmax = max(max(max(k[0], k[1]), max(k[2], k[3])), max(max(k[4], k[5]), max(k[6], k[7])));
     double v[8];
@@ -672,14 +537,7 @@ __device__ __forceinline__ void stage_stream(double* dst, const double* tbl, con
     for (int q = 0; q < kmax; ++q) {
       double x[8];
 #pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        x[u] = 0.0;
-        if (q < k[u]) {
-          const int p = p0[u] + q;
-          const int row = ix ? __ldg(ix + p) : (int)(hash_index(salt, r, (uint32_t)p) % (uint32_t)S);
-          x[u] = __ldg(tbl + (size_t)row * B + pp[u]);
-        }
-      }
+      for (int u = 0; u < 8; ++u) x[u] = q < k[u] ? __ldg(tbl + (size_t)rows[p0[u] + q] * B + pp[u]) : 0.0;
 #pragma unroll
       for (int u = 0; u < 8; ++u)
         if (q < k[u]) v[u] = q == 0 ? x[u] : __dadd_rn(v[u], x[u]);
@@ -703,211 +561,488 @@ __device__ __forceinline__ int sketch_bucket(double lat, int F, int min_exp, int
   return min(max(b, 0), n_bins - 1);
 }
 
-// The streaming replay: VT's loop over (request, layer, chunk) with the
-// caller's lane state, hashed (or given) indices, macro-jobs, and the
-// per-request sketch, moments, horizon and ring kept by thread 0.
-template <int KMAX>
-__global__ void __launch_bounds__(KMAX >= 16 ? kMaxThreads / 2 : kMaxThreads, 1) vtime_stream_kernel(StreamArgs a) {
+// ------------------------------------------------------------------ a stage
+// One block of a config's cluster: stage s = the block's rank, layers
+// split[s] .. split[s+1]-1.  The first 32 * consumer_warps threads run the
+// pools; the rest stage service times.  Both walk the same sequence of
+// chunks: requests in order, the stage's layers in order, `per` jobs a
+// chunk.
+template <int KMAX, bool STATS, bool STREAM>
+__device__ __forceinline__ void vt_stage(const Args& a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ long long s_tbl[kMaxLayers], s_io[kMaxLayers];
   __shared__ int s_nb[kMaxLayers], s_np[kMaxLayers], s_po[kMaxLayers], s_ns[kMaxLayers];
-  __shared__ int s_k[kMaxLayers], s_bulk[kMaxLayers], s_jobs[kMaxLayers];
+  __shared__ int s_k[kMaxLayers], s_bulk[kMaxLayers], s_jobs[kMaxLayers], s_per[kMaxLayers];
+  __shared__ int s_nsmall[kMaxLayers], s_nwide[kMaxLayers];
   __shared__ uint32_t s_salt[kMaxLayers];
-  __shared__ int s_off[kMaxPools], s_lanes[kMaxPools];
-  __shared__ double s_red[2][kMaxThreads / 32];
+  __shared__ double s_xfer[kMaxLayers], s_acc_b[kMaxLayers], s_acc_w[kMaxLayers];
+  __shared__ int s_off[kMaxPools + 1], s_lanes[kMaxPools], s_list[kMaxPools];
+  __shared__ double s_red[2][kMaxThreads / 32], s_bsum[2][kMaxThreads / 32], s_wsum[2][kMaxThreads / 32];
+  __shared__ double s_slot[kSlots][2];  // (ready time, arrival) of request r in slot r % kSlots
+  __shared__ double s_mom[6];  // streaming, last stage: n, min, max, mean, m2, horizon
+  __shared__ double s_t0;  // stage 0: the current request's arrival
+  __shared__ int s_base;
+  __shared__ unsigned s_ready[kBufs];  // buffer b holds chunk s_ready[b] - 1
+  __shared__ unsigned s_wdone[kMaxThreads / 32];  // chunks each consumer warp is done with
+  __shared__ unsigned s_head;    // requests handed in by the previous stage
+  __shared__ unsigned s_credit;  // requests the next stage has taken out of its slots
+  __shared__ unsigned s_done;    // stage 0 of a closed loop: completions the last stage has published
 
-  const int c = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = a.stages;
+  const int s = (int)cluster.block_rank();
+  const int c = blockIdx.x / S;
+  const int lo = a.split[s], hi = a.split[s + 1];
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
-  const int nc = 32 * a.consumer_warps;
+  const int cw = a.consumer_warps, nc = 32 * cw;
   const bool loader = tid >= nc;
   const int v = a.variant[c];
   for (int l = tid; l < a.L; l += nthreads) {
     s_tbl[l] = a.tbl_off[(size_t)l * a.V + v];
-    s_nb[l] = (int)a.meta[5 * l];
-    s_np[l] = (int)a.meta[5 * l + 1];
+    const int B = (int)a.meta[5 * l], P = (int)a.meta[5 * l + 1];
+    s_nb[l] = B;
+    s_np[l] = P;
     s_po[l] = (int)a.meta[5 * l + 2];
     s_io[l] = a.meta[5 * l + 3];
     s_ns[l] = (int)a.meta[5 * l + 4];
     s_salt[l] = a.salts ? a.salts[l] : 0u;
-    const int K = a.plans[((size_t)c * a.L + l) * 2], nb = a.plans[((size_t)c * a.L + l) * 2 + 1];
+    const int K = a.plans ? a.plans[((size_t)c * a.L + l) * 2] : 1;
+    const int nb = a.plans ? a.plans[((size_t)c * a.L + l) * 2 + 1] : 0;
     s_k[l] = K;
     s_bulk[l] = nb;
-    s_jobs[l] = nb + s_np[l] - nb * K;  // macro-jobs, then the exact tail
+    s_jobs[l] = nb + P - nb * K;  // macro-jobs, then the exact tail
+    s_per[l] = max(1, min(a.chunk / B, STREAM ? kWarpRows / K : a.chunk));
+    s_xfer[l] = a.xfer ? a.xfer[(size_t)c * a.L + l] : 0.0;
+    s_acc_b[l] = 0.0;
+    s_acc_w[l] = 0.0;
   }
   for (int q = tid; q < a.Ptot; q += nthreads) s_lanes[q] = a.lanes[(size_t)c * a.Ptot + q];
+  if (tid == 0) {
+    s_head = s_credit = s_done = 0u;
+  }
+  if (tid < kMaxThreads / 32) s_wdone[tid] = 0u;
+  if (tid < kBufs) s_ready[tid] = 0u;
   __syncthreads();
   if (tid == 0) {
+    // each pool's first lane in the config's state, then the stage's pools
+    // relative to the stage's first; per layer the small pools, then the wide
     int off = 0;
     for (int q = 0; q < a.Ptot; ++q) {
       s_off[q] = off;
       off += pool_cap(s_lanes[q]);
     }
+    s_off[a.Ptot] = off;
+    const int base = s_off[s_po[lo]];
+    s_base = base;
+    for (int q = s_po[lo]; q <= s_po[hi - 1] + s_nb[hi - 1]; ++q) s_off[q] -= base;
+    for (int l = lo; l < hi; ++l) {
+      const int po = s_po[l], B = s_nb[l];
+      int n = 0;
+      for (int p = 0; p < B; ++p)
+        if (s_lanes[po + p] >= 1 && s_lanes[po + p] <= kSmallPool) s_list[po + n++] = p;
+      s_nsmall[l] = n;
+      for (int p = 0; p < B; ++p)
+        if (s_lanes[po + p] > kSmallPool) s_list[po + n++] = p;
+      s_nwide[l] = n - s_nsmall[l];
+    }
   }
-  double* sbuf = reinterpret_cast<double*>(smem_raw);
-  double* gstate = a.state + (size_t)c * a.state_stride;
-  double* state = a.smem_state ? sbuf + 2 * a.chunk : gstate;
-  auto stage_at = [&](double* dst, int i, int l, int j0, int first, int step) {
-    const int B = s_nb[l];
-    const int32_t* ix = a.idx ? a.idx + s_io[l] + (size_t)i * s_np[l] : nullptr;
-    stage_stream(dst, a.tables + s_tbl[l], ix, s_salt[l], (uint32_t)(a.r0 + i), s_ns[l], s_lanes + s_po[l], j0,
-                 min(a.chunk / B, s_jobs[l] - j0), B, s_k[l], s_bulk[l], first, step);
-  };
-  stage_at(sbuf, 0, 0, 0, tid, nthreads);
-  if (a.smem_state)
-    for (long long i = tid; i < a.state_stride; i += nthreads) state[i] = gstate[i];
   __syncthreads();
-
-  // thread 0's sketch state
-  double n_seen = 0.0, mn = 0.0, mxl = 0.0, mean = 0.0, m2 = 0.0, hor = 0.0;
-  if (tid == 0) {
-    const double* mo = a.moments + (size_t)c * 5;
-    n_seen = mo[0];
-    mn = mo[1];
-    mxl = mo[2];
-    mean = mo[3];
-    m2 = mo[4];
-    hor = a.horizon[c];
+  const int q_lo = s_po[lo], q_hi = s_po[hi - 1] + s_nb[hi - 1];
+  const int span = s_off[q_hi];  // the stage's lanes of state
+  // dynamic shared memory: kBufs buffers of staged service times, the pool
+  // state when it lives here, the streaming loaders' rows
+  double* sbuf = reinterpret_cast<double*>(smem_raw);
+  double* gst = STREAM ? a.state + (size_t)c * a.carry_stride + s_base : a.state + (size_t)blockIdx.x * a.state_stride;
+  double* state = a.smem_state ? sbuf + (size_t)kBufs * a.chunk : gst;
+  int* rows = reinterpret_cast<int*>(sbuf + (size_t)kBufs * a.chunk + (a.smem_state ? a.state_stride : 0));
+  if (STREAM) {
+    if (a.smem_state)
+      for (int i = tid; i < span; i += nthreads) state[i] = gst[i];
+  } else {
+    for (int q = q_lo + warp; q < q_hi; q += nwarps) {
+      const int d = s_lanes[q], cap = pool_cap(d);
+      for (int i = lane; i < cap; i += 32) state[s_off[q] + i] = i < d ? 0.0 : CUDART_INF;
+    }
   }
-  double* counts = a.counts + (size_t)c * a.n_bins;
-  double* ring = a.ring + (size_t)c * a.ring_len;
+  // every block's counts and slots are set before any other block writes them
+  cluster.sync();
 
-  double t = 0.0, t0 = 0.0, t_prev = 0.0, mx = -CUDART_INF, bs = 0.0, ws = 0.0;
-  int parity = 0, cb = 0;
-  int i = 0, l = 0, j0 = 0;
-  while (i < a.N) {
-    const int B = s_nb[l], Pj = s_jobs[l], po = s_po[l];
-    const int per = a.chunk / B;
-    const int nj = min(per, Pj - j0);
-    if (j0 == 0) {
-      if (l == 0) {
-        if (a.conc == 0) t = a.arrivals[(size_t)c * a.N + i];
-        // request i's slot was last written by request i - conc (carried in
-        // when i < conc); with conc 1 that is the previous request, whose
-        // write by thread 0 no barrier separates from this read
-        else if (a.conc == 1 && i > 0) t = t_prev;
-        else t = ring[(a.r0 + i) % a.conc];
-        t0 = t;
-      }
-      if (a.xfer) t = __dadd_rn(t, a.xfer[(size_t)c * a.L + l]);
-    }
-    int i2 = i, l2 = l, j2 = j0 + per;
-    const bool last = j2 >= Pj;
-    if (last) {
-      j2 = 0;
-      if (++l2 == a.L) {
-        l2 = 0;
-        ++i2;
-      }
-    }
-    const double* sv = sbuf + cb * a.chunk;
-    if (loader) {
-      if (i2 < a.N) stage_at(sbuf + (cb ^ 1) * a.chunk, i2, l2, j2, tid - nc, nthreads - nc);
-    } else {
-      run_pools<KMAX, false>(state, s_off, s_lanes, po, B, sv, nj, t, tid, nc, warp, lane, a.consumer_warps, mx,
-                             bs, ws);
-    }
-    if (last) {
-#pragma unroll
-      for (int o = 16; o; o >>= 1) mx = dmax(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      if (lane == 0) s_red[parity][warp] = mx;
-    }
-    __syncthreads();
-    cb ^= 1;
-    if (last) {
-      double done = lane < nwarps ? s_red[parity][lane] : -CUDART_INF;
-#pragma unroll
-      for (int o = 16; o; o >>= 1) done = dmax(done, __shfl_xor_sync(0xffffffffu, done, o));
-      t = dmax(done, t);
-      parity ^= 1;
-      mx = -CUDART_INF;
-      if (l + 1 == a.L) {
-        if (tid == 0) {
-          if (a.comp) {
-            a.t_arr[(size_t)c * a.N + i] = t0;
-            a.comp[(size_t)c * a.N + i] = t;
+  if (loader) {
+    // loader warp lw stages chunks k = lw, lw + nlw, ... on its own, so that
+    // as many chunks as there are loader warps are in flight at once
+    const int lw = warp - cw, nlw = nwarps - cw;
+    int* wrows = rows + lw * kWarpRows;
+    unsigned k = 0;
+    for (int r = 0; r < a.N; ++r) {
+      for (int l = lo; l < hi; ++l) {
+        const int B = s_nb[l], Pj = s_jobs[l], per = s_per[l];
+        for (int j0 = 0; j0 < Pj; j0 += per, ++k) {
+          if (k % nlw != (unsigned)lw) continue;
+          // chunk k takes the buffer of chunk k - kBufs: every consumer warp
+          // is done with it (a warp without pools may be chunks ahead of one
+          // with many, so each warp counts its own)
+          if (k >= (unsigned)kBufs)
+            for (int w = 0; w < cw; ++w) wait_for<false, true>(&s_wdone[w], k - kBufs + 1);
+          double* dst = sbuf + (size_t)(k % kBufs) * a.chunk;
+          const int nj = min(per, Pj - j0);
+          if (STREAM) {
+            const int32_t* ix = a.idx ? a.idx + s_io[l] + (size_t)r * s_np[l] : nullptr;
+            stage_stream(dst, wrows, a.tables + s_tbl[l], ix, s_salt[l], (uint32_t)(a.r0 + r), s_ns[l],
+                         s_lanes + s_po[l], j0, nj, B, s_k[l], s_bulk[l], lane, 32);
+          } else {
+            stage(dst, a.tables + s_tbl[l], a.idx + s_io[l] + (size_t)r * s_np[l] + j0, s_lanes + s_po[l], nj, B, lane,
+                  32);
           }
-          if (a.conc) ring[(a.r0 + i) % a.conc] = t;
-          const double lat = __dsub_rn(t, t0);
-          counts[sketch_bucket(lat, a.bins_per_octave, a.min_exp, a.n_bins)] += 1.0;
-          const double n1 = __dadd_rn(n_seen, 1.0);
-          const double d = __dsub_rn(lat, mean);
-          mean = __dadd_rn(mean, __ddiv_rn(d, n1));
-          m2 = __dadd_rn(m2, __dmul_rn(d, __dsub_rn(lat, mean)));
-          n_seen = n1;
-          mn = dmin(mn, lat);
-          mxl = dmax(mxl, lat);
-          hor = dmax(hor, t);
+          __syncwarp();
+          if (lane == 0) st_release<false>(&s_ready[k % kBufs], k + 1);
         }
-        t_prev = t;
       }
     }
-    i = i2;
-    l = l2;
-    j0 = j2;
+  } else {
+    const bool first = s == 0, final = s == S - 1;
+    double t = 0.0, t_prev = 0.0, mx = -CUDART_INF, bs = 0.0, ws = 0.0;
+    if (STREAM && final && tid == 0) {  // the sketch's moments and horizon, kept by thread 0 of the last stage
+      for (int i = 0; i < 5; ++i) s_mom[i] = a.moments[(size_t)c * 5 + i];
+      s_mom[5] = a.horizon[c];
+    }
+    double* ring = STREAM ? a.ring + (size_t)c * a.ring_len : nullptr;
+    double arr_next = first && a.conc == 0 ? a.arrivals[(size_t)c * a.N] : 0.0;
+    int parity = 0;
+    unsigned k = 0;
+    for (int r = 0; r < a.N; ++r) {
+      if (first) {
+        if (a.conc == 0) {
+          t = arr_next;
+          if (r + 1 < a.N) arr_next = a.arrivals[(size_t)c * a.N + r + 1];
+        } else if (r < a.conc) {
+          // a closed loop's first requests: 0, or the carried ring
+          t = STREAM ? ring[(a.r0 + r) % a.conc] : 0.0;
+        } else if (S == 1 && a.conc == 1) {
+          t = t_prev;
+        } else if (S == 1) {
+          // written by thread 0 at the end of request r - conc; the
+          // consumers' barriers of request r - 1 have ordered it since
+          t = STREAM ? ring[(a.r0 + r) % a.conc] : a.comp[(size_t)c * a.N + r - a.conc];
+        } else {
+          wait_for<true, false>(&s_done, (unsigned)(r - a.conc + 1));
+          t = STREAM ? __ldcg(ring + (a.r0 + r) % a.conc) : __ldcg(a.comp + (size_t)c * a.N + r - a.conc);
+        }
+        if (tid == 0) s_t0 = t;  // the request's arrival, which only thread 0 reads
+      } else {
+        wait_for<true, false>(&s_head, (unsigned)(r + 1));
+        t = s_slot[r % kSlots][0];
+      }
+      for (int l = lo; l < hi; ++l) {
+        if (a.xfer) t = __dadd_rn(t, s_xfer[l]);
+        const int B = s_nb[l], Pj = s_jobs[l], per = s_per[l], po = s_po[l];
+        for (int j0 = 0; j0 < Pj; j0 += per, ++k) {
+          wait_for<false, false>(&s_ready[k % kBufs], k + 1);
+          run_pools<KMAX, STATS>(state, s_off, s_lanes, s_list + po, s_nsmall[l], s_nwide[l], po, B,
+                                 sbuf + (size_t)(k % kBufs) * a.chunk, min(per, Pj - j0), t, tid, nc, warp, lane,
+                                 cw, mx, bs, ws);
+          __syncwarp();
+          if (lane == 0) st_release<false>(&s_wdone[warp], k + 1);
+        }
+        // the layer's completion: one barrier of the consumers; the
+        // reduction buffers alternate by layer, so a warp that runs ahead
+        // cannot overwrite what a slower one still reads
+#pragma unroll
+        for (int o = 16; o; o >>= 1) mx = dmax(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        if (STATS) {
+#pragma unroll
+          for (int o = 16; o; o >>= 1) {
+            bs = __dadd_rn(bs, __shfl_down_sync(0xffffffffu, bs, o));
+            ws = __dadd_rn(ws, __shfl_down_sync(0xffffffffu, ws, o));
+          }
+        }
+        if (lane == 0) {
+          s_red[parity][warp] = mx;
+          if (STATS) {
+            s_bsum[parity][warp] = bs;
+            s_wsum[parity][warp] = ws;
+          }
+        }
+        bar_named(1, nc);
+        double done = s_red[parity][0], done2 = -CUDART_INF;
+        for (int w = 1; w < cw; w += 2) {
+          done = dmax(done, s_red[parity][w]);
+          if (w + 1 < cw) done2 = dmax(done2, s_red[parity][w + 1]);
+        }
+        if (STATS && tid == 0) {
+          double sb = 0.0, sw = 0.0;
+          for (int w = 0; w < cw; ++w) {
+            sb = __dadd_rn(sb, s_bsum[parity][w]);
+            sw = __dadd_rn(sw, s_wsum[parity][w]);
+          }
+          s_acc_b[l] = __dadd_rn(s_acc_b[l], sb);
+          s_acc_w[l] = __dadd_rn(s_acc_w[l], sw);
+        }
+        t = dmax(dmax(done, done2), t);
+        parity ^= 1;
+        mx = -CUDART_INF;
+        bs = ws = 0.0;
+      }
+      // the request leaves the stage
+      if (tid == 0) {
+        const double t0 = first ? s_t0 : s_slot[r % kSlots][1];
+        if (!final) {
+          // wait for the next stage to have taken request r - kSlots out of its slot
+          wait_for<true, false>(&s_credit, (unsigned)(r - kSlots + 1));
+          double* slot = cluster.map_shared_rank(&s_slot[r % kSlots][0], s + 1);
+          slot[0] = t;
+          slot[1] = t0;
+          st_release<true>(cluster.map_shared_rank(&s_head, s + 1), (unsigned)(r + 1));
+        } else {
+          if (a.comp) {
+            a.t_arr[(size_t)c * a.N + r] = t0;
+            a.comp[(size_t)c * a.N + r] = t;
+          }
+          if (STREAM) {
+            if (a.conc) ring[(a.r0 + r) % a.conc] = t;
+            const double lat = __dsub_rn(t, t0);
+            a.counts[(size_t)c * a.n_bins + sketch_bucket(lat, a.bins_per_octave, a.min_exp, a.n_bins)] += 1.0;
+            const double n1 = __dadd_rn(s_mom[0], 1.0);
+            const double d = __dsub_rn(lat, s_mom[3]);
+            const double mean = __dadd_rn(s_mom[3], __ddiv_rn(d, n1));
+            s_mom[4] = __dadd_rn(s_mom[4], __dmul_rn(d, __dsub_rn(lat, mean)));
+            s_mom[3] = mean;
+            s_mom[0] = n1;
+            s_mom[1] = dmin(s_mom[1], lat);
+            s_mom[2] = dmax(s_mom[2], lat);
+            s_mom[5] = dmax(s_mom[5], t);
+          }
+          // stage 0 of a closed loop reads this completion from global memory
+          if (a.conc && S > 1) st_release<true>(cluster.map_shared_rank(&s_done, 0), (unsigned)(r + 1));
+        }
+        // every consumer has read this request's slot (the layer barriers since)
+        if (!first) st_release<true>(cluster.map_shared_rank(&s_credit, s - 1), (unsigned)(r + 1));
+      }
+      __syncwarp();
+      t_prev = t;
+    }
+    if (STATS && tid == 0) {
+      for (int l = lo; l < hi; ++l) {
+        a.busy[(size_t)c * a.L + l] = s_acc_b[l];
+        a.wait[(size_t)c * a.L + l] = s_acc_w[l];
+      }
+    }
+    if (STREAM && final && tid == 0) {
+      for (int i = 0; i < 5; ++i) a.moments[(size_t)c * 5 + i] = s_mom[i];
+      a.horizon[c] = s_mom[5];
+    }
+    if (STREAM && a.smem_state) {
+      bar_named(1, nc);
+      for (int i = tid; i < span; i += nc) gst[i] = state[i];
+    }
   }
-  if (tid == 0) {
-    double* mo = a.moments + (size_t)c * 5;
-    mo[0] = n_seen;
-    mo[1] = mn;
-    mo[2] = mxl;
-    mo[3] = mean;
-    mo[4] = m2;
-    a.horizon[c] = hor;
-  }
-  if (a.smem_state) {
-    __syncthreads();
-    for (long long q = tid; q < a.state_stride; q += nthreads) gstate[q] = state[q];
-  }
+  // no block leaves while another may still write its shared memory
+  cluster.sync();
+}
+
+// KMAX: the most lanes a thread of a wide pool holds in this launch (1: up
+// to 32 servers a pool, 4: 128, 16: 512; 32: any pool wider, up to 1,024 in
+// registers and above in the state memory); fewer registers for smaller
+// ones.  Threads a block: build_threads.
+template <int KMAX, bool STATS>
+__global__ void __launch_bounds__(build_threads(KMAX, STATS, false), KMAX == 16 && !STATS ? 2 : 1)
+    vtime_scan_kernel(Args a) {
+  vt_stage<KMAX, STATS, false>(a);
 }
 
 template <int KMAX>
-int launch_stream(const StreamArgs& a, int C, int threads, size_t smem, cudaStream_t stream) {
-  static size_t smem_set[64] = {};
+__global__ void __launch_bounds__(build_threads(KMAX, false, true), 1) vtime_stream_kernel(Args a) {
+  vt_stage<KMAX, false, true>(a);
+}
+
+template <class Kernel>
+cudaError_t raise_smem(Kernel kernel, size_t smem, size_t* smem_set) {
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
-  if (e != cudaSuccess) return (int)e;
-  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+  if (e != cudaSuccess) return e;
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   if (smem > 48 * 1024 - kStaticSmem && smem > smem_set[device]) {
-    e = cudaFuncSetAttribute(vtime_stream_kernel<KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
     smem_set[device] = smem;
   }
-  vtime_stream_kernel<KMAX><<<C, threads, smem, stream>>>(a);
+  return cudaSuccess;
+}
+
+cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int grid, int S, int threads, size_t smem,
+                                  cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Launch C clusters of a.stages blocks, or with `clusters` not null only
+// ask how many such clusters can be resident at once.  A refused launch
+// returns its error; it is never retried with fewer stages.
+template <class Kernel>
+int launch_or_query(Kernel kernel, size_t* smem_set, const Args& a, int C, int threads, size_t smem,
+                    cudaStream_t stream, int* clusters) {
+  cudaError_t e = raise_smem(kernel, smem, smem_set);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(attr, C * a.stages, a.stages, threads, smem, stream);
+  if (clusters) return (int)cudaOccupancyMaxActiveClusters(clusters, (const void*)kernel, &cfg);
+  e = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+template <bool STATS>
+int dispatch_scan(const Args& a, int C, int kmax, int threads, size_t smem, cudaStream_t s, int* clusters) {
+  static size_t smem_set[4][64] = {};  // the shared-memory limit raised so far, per build and device
+  switch (kmax) {
+    case 1: return launch_or_query(vtime_scan_kernel<1, STATS>, smem_set[0], a, C, threads, smem, s, clusters);
+    case 4: return launch_or_query(vtime_scan_kernel<4, STATS>, smem_set[1], a, C, threads, smem, s, clusters);
+    case 16: return launch_or_query(vtime_scan_kernel<16, STATS>, smem_set[2], a, C, threads, smem, s, clusters);
+    case 32: return launch_or_query(vtime_scan_kernel<32, STATS>, smem_set[3], a, C, threads, smem, s, clusters);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int dispatch_stream(const Args& a, int C, int kmax, int threads, size_t smem, cudaStream_t s, int* clusters) {
+  static size_t smem_set[4][64] = {};
+  switch (kmax) {
+    case 1: return launch_or_query(vtime_stream_kernel<1>, smem_set[0], a, C, threads, smem, s, clusters);
+    case 4: return launch_or_query(vtime_stream_kernel<4>, smem_set[1], a, C, threads, smem, s, clusters);
+    case 16: return launch_or_query(vtime_stream_kernel<16>, smem_set[2], a, C, threads, smem, s, clusters);
+    case 32: return launch_or_query(vtime_stream_kernel<32>, smem_set[3], a, C, threads, smem, s, clusters);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The launch shape both entries check: stages S >= 1 over a split that
+// starts at 0, ends at L and gives every stage a layer; threads a multiple
+// of 32 with at least one loader warp; dynamic shared memory within the
+// block's room.
+bool bad_shape(const Args& a, const int* split, int threads, int kmax, bool stats, bool stream, size_t smem) {
+  if (a.L < 1 || a.L > kMaxLayers || a.Ptot < 1 || a.Ptot > kMaxPools || threads < 32 ||
+      threads > build_threads(kmax, stats, stream) || threads % 32 || a.chunk < 1 || a.consumer_warps < 1 ||
+      32 * a.consumer_warps >= threads || a.stages < 1 || smem > kMaxSmem - kStaticSmem)
+    return true;
+  if (a.stages > kMaxStages || split == nullptr || split[0] != 0 || split[a.stages] != a.L) return true;
+  for (int i = 0; i < a.stages; ++i)
+    if (split[i + 1] <= split[i]) return true;
+  return false;
+}
+
+void copy_split(Args& a, const int* split) {
+  for (int i = 0; i <= kMaxStages; ++i) a.split[i] = split && i <= a.stages && a.stages <= kMaxStages ? split[i] : 0;
+}
+
+size_t smem_of(const Args& a, bool stream, int threads) {
+  return (kBufs * (size_t)a.chunk + (a.smem_state ? (size_t)a.state_stride : 0)) * sizeof(double) +
+         (stream ? (size_t)max(0, threads / 32 - a.consumer_warps) * kWarpRows * sizeof(int) : 0);
 }
 
 }  // namespace
 
-// Streaming entry, loaded with ctypes; pointers as for vtime_scan_launch.
-// `n` requests (the segment's valid ones) with global ids r0 .. r0 + n - 1.
-// `state` (C x state_stride) holds each config's lanes, pool by pool at
-// pool_cap(lanes) lanes each, sorted ascending with +inf for absent
-// servers; it is read at the start and written back at the end, as are
-// `ring` (C x ring_len, the closed loop's last completions by slot r %
-// conc), `counts` (C x n_bins), `moments` (C x 5: n, min, max, mean, m2)
-// and `horizon` (C).  `salts` (L uint32) selects hashed indices, `idx`
-// presampled ones (one of them is null); `plans` (C x L x 2 int32) are the
-// macro-job plans (K, n_bulk), (1, 0) for exact jobs, and with `idx` they
-// must be exact.  `t_arr` / `comp` (C x n) are written when not null.  The
-// caller has checked every index, lanes <= 65536, service times >= 0, L <=
-// 64, Ptot <= 1024, K >= 1 and n_bulk * K <= P_l.  `kmax`, `chunk`,
-// `threads`, `consumer_warps` and `smem_state` as for vtime_scan_launch.
+// Plain C entry point, loaded with ctypes.  Pointers are device pointers of
+// contiguous tensors on the current device (`split` a host array of S + 1
+// ints); `stream` is a cudaStream_t.  `meta` is (L, 5): B_l, P_l, pool
+// offset, offset into idx, S_l.  The launch is C clusters of `stages`
+// blocks; block s of a cluster runs layers split[s] .. split[s+1] - 1.
+// `state_stride` is the doubles of pool state one stage's block needs: the
+// largest sum over a stage's pools of pool_cap(lanes) (a power of two up to
+// 8 for a pool of at most 8 servers, max(32, the power of two) above).
+// `kmax` is 1, 4, 16 or 32: at least the lanes a warp's thread holds for
+// the widest pool (pow2(servers) / 32), and 32 when a pool is wider than
+// 512 servers.  `chunk` is the doubles of service times staged at a time,
+// at least every layer's pool count; the dynamic shared memory is four such
+// buffers and, with `smem_state` 1, the pool state (the caller has checked
+// it fits), else the state is in `gstate` (C * stages x state_stride
+// doubles).  `threads` is a multiple of 32, at most build_threads(kmax,
+// stats, stream), of which the first 32 * `consumer_warps` run the pools
+// and at least one warp stages.  With `clusters` not null nothing is
+// launched: *clusters gets how many such clusters the device holds at once
+// (cudaOccupancyMaxActiveClusters).  The caller has checked every index
+// (variant < V, sample index < S_l), lanes <= 65536, service times >= 0 and
+// not NaN, L <= 64 and Ptot <= 1024.  Returns cudaGetLastError() after the
+// launch (0 when it was accepted); a cluster shape the device refuses
+// returns its error.
+extern "C" int vtime_scan_launch(const void* tables, const void* tbl_off, const void* meta, const void* idx,
+                                 const void* variant, const void* lanes, const void* arrivals, const void* xfer,
+                                 void* t_arr, void* comp, void* busy, void* wait, void* gstate, long long state_stride,
+                                 int C, int N, int L, int V, int Ptot, int conc, int kmax, int chunk, int threads,
+                                 int consumer_warps, int smem_state, int stats, int stages, const int* split,
+                                 void* stream, int* clusters) {
+  Args a = {};
+  a.tables = static_cast<const double*>(tables);
+  a.tbl_off = static_cast<const long long*>(tbl_off);
+  a.meta = static_cast<const long long*>(meta);
+  a.idx = static_cast<const int32_t*>(idx);
+  a.variant = static_cast<const int32_t*>(variant);
+  a.lanes = static_cast<const int32_t*>(lanes);
+  a.arrivals = static_cast<const double*>(arrivals);
+  a.xfer = static_cast<const double*>(xfer);
+  a.t_arr = static_cast<double*>(t_arr);
+  a.comp = static_cast<double*>(comp);
+  a.busy = static_cast<double*>(busy);
+  a.wait = static_cast<double*>(wait);
+  a.state = static_cast<double*>(gstate);
+  a.state_stride = state_stride;
+  a.N = N;
+  a.L = L;
+  a.V = V;
+  a.Ptot = Ptot;
+  a.conc = conc;
+  a.chunk = chunk;
+  a.consumer_warps = consumer_warps;
+  a.smem_state = smem_state != 0;
+  a.stages = stages;
+  copy_split(a, split);
+  const size_t smem = smem_of(a, false, threads);
+  if (bad_shape(a, split, threads, kmax, stats != 0, false, smem)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (!clusters) {
+    if (C == 0 || N == 0) return 0;
+    if (!a.smem_state && gstate == nullptr) return (int)cudaErrorInvalidValue;
+    if (conc == 0 && arrivals == nullptr) return (int)cudaErrorInvalidValue;
+    if (stats && (busy == nullptr || wait == nullptr)) return (int)cudaErrorInvalidValue;
+  }
+  return stats ? dispatch_scan<true>(a, C, kmax, threads, smem, s, clusters)
+               : dispatch_scan<false>(a, C, kmax, threads, smem, s, clusters);
+}
+
+// Streaming entry, loaded with ctypes; pointers, `meta`, `stages`, `split`,
+// `clusters` as for vtime_scan_launch.  `n` requests (the segment's valid
+// ones) with global ids r0 .. r0 + n - 1.  `state` (C x state_stride)
+// holds each config's lanes, pool by pool at pool_cap(lanes) lanes each,
+// sorted ascending with +inf for absent servers; each stage reads its own
+// pools' lanes at the start and writes them back at the end, as the last
+// stage does `ring` (C x ring_len, the closed loop's last completions by
+// slot r % conc), `counts` (C x n_bins), `moments` (C x 5: n, min, max,
+// mean, m2) and `horizon` (C).  `stage_stride` is the doubles of lanes one
+// stage holds (in shared memory with `smem_state`).  `salts` (L uint32)
+// selects hashed indices, `idx` presampled ones (one of them is null);
+// `plans` (C x L x 2 int32) are the macro-job plans (K, n_bulk), (1, 0) for
+// exact jobs, and with `idx` they must be exact.  `t_arr` / `comp` (C x n)
+// are written when not null.  The caller has checked every index, lanes <=
+// 65536, service times >= 0, L <= 64, Ptot <= 1024, K >= 1 and n_bulk * K
+// <= P_l.  `kmax`, `chunk`, `threads` and `consumer_warps` as for
+// vtime_scan_launch.
 extern "C" int vtime_stream_launch(const void* tables, const void* tbl_off, const void* meta, const void* salts,
                                    const void* idx, const void* plans, const void* variant, const void* lanes,
                                    const void* arrivals, const void* xfer, void* state, long long state_stride,
                                    void* ring, int ring_len, void* counts, int n_bins, int bins_per_octave,
                                    int min_exp, void* moments, void* horizon, void* t_arr, void* comp, long long r0,
                                    int C, int N, int L, int V, int Ptot, int conc, int kmax, int chunk, int threads,
-                                   int consumer_warps, int smem_state, void* stream) {
-  if (C == 0 || N == 0) return 0;
-  if (L < 1 || L > kMaxLayers || Ptot < 1 || Ptot > kMaxPools || threads < 32 || threads > kMaxThreads ||
-      threads % 32 || chunk < 1 || consumer_warps < 1 || 32 * consumer_warps >= threads ||
-      (kmax >= 16 && threads > kMaxThreads / 2) || n_bins < 1 || bins_per_octave < 1 || ring_len < 1 ||
-      (salts == nullptr) == (idx == nullptr) || (conc == 0 && arrivals == nullptr) ||
-      ((t_arr == nullptr) != (comp == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  StreamArgs a;
+                                   int consumer_warps, int smem_state, long long stage_stride, int stages,
+                                   const int* split, void* stream, int* clusters) {
+  Args a = {};
   a.tables = static_cast<const double*>(tables);
   a.tbl_off = static_cast<const long long*>(tbl_off);
   a.meta = static_cast<const long long*>(meta);
@@ -925,7 +1060,8 @@ extern "C" int vtime_stream_launch(const void* tables, const void* tbl_off, cons
   a.horizon = static_cast<double*>(horizon);
   a.t_arr = static_cast<double*>(t_arr);
   a.comp = static_cast<double*>(comp);
-  a.state_stride = state_stride;
+  a.carry_stride = state_stride;
+  a.state_stride = stage_stride;
   a.r0 = r0;
   a.N = N;
   a.L = L;
@@ -939,16 +1075,20 @@ extern "C" int vtime_stream_launch(const void* tables, const void* tbl_off, cons
   a.n_bins = n_bins;
   a.bins_per_octave = bins_per_octave;
   a.min_exp = min_exp;
-  const size_t smem = (2 * (size_t)chunk + (a.smem_state ? (size_t)state_stride : 0)) * sizeof(double);
-  if (smem > kMaxSmem - kStaticSmem) return (int)cudaErrorInvalidValue;
+  a.stages = stages;
+  copy_split(a, split);
+  const size_t smem = smem_of(a, true, threads);
+  if (bad_shape(a, split, threads, kmax, false, true, smem) || n_bins < 1 || bins_per_octave < 1 || ring_len < 1 ||
+      stage_stride > state_stride)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  switch (kmax) {
-    case 1: return launch_stream<1>(a, C, threads, smem, s);
-    case 4: return launch_stream<4>(a, C, threads, smem, s);
-    case 16: return launch_stream<16>(a, C, threads, smem, s);
-    case 32: return launch_stream<32>(a, C, threads, smem, s);
-    default: return (int)cudaErrorInvalidValue;
+  if (!clusters) {
+    if (C == 0 || N == 0) return 0;
+    if ((salts == nullptr) == (idx == nullptr) || plans == nullptr || (conc == 0 && arrivals == nullptr) ||
+        ((t_arr == nullptr) != (comp == nullptr)))
+      return (int)cudaErrorInvalidValue;
   }
+  return dispatch_stream(a, C, kmax, threads, smem, s, clusters);
 }
 
 namespace {

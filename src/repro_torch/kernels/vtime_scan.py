@@ -6,7 +6,8 @@ whose loop over requests and jobs is a ``lax.scan`` on the device.  No
 Pallas kernel is involved, but the recurrence is serial in jobs (1,448 a
 VGG11 request, 30,233 a ResNet18 one), so in eager PyTorch it would cost five
 to seven launches a job.  ``vtime_scan`` is its counterpart: one launch of
-``csrc/vtime_scan.cu`` for C (allocation, trace) pairs, a block per pair.
+``csrc/vtime_scan.cu`` for C (allocation, trace) pairs, a thread-block
+cluster per pair.
 
 The problem, for config c: layer l has B_l pools, pool p holding
 ``lanes[c, off_l + p]`` servers (0 for a pool that is not used).  Request r
@@ -22,23 +23,34 @@ per layer (C, L).  Completions are bit-identical to ``FabricSim`` and to the
 numpy engine; the two sums agree with the numpy engine to rtol 1e-12 (their
 order differs).  Service times are cycles, so both versions take them >= 0
 (the kernel's insert relies on it).  A pool holds at most ``MAX_LANES`` =
-65,536 servers: up to 512 a warp keeps them in registers, above that its
+65,536 servers: up to 1,024 a warp keeps them in registers, above that its
 lanes stay in the pool state (shared memory when it fits, else a global
 scratch row) and each job rewrites them a row of 32 at a time.
+
+What bounds it is the critical path, not the sum of the jobs: (r, l)
+needs (r, l-1) (its ready time) and (r-1, l) (the pools' state), and a
+closed loop adds (r - concurrency, L-1) before (r, 0); ``critical_path``
+is the longest path through that grid.  So a config's layers run as a
+wavefront: ``kernel_plan`` splits them into S <= 8 contiguous stages
+(``stage_split``, balancing each layer's jobs times the cost a job of its
+widest pool), one block of the config's cluster each, which hand every
+request to the next stage through distributed shared memory.  Arrivals,
+completions and the carried state do not depend on S.
 
 ``vtime_stream`` is the second entry of the same source: the fleet's
 streaming replay (the reference's ``_run_stream_kernel``,
 ``src/repro/fabric/fleet.py:104-164``), one launch per segment.  It runs the
-same pools over requests whose sample indices are hashed in the kernel
+same stages over requests whose sample indices are hashed in the kernel
 (``fabric.vtime.hash_service_indices``; there is no (N, P) index tensor) or
 given, whose jobs may be macro-jobs (``_chunk_services``: a left fold of K
 patches, then the exact tail), and folds each latency into the log-bucket
 sketch, min / max, Welford mean / m2 and the horizon
 (``fabric.metrics.sketch_update``).  Lane state, ring, sketch and horizon
 (``StreamState``) come from the caller and go back to it, so a segment's
-launch continues the previous one.  ``vtime_stream_ref`` is its plain
-version.  The reference's ``window`` blocks its scan and changes no bit;
-the launch takes every request in order and has no such argument.
+launch continues the previous one, whatever either's S; each stage reads
+and writes back only its own pools' lanes.  ``vtime_stream_ref`` is its
+plain version.  The reference's ``window`` blocks its scan and changes no
+bit; the launch takes every request in order and has no such argument.
 
 ``vtime_scan`` launches the kernel on CUDA tensors (``kernel_plan`` makes
 its host-side choices) and runs the plain PyTorch version ``vtime_scan_ref``
@@ -62,8 +74,12 @@ from . import _build
 __all__ = [
     "MAX_LANES",
     "StreamState",
+    "build_warps",
+    "chain_weights",
+    "critical_path",
     "kernel_plan",
     "pool_caps",
+    "stage_split",
     "stream_dense",
     "stream_flat",
     "stream_state",
@@ -75,32 +91,47 @@ __all__ = [
 
 _F64 = torch.float64
 MAX_SMEM = 232_448  # the most shared memory one block may use on the card
-STATIC_SMEM = 12 * 1024  # the kernel's own shared arrays, kept out of the state's room
+STATIC_SMEM = 20 * 1024  # the kernel's own shared arrays, kept out of the dynamic memory's room
 MAX_LAYERS = 64
 MAX_POOLS = 1024
-MAX_LANES = 65_536  # servers a pool; a warp holds up to 512 in registers
+MAX_LANES = 65_536  # servers a pool; a warp holds up to 1,024 in registers
+MAX_STAGES = 8  # blocks of a config's cluster (the portable cluster size)
+SM_COUNT = 132  # the H100's SMs: with this many configs one block each fills the card
 SMALL_POOL = 8  # pools of at most this many servers run on one thread
-CHUNK = 2048  # doubles of service times staged at a time, two buffers
-LOADER_WARPS = 2  # warps of a block that stage the next chunk's service times
+CHUNK = 2048  # doubles of service times a staging buffer holds
+BUFS = 4  # staging buffers in a stage's ring
+ROWS = 1024  # sample rows a streaming loader warp hashes once a chunk (int32 scratch)
+LOADER_WARPS = 2  # warps of a VT block that stage service times
+STREAM_LOADER_WARPS = 4  # of a streaming block, which also hash and fold macro-jobs
+# cycles a job by a pool's lane capacity (pool_caps), and a (request, layer)
+# of one job, as chip_smoke.py's vt_lane_costs measured them on the H100;
+# they weigh the layers when kernel_plan splits them into stages (only their
+# ratios matter)
+JOB_CYCLES = {0: 0.0, 1: 14.0, 2: 31.0, 4: 44.0, 8: 66.0, 32: 87.0, 64: 87.0, 128: 100.0, 256: 144.0, 512: 214.0,
+              1024: 345.0}
+LAYER_CYCLES = 1870.0
 
 
 @functools.cache
 def _launcher():
     fn = _build.load("vtime_scan").vtime_scan_launch
-    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong] + [ctypes.c_int] * 12
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong] + [ctypes.c_int] * 13
+                   + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     return fn
 
 
 class KernelPlan(NamedTuple):
     threads: int  # threads a block
-    consumer_warps: int  # warps that run the pools; the other LOADER_WARPS stage
+    consumer_warps: int  # warps that run the pools; the other loader_warps stage
+    loader_warps: int
     kmax: int  # lanes a thread of the widest pool's warp holds: 1, 4 or 16; 32 with a pool wider than 512
     chunk: int  # doubles of service times a staging buffer holds
-    state_stride: int  # doubles of pool state a config
+    state_stride: int  # doubles of pool state a stage's block holds (its largest stage, its largest config)
     smem_state: bool  # the pool state lives in shared memory
     smem_bytes: int  # dynamic shared memory a block takes
+    stages: int  # S: blocks of a config's cluster
+    split: tuple  # S + 1 layer indices: stage s runs layers split[s] .. split[s+1] - 1
 
 
 def pool_caps(lanes: np.ndarray) -> np.ndarray:
@@ -112,34 +143,190 @@ def pool_caps(lanes: np.ndarray) -> np.ndarray:
     return np.where(d == 0, 0, np.where(d <= SMALL_POOL, pow2, np.maximum(32, pow2)))
 
 
-def kernel_plan(lanes: np.ndarray, blocks, patches) -> KernelPlan:
+def job_cycles(cap: int) -> float:
+    """Cycles a job of a pool with ``cap`` lanes of state (``JOB_CYCLES``;
+    a pool wider than 1,024 servers rewrites a row of 32 lanes in memory a
+    job, about 40 cycles a row)."""
+    cap = int(cap)
+    return JOB_CYCLES[cap] if cap in JOB_CYCLES else 40.0 * cap / 32
+
+
+def stage_split(work, stages: int) -> tuple:
+    """The split of layers with ``work`` into ``stages`` contiguous non-empty
+    stages whose largest sum of work is least (a linear-partition DP; among
+    equal splits, the earliest boundaries): a tuple of stages + 1 indices
+    from 0 to len(work)."""
+    w = np.asarray(work, dtype=np.float64)
+    L, S = len(w), int(stages)
+    if not 1 <= S <= L:
+        raise ValueError(f"{S} stages for {L} layers")
+    pre = np.concatenate([[0.0], np.cumsum(w)])
+    best = pre[1:].copy()  # best[i]: the least largest stage over layers 0..i in k stages
+    cut = [np.zeros(L, dtype=np.int64)]
+    for _ in range(1, S):
+        nb, nc = np.full(L, np.inf), np.zeros(L, dtype=np.int64)
+        for i in range(L):
+            for j in range(i):  # the last stage is layers j+1 .. i
+                v = max(best[j], pre[i + 1] - pre[j + 1])
+                if v < nb[i]:
+                    nb[i], nc[i] = v, j + 1
+        best = nb
+        cut.append(nc)
+    split, i = [L], L - 1
+    for k in range(S - 1, 0, -1):
+        split.append(int(cut[k][i]))
+        i = split[-1] - 1
+    return tuple([0] + split[::-1])
+
+
+def _stage_work(work, split) -> float:
+    return max(float(np.sum(work[a:b])) for a, b in zip(split[:-1], split[1:]))
+
+
+def build_warps(kmax: int, stats: bool = False, stream: bool = False) -> int:
+    """Warps a block of the kernel's build holds at most (its launch
+    bound): 12 for KMAX 1 and 4, 8 for the wider builds, 6 for VT's KMAX 16
+    build without stats, which keeps two blocks an SM."""
+    return 12 if kmax <= 4 else 6 if kmax == 16 and not stats and not stream else 8
+
+
+def kernel_plan(lanes: np.ndarray, blocks, patches, *, jobs=None, stream: bool = False, stats: bool = False,
+                stages: int | None = None, clusters=None) -> KernelPlan:
     """VT's host-side choices for (C, pools) lane counts over layers of
-    ``blocks`` pools and ``patches`` jobs a request: consumer warps with a
-    thread for every pool of the widest layer and a warp for every pool of
-    more than 8 servers in the layer that has most (at most 14, or 6 for the
-    widest build, whose threads hold up to 16 lanes), beside
-    ``LOADER_WARPS`` warps that stage service times; the build for the widest
-    pool (``kmax``; 32, a build of its own, for pools wider than 512, whose
-    lanes stay in the pool state); staging buffers of ``CHUNK`` doubles (fewer when no
-    layer needs them, at least the widest layer's pools); the pool state
-    (``pool_caps`` summed over a config's pools, the largest config) in
-    shared memory when it fits beside them."""
+    ``blocks`` pools and ``patches`` jobs a request (``jobs``: (C, L) jobs a
+    request when macro-jobs change them), for the streaming entry
+    (``stream``) or VT with or without ``stats``:
+
+    * consumer warps with a thread for every small pool of the layer that
+      has most and a warp for every pool of more than 8 servers in the layer
+      that has most, within the build's ``build_warps`` beside
+      ``LOADER_WARPS`` (``STREAM_LOADER_WARPS`` for the streaming entry)
+      warps that stage service times;
+    * the build for the widest pool (``kmax``; 32 for pools wider than 512);
+    * staging buffers of ``CHUNK`` doubles (fewer when no layer needs them,
+      at least the widest layer's pools), ``BUFS`` of them;
+    * the stages: each layer weighs its most jobs times ``job_cycles`` of
+      its widest pool, times the pools a consumer warp (or thread) runs in
+      turn, plus ``LAYER_CYCLES``; for S stages ``stage_split`` minimises
+      the largest stage's weight, and S is the smallest count that reaches
+      the least such weight over the counts whose C clusters are all
+      resident at once (``clusters(S, plan)``: the device's count, by
+      default one block an SM of ``SM_COUNT``), S = 1 when C fills the
+      card.  ``stages`` forces S (tests and measurements only);
+    * the pool state of a stage (``pool_caps`` summed over its pools, the
+      largest stage and config) in shared memory when it fits."""
     lanes = np.asarray(lanes, dtype=np.int64)
     if lanes.size and lanes.max() > MAX_LANES:
         raise ValueError(f"VT holds at most {MAX_LANES} servers a pool, got {int(lanes.max())}")
-    wide, off = 0, 0
-    for b in blocks:
-        wide = max(wide, int((lanes[:, off : off + b] > SMALL_POOL).sum(axis=1).max(initial=0)))
-        off += b
-    top = int(pool_caps(lanes).max(initial=1))
+    blocks, patches = [int(b) for b in blocks], [int(p) for p in patches]
+    L, C = len(blocks), lanes.shape[0]
+    caps = pool_caps(lanes)
+    offs = np.cumsum(blocks) - blocks
+    jobs = np.broadcast_to(np.asarray(patches if jobs is None else jobs, dtype=np.int64), (C, L))
+    small, wide, width = [], [], []
+    for o, b in zip(offs, blocks):
+        d = lanes[:, o : o + b]
+        small.append(int(((d >= 1) & (d <= SMALL_POOL)).sum(axis=1).max(initial=0)))
+        wide.append(int((d > SMALL_POOL).sum(axis=1).max(initial=0)))
+        width.append(int(caps[:, o : o + b].max(initial=0)))
+    top = max(width, default=1)
     kmax = 1 if top <= 32 else 4 if top <= 128 else 16 if top <= 512 else 32
-    warps = 8 if kmax >= 16 else 16  # the build's launch bound: 256 or 512 threads
-    consumers = min(warps - LOADER_WARPS, max(1, -(-max(blocks) // 32), wide))
+    loaders = STREAM_LOADER_WARPS if stream else LOADER_WARPS
+    consumers = min(build_warps(kmax, stats, stream) - loaders, max(1, -(-max(small) // 32), max(wide)))
+    work = [int(jobs[:, l].max(initial=0)) * job_cycles(width[l])
+            * max(1, -(-wide[l] // consumers), -(-small[l] // (32 * consumers))) + LAYER_CYCLES for l in range(L)]
     chunk = max(max(blocks), min(CHUNK, max(b * p for b, p in zip(blocks, patches))))
-    stride = int(pool_caps(lanes).sum(axis=1).max(initial=1))
-    smem = 8 * (2 * chunk + stride) <= MAX_SMEM - STATIC_SMEM
-    return KernelPlan(32 * (consumers + LOADER_WARPS), consumers, kmax, chunk, stride, smem,
-                      8 * (2 * chunk + (stride if smem else 0)))
+    rows = 4 * ROWS * loaders if stream else 0
+
+    def shape(S):
+        split = stage_split(work, S)
+        stride = 1
+        for a, b in zip(split[:-1], split[1:]):
+            q0, q1 = offs[a], offs[b - 1] + blocks[b - 1]
+            stride = max(stride, int(caps[:, q0:q1].sum(axis=1).max(initial=1)))
+        smem = 8 * (BUFS * chunk + stride) + rows <= MAX_SMEM - STATIC_SMEM
+        return KernelPlan(32 * (consumers + loaders), consumers, loaders, kmax, chunk, stride, smem,
+                          8 * (BUFS * chunk + (stride if smem else 0)) + rows, S, split)
+
+    if stages is not None:
+        if not 1 <= int(stages) <= min(MAX_STAGES, L):
+            raise ValueError(f"{stages} stages: 1 to {min(MAX_STAGES, L)} for {L} layers")
+        return shape(int(stages))
+    best = shape(1)
+    if C >= SM_COUNT:
+        return best
+    for S in range(2, min(MAX_STAGES, L) + 1):
+        plan = shape(S)
+        if (clusters(S, plan) if clusters is not None else SM_COUNT // S) < C:
+            break
+        if _stage_work(work, plan.split) < _stage_work(work, best.split):
+            best = plan
+    return best
+
+
+def critical_path(jobs, n_requests: int, concurrency: int | None = None, weights=None) -> float:
+    """The longest dependency path through one config's (request, layer)
+    grid: T[r][l] = max(T[r-1][l], T[r][l-1], and for l = 0 in a closed loop
+    T[r-conc][L-1]) + w_l, w_l = jobs[l] * weights[l] (``weights`` None:
+    1, the path in job steps; else e.g. the ns of one job's chain link).
+    With stages each running their layers' jobs in order, no launch can be
+    faster than this path."""
+    w = np.asarray(jobs, dtype=np.float64) * (1.0 if weights is None else np.asarray(weights, dtype=np.float64))
+    N, L = int(n_requests), len(w)
+    if N == 0 or L == 0:
+        return 0.0
+    conc = None if concurrency is None else int(concurrency)
+    if conc is None or conc >= N:  # no back edge: the path takes the heaviest layer N times
+        return float(w.sum() + (N - 1) * w.max())
+    W = np.cumsum(w)
+    Wprev = np.concatenate([[0.0], W[:-1]])
+    T, last = np.zeros(L), np.zeros(N)
+    for r in range(N):
+        A = T.copy() if r else np.zeros(L)
+        if r >= conc:
+            A[0] = max(A[0], last[r - conc])
+        T = W + np.maximum.accumulate(A - Wprev)
+        last[r] = T[-1]
+    return float(T[-1])
+
+
+def chain_weights(lanes, blocks, add_ns: float, add_min_ns: float) -> np.ndarray:
+    """(C, L) the least time of one job's chain link a layer: an add alone
+    when every pool of the layer has at most one server, else an add and a
+    min (one compare and select)."""
+    lanes = np.asarray(lanes, dtype=np.int64)
+    offs = np.cumsum(blocks) - np.asarray(blocks)
+    one = np.stack([lanes[:, o : o + b].max(axis=1, initial=0) <= 1 for o, b in zip(offs, blocks)], axis=1)
+    return np.where(one, float(add_ns), float(add_min_ns))
+
+
+@functools.cache
+def _clusters(device: int, stream: bool, stats: bool, plan: KernelPlan) -> int:
+    """How many clusters of ``plan``'s launch shape the device holds at once
+    (the launch entries' occupancy query)."""
+    out = ctypes.c_int(0)
+    S = plan.stages
+    split = (ctypes.c_int * (MAX_STAGES + 1))(*range(S + 1))
+    shape = (plan.kmax, plan.chunk, plan.threads, plan.consumer_warps, int(plan.smem_state))
+    if stream:
+        rc = _stream_launcher()(*([None] * 11), plan.state_stride, None, 1, None, 1, 1, 0, *([None] * 4), 0,
+                                1, 1, S, 1, 1, 0, *shape, plan.state_stride, S, split, None, ctypes.byref(out))
+    else:
+        rc = _launcher()(*([None] * 13), plan.state_stride, 1, 1, S, 1, 1, 0, *shape, int(stats), S, split, None,
+                         ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"vtime_scan: occupancy query failed: CUDA error {rc}")
+    return out.value
+
+
+def _resident(device, stream: bool, stats: bool):
+    """``kernel_plan``'s ``clusters`` for a launch on ``device``."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+
+    def count(S, plan):
+        with torch.cuda.device(index):
+            return _clusters(index, stream, stats, plan)
+    return count
 
 
 class _Problem(NamedTuple):
@@ -274,34 +461,55 @@ class _Packed(NamedTuple):
     plan: KernelPlan
     tables: torch.Tensor  # every layer's (V, S_l, B_l) table, flat
     tbl_off: torch.Tensor  # (L, V) int64 offsets into tables
-    meta: torch.Tensor  # (L, 4) int64: B_l, P_l, pool offset, offset into idx
+    meta: torch.Tensor  # (L, 5) int64: B_l, P_l, pool offset, offset into idx, S_l
     idx: torch.Tensor  # every layer's (N, P_l) indices, flat int32
     n_pools: int
 
 
-def _pack(p: _Problem) -> _Packed:
-    dev = p.variant.device
-    C, N = p.variant.shape[0], p.n_requests
-    V = p.tables[0].shape[0]
-    blocks = torch.tensor([t.shape[2] for t in p.tables], dtype=torch.int64)
-    patches = torch.tensor([i.shape[1] for i in p.idx], dtype=torch.int64)
-    n_pools = int(blocks.sum())
-    plan = kernel_plan(p.lanes.cpu().numpy(), blocks.tolist(), patches.tolist())
-    sizes = torch.tensor([t.numel() for t in p.tables], dtype=torch.int64)
-    per_v = torch.tensor([t.shape[1] * t.shape[2] for t in p.tables], dtype=torch.int64)
+def _meta(tables, patches, n_requests: int):
+    """(tbl_off (L, V), meta (L, 5)) int64 on the host for per-layer (V,
+    S_l, B_l) tables: offsets into the flat tables, and B_l, P_l, the
+    layer's first pool, its offset into the flat (N, P_l) indices, S_l."""
+    V = tables[0].shape[0]
+    blocks = torch.tensor([t.shape[2] for t in tables], dtype=torch.int64)
+    pt = torch.tensor(patches, dtype=torch.int64)
+    sizes = torch.tensor([t.numel() for t in tables], dtype=torch.int64)
+    per_v = torch.tensor([t.shape[1] * t.shape[2] for t in tables], dtype=torch.int64)
     tbl_off = (torch.cumsum(sizes, 0) - sizes)[:, None] + torch.arange(V)[None, :] * per_v[:, None]
-    idx_sizes = patches * N
-    meta = torch.stack([blocks, patches, torch.cumsum(blocks, 0) - blocks,
-                        torch.cumsum(idx_sizes, 0) - idx_sizes], dim=1)
+    idx_sizes = pt * int(n_requests)
+    meta = torch.stack([blocks, pt, torch.cumsum(blocks, 0) - blocks, torch.cumsum(idx_sizes, 0) - idx_sizes,
+                        torch.tensor([t.shape[1] for t in tables], dtype=torch.int64)], dim=1)
+    return tbl_off, meta
+
+
+def _pack(p: _Problem, collect_stats: bool = False, stages: int | None = None) -> _Packed:
+    """The flat buffers and ``kernel_plan``'s choices (on the card, with the
+    device's resident clusters; ``stages`` forces S, for tests and
+    measurements only)."""
+    dev = p.variant.device
+    blocks = [t.shape[2] for t in p.tables]
+    patches = [i.shape[1] for i in p.idx]
+    clusters = _resident(dev, False, collect_stats) if dev.type == "cuda" else None
+    plan = kernel_plan(p.lanes.cpu().numpy(), blocks, patches, stats=collect_stats, stages=stages,
+                       clusters=clusters)
+    tbl_off, meta = _meta(p.tables, patches, p.n_requests)
     return _Packed(
         p, plan, torch.cat([t.reshape(-1) for t in p.tables]), tbl_off.to(dev), meta.to(dev),
-        torch.cat([i.reshape(-1) for i in p.idx]), n_pools,
+        torch.cat([i.reshape(-1) for i in p.idx]), sum(blocks),
     )
+
+
+def _split_arg(plan: KernelPlan):
+    """The plan's split as the entries' int array of MAX_STAGES + 1 (a plan
+    of more stages than that is passed cut, for the launch to refuse)."""
+    split = list(plan.split[: MAX_STAGES + 1])
+    return (ctypes.c_int * (MAX_STAGES + 1))(*split, *([0] * (MAX_STAGES + 1 - len(split))))
 
 
 def _launch(k: _Packed, collect_stats: bool):
     """One launch on packed buffers: allocates the outputs (and the global
-    pool state when it does not fit in shared memory) and runs VT."""
+    pool state when it does not fit in shared memory) and runs VT as C
+    clusters of ``plan.stages`` blocks; a refused launch raises."""
     p, plan = k.p, k.plan
     dev = p.variant.device
     C, N, L = p.variant.shape[0], p.n_requests, len(p.tables)
@@ -309,7 +517,7 @@ def _launch(k: _Packed, collect_stats: bool):
     comp = torch.empty((C, N), dtype=_F64, device=dev)
     busy = torch.empty((C, L), dtype=_F64, device=dev) if collect_stats else None
     wait = torch.empty((C, L), dtype=_F64, device=dev) if collect_stats else None
-    gstate = None if plan.smem_state else torch.empty((C, plan.state_stride), dtype=_F64, device=dev)
+    gstate = None if plan.smem_state else torch.empty((C * plan.stages, plan.state_stride), dtype=_F64, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -321,10 +529,11 @@ def _launch(k: _Packed, collect_stats: bool):
             p.variant.data_ptr(), p.lanes.data_ptr(), ptr(p.arrivals), ptr(p.xfer),
             t_arr.data_ptr(), comp.data_ptr(), ptr(busy), ptr(wait), ptr(gstate), plan.state_stride,
             C, N, L, p.tables[0].shape[0], k.n_pools, p.concurrency, plan.kmax, plan.chunk, plan.threads,
-            plan.consumer_warps, int(plan.smem_state), int(collect_stats), stream,
+            plan.consumer_warps, int(plan.smem_state), int(collect_stats), plan.stages, _split_arg(plan), stream,
+            None,
         )
     if rc != 0:
-        raise RuntimeError(f"vtime_scan kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"vtime_scan kernel launch failed ({plan.stages} stages): CUDA error {rc}")
     vtime_scan.launches += 1
     return t_arr, comp, busy, wait
 
@@ -366,7 +575,7 @@ def vtime_scan(
         return _plain(p, bool(collect_stats))
     if p.variant.device.type != "cuda":
         raise ValueError(f"no kernel for device {p.variant.device}")
-    return _launch(_pack(p), bool(collect_stats))
+    return _launch(_pack(p, bool(collect_stats)), bool(collect_stats))
 
 
 vtime_scan.launches = 0
@@ -378,7 +587,7 @@ def _stream_launcher():
     fn = _build.load("vtime_scan").vtime_stream_launch
     fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 11
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     return fn
 
@@ -690,21 +899,26 @@ def _stream_plain(p: _Stream, emit: bool):
     return out, ((t_arr, comp) if emit else None)
 
 
-def _stream_launch(p: _Stream, emit: bool):
+def _stream_plan(p: _Stream, stages: int | None = None) -> KernelPlan:
+    """``kernel_plan`` for a streaming launch: each layer weighs its
+    macro-jobs and exact tail (the plans), and the carry's lanes stay
+    where ``stream_state`` put them (a stage's pools are one slice of it)."""
+    blocks = [t.shape[2] for t in p.tables]
+    jobs = p.plans[..., 1] + np.asarray(p.patches)[None, :] - p.plans[..., 1] * p.plans[..., 0]
+    dev = p.variant.device
+    clusters = _resident(dev, True, False) if dev.type == "cuda" else None
+    return kernel_plan(p.lanes.cpu().numpy(), blocks, p.patches, jobs=jobs, stream=True, stages=stages,
+                       clusters=clusters)
+
+
+def _stream_launch(p: _Stream, emit: bool, stages: int | None = None):
+    """One streaming launch as C clusters of the plan's stages (``stages``
+    forces S, for tests and measurements only); a refused launch raises."""
     dev = p.variant.device
     C, N, L = p.variant.shape[0], p.n_requests, len(p.tables)
     V = p.tables[0].shape[0]
-    blocks = [t.shape[2] for t in p.tables]
-    lanes_np = p.lanes.cpu().numpy()
-    plan = kernel_plan(lanes_np, blocks, p.patches)
-    sizes = torch.tensor([t.numel() for t in p.tables], dtype=torch.int64)
-    per_v = torch.tensor([t.shape[1] * t.shape[2] for t in p.tables], dtype=torch.int64)
-    tbl_off = (torch.cumsum(sizes, 0) - sizes)[:, None] + torch.arange(V)[None, :] * per_v[:, None]
-    b_t = torch.tensor(blocks, dtype=torch.int64)
-    p_t = torch.tensor(p.patches, dtype=torch.int64)
-    idx_sizes = p_t * N
-    meta = torch.stack([b_t, p_t, torch.cumsum(b_t, 0) - b_t, torch.cumsum(idx_sizes, 0) - idx_sizes,
-                        torch.tensor([t.shape[1] for t in p.tables], dtype=torch.int64)], dim=1)
+    plan = _stream_plan(p, stages)
+    tbl_off, meta = _meta(p.tables, p.patches, N)
     tables = torch.cat([t.reshape(-1) for t in p.tables])
     idx = None if p.idx is None else torch.cat([i.reshape(-1) for i in p.idx])
     salts = None if p.salts is None else torch.as_tensor(
@@ -714,7 +928,6 @@ def _stream_launch(p: _Stream, emit: bool):
     t_arr = torch.empty((C, N), dtype=_F64, device=dev) if emit else None
     comp = torch.empty((C, N), dtype=_F64, device=dev) if emit else None
     tbl_off, meta = tbl_off.to(dev), meta.to(dev)
-    smem = plan.smem_state and 8 * (2 * plan.chunk + st.shape[1]) <= MAX_SMEM - STATIC_SMEM
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -726,11 +939,12 @@ def _stream_launch(p: _Stream, emit: bool):
             p.variant.data_ptr(), p.lanes.data_ptr(), ptr(p.arrivals), ptr(p.xfer), st.data_ptr(), st.shape[1],
             ring.data_ptr(), ring.shape[1], counts.data_ptr(), counts.shape[1], p.sketch[0], p.sketch[1],
             moments.data_ptr(), horizon.data_ptr(), ptr(t_arr), ptr(comp), p.r0,
-            C, N, L, V, len(lanes_np[0]) if C else 0, p.concurrency, plan.kmax, plan.chunk, plan.threads,
-            plan.consumer_warps, int(smem), stream,
+            C, N, L, V, p.lanes.shape[1], p.concurrency, plan.kmax, plan.chunk, plan.threads,
+            plan.consumer_warps, int(plan.smem_state), plan.state_stride, plan.stages, _split_arg(plan), stream,
+            None,
         )
     if rc != 0:
-        raise RuntimeError(f"vtime_stream kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"vtime_stream kernel launch failed ({plan.stages} stages): CUDA error {rc}")
     vtime_stream.launches += 1
     return StreamState(st, ring, counts, moments, horizon), ((t_arr, comp) if emit else None)
 

@@ -317,6 +317,52 @@ def test_run_trace_failures_matches_event_engine(setup):
     np.testing.assert_array_equal(res.completions[0], sim.completions)
 
 
+@pytest.mark.parametrize("conc", [None, 1, 2, 4], ids=["open", "c1", "c2", "c4"])
+@pytest.mark.parametrize("seed", range(3))
+def test_stream_critical_path_with_plans(conc, seed):
+    """The streaming launches' bound: each layer's jobs under its macro-job
+    plan (macro-jobs, then the exact tail), and ``critical_path`` over them
+    equal to a brute-force longest path through the (request, layer) DAG."""
+    import functools
+
+    from repro_torch.kernels.vtime_scan import critical_path
+
+    rng = np.random.default_rng(seed)
+    L, N = int(rng.integers(1, 6)), int(rng.integers(1, 10))
+    patches = rng.integers(4, 60, L)
+    plans = np.array([chunk_plan(int(p), int(rng.integers(1, 4)), TF.CoarsenConfig(tail_lanes=1)) for p in patches])
+    jobs = plans[:, 1] + patches - plans[:, 1] * plans[:, 0]
+    assert np.all(jobs <= patches) and np.all(jobs >= 1)
+
+    @functools.cache
+    def longest(r, l):
+        preds = ([longest(r - 1, l)] if r else []) + ([longest(r, l - 1)] if l else [])
+        if l == 0 and conc is not None and r >= conc:
+            preds.append(longest(r - conc, L - 1))
+        return max(preds, default=0) + int(jobs[l])
+
+    assert critical_path(jobs, N, conc) == max(longest(r, l) for r in range(N) for l in range(L))
+    if conc == 1 or L == 1:
+        assert critical_path(jobs, N, conc) == N * jobs.sum()
+
+
+def test_stream_plan_weighs_macro_jobs(setup):
+    """A streaming launch's plan weighs each layer by its jobs under the
+    plans: coarsening VGG11's first layer moves the stage boundaries."""
+    from repro_torch.kernels import vtime_scan as vtk
+
+    rspec, rprof, tspec, tprof, ra, ta, cap, rvt, tvt = setup
+    lanes = np.stack([pool_lanes(tspec, a) for a in ta[:2]])
+    blocks = [l.n_blocks for l in tspec.layers]
+    patches = [l.patches_per_image for l in tspec.layers]
+    exact = vtk.kernel_plan(lanes, blocks, patches, stream=True)
+    assert exact.stages >= 2 and exact.split[1] == 1  # layer 0's 1,024 patches take a stage
+    jobs = np.broadcast_to(np.array(patches), lanes.shape[:1] + (len(patches),)).copy()
+    jobs[:, 0] = 8
+    coarse = vtk.kernel_plan(lanes, blocks, patches, jobs=jobs, stream=True)
+    assert coarse.split != exact.split and coarse.loader_warps == 4
+
+
 # ------------------------------------------------------------ on the card
 def _synthetic(spec, seed, device):
     """A profile of random integer cycles in [20, 400) per (sample, block)."""
@@ -417,3 +463,66 @@ def test_fleet_on_card_equals_host():
     want = TFL.run_trace_segments(host, segs, times, bounds, seed=3, coarsen=co)
     np.testing.assert_array_equal(got.makespan, want.makespan)
     _assert_sketches(want.sketches, got.sketches)
+
+
+@pytest.fixture
+def force_stages(monkeypatch):
+    """Make the streaming launches of a test run at S stages (``kernel_plan``'s
+    explicit count, which no entry point exposes)."""
+    import functools
+
+    from repro_torch.kernels import vtime_scan as vtk
+
+    real = vtk.kernel_plan
+
+    def force(S):
+        monkeypatch.setattr(vtk, "kernel_plan", functools.partial(real, stages=S))
+    return force
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [(1, 4), (4, 1)], ids=["1-then-4", "4-then-1"])
+@pytest.mark.parametrize("mode", ["hash", "hash_closed", "coarsen", "presampled"])
+def test_stream_segments_across_stage_counts_on_card(mode, order, force_stages):
+    """Two segments launched at S = 1 then S = 4 stages (and the reverse)
+    continue each other: their carry and emitted completions equal one
+    segment over all the requests (hashed and presampled indices, exact and
+    macro-job plans, open and closed loop), because the carry's layout does
+    not depend on S."""
+    dev = _card()
+    rng = np.random.default_rng(11)
+    L, V, C, N = 4, 2, 5, 9
+    shapes = [(int(rng.integers(2, 40)), int(rng.integers(1, 12)), int(rng.integers(4, 40))) for _ in range(L)]
+    tables = [torch.as_tensor(np.floor(rng.random((V, s, b)) * 300.0), device=dev) for s, b, _ in shapes]
+    patches = [p for _, _, p in shapes]
+    n_pools = sum(b for _, b, _ in shapes)
+    lanes = rng.integers(0, 60, (C, n_pools))
+    lanes[:, 0] = 40
+    var = torch.as_tensor(rng.integers(0, V, C), dtype=torch.int32, device=dev)
+    conc = 3 if mode == "hash_closed" else None
+    plans = None
+    if mode == "coarsen":
+        plans = np.array([[chunk_plan(p, 2, TF.CoarsenConfig(tail_lanes=1)) for p in patches] for _ in range(C)])
+    idx = [torch.as_tensor(rng.integers(0, s, (2 * N, p)), dtype=torch.int32, device=dev) for s, _, p in shapes]
+    arr = torch.as_tensor(np.cumsum(rng.exponential(300.0, (C, 2 * N)), axis=1), device=dev)
+    lanes_t = torch.as_tensor(lanes, device=dev)
+    salts = [int(x) for x in rng.integers(0, 2**32, L)]
+
+    def segment(carry, r0, n):
+        kw = dict(n_requests=n, patches=patches, plans=plans, r0=r0, emit=True, concurrency=conc,
+                  arrivals=None if conc else arr[:, r0:])
+        kw.update(idx=[i[r0:] for i in idx]) if mode == "presampled" else kw.update(salts=salts)
+        return vtime_stream(tables, var, lanes_t, carry, **kw)
+
+    fresh = stream_state(lanes, lanes, n_bins=64, ring_len=conc or 1, device=dev)
+    force_stages(2)
+    whole, ys = segment(fresh, 0, 2 * N)
+    force_stages(order[0])
+    carry, y0 = segment(fresh, 0, N)
+    force_stages(order[1])
+    carry, y1 = segment(carry, N, N)
+    torch.cuda.synchronize()
+    for name, g, w in zip(carry._fields, carry, whole):
+        assert torch.equal(g, w), name
+    assert torch.equal(torch.cat([y0[1], y1[1]], dim=1), ys[1])
+    assert torch.equal(torch.cat([y0[0], y1[0]], dim=1), ys[0])

@@ -231,30 +231,172 @@ def test_run_batch_validation(vgg, allocs):
     assert res.completions.shape == (1, 0)
 
 
-def test_kernel_plan():
-    """Consumer warps with a thread for each pool of the widest layer and a
-    warp for each pool of more than 8 servers in the layer with most (at
-    most 12, or 4 in the widest build), and 4 staging warps; state lanes a
-    power of two a pool (at
-    least 32 for a warp's), in shared memory while they fit beside two
-    staging buffers of at most 2048 service times."""
+_TWO = np.array([[1, 3, 3, 1, 50], [1, 1, 1, 1, 1]])
+
+
+@pytest.mark.parametrize("lanes, blocks, patches, kw, want", [
+    # a thread for each small pool, a warp for the 50-server one; layer 0's
+    # 1,024 one-server jobs outweigh layer 1: a stage each
+    (_TWO, [1, 4], [1024, 16], {}, dict(threads=96, consumer_warps=1, loader_warps=2, kmax=4, chunk=1024,
+                                        state_stride=4 + 4 + 1 + 64, smem_state=True,
+                                        smem_bytes=8 * (4 * 1024 + 73), stages=2, split=(0, 1, 2))),
+    (_TWO, [1, 4], [1024, 16], dict(stages=1), dict(state_stride=74, smem_bytes=8 * (4 * 1024 + 74), stages=1,
+                                                    split=(0, 2))),
+    # 36 wide pools in a layer: the KMAX 1 build's 12 warps, 10 on the
+    # pools and 2 staging
+    (np.full((2, 40), 9), [4, 36], [64, 64], {}, dict(threads=384, consumer_warps=10, kmax=1, chunk=2048)),
+    # the streaming entry: 4 loader warps, and each one's rows
+    (np.full((2, 40), 9), [4, 36], [64, 64], dict(stream=True),
+     dict(threads=384, consumer_warps=8, loader_warps=4, smem_bytes=8 * (4 * 2048 + 1152) + 4 * 1024 * 4)),
+    # KMAX 16 without stats keeps two blocks an SM: 6 warps; with stats 8
+    (np.full((2, 40), 222), [4, 36], [64, 64], {}, dict(threads=192, consumer_warps=4, kmax=16)),
+    (np.full((2, 40), 222), [4, 36], [64, 64], dict(stats=True), dict(threads=256, consumer_warps=6, kmax=16)),
+    (np.full((1, 247), 300), [247], [4], {}, dict(smem_state=False, stages=1)),
+    # a pool wider than 512 servers: the KMAX 32 build (registers up to
+    # 1,024 lanes, the pool state above), its lanes counted in the stride
+    (np.array([[700]]), [1], [64], {}, dict(threads=96, consumer_warps=1, kmax=32, chunk=64, state_stride=1024)),
+], ids=["small+wide", "one-stage", "36-wide", "stream", "kmax16", "kmax16-stats", "global-state", "f8"])
+def test_kernel_plan(lanes, blocks, patches, kw, want):
+    """Consumer warps with a thread for each small pool of the layer that has
+    most and a warp for each pool of more than 8 servers in the layer with
+    most, within the build's warps (``build_warps``: 12, 8, or 6 for KMAX 16
+    without stats) beside 2 staging warps (4 for the streaming entry); state
+    lanes a power of two a pool (at least
+    32 for a warp's), a stage's in shared memory while they fit beside four
+    staging buffers of at most 2048 service times; the stages split the
+    layers by their weight."""
+    plan = kernel_plan(lanes, blocks, patches, **kw)
+    assert {k: getattr(plan, k) for k in want} == want
+
+
+def test_pool_caps_and_limits():
     from repro_torch.kernels.vtime_scan import pool_caps
 
     np.testing.assert_array_equal(pool_caps([0, 1, 2, 3, 4, 5, 8, 9, 32, 33, 222, 512]),
                                   [0, 1, 2, 4, 4, 8, 8, 32, 32, 64, 256, 512])
-    lanes = np.array([[1, 3, 3, 1, 50], [1, 1, 1, 1, 1]])
-    plan = kernel_plan(lanes, [1, 4], [1024, 16])
-    assert plan == (96, 1, 4, 1024, 1 + 4 + 4 + 1 + 64, True, 8 * (2 * 1024 + 74))
-    lanes = np.full((2, 40), 9)
-    assert kernel_plan(lanes, [4, 36], [64, 64])[:2] == (512, 14)  # 36 wide pools: 14 warps and 2 stage
-    assert kernel_plan(lanes, [4, 36], [64, 64])[2:4] == (1, 2048)
-    assert kernel_plan(np.full((2, 40), 222), [4, 36], [64, 64])[:3] == (256, 6, 16)
-    assert kernel_plan(np.full((1, 247), 300), [247], [4]).smem_state is False
-    # a pool wider than 512 servers runs from the pool state (F8): a build
-    # of its own, its lanes counted in the state's stride
-    assert kernel_plan(np.array([[700]]), [1], [64])[:5] == (96, 1, 32, 64, 1024)
     with pytest.raises(ValueError, match="at most"):
         kernel_plan(np.array([[65_537]]), [1], [1])
+    with pytest.raises(ValueError, match="stages"):
+        kernel_plan(np.ones((1, 3), dtype=np.int64), [1, 1, 1], [4, 4, 4], stages=4)
+
+
+def _brute_split(work, S):
+    """The least largest stage over every contiguous split into S stages."""
+    import itertools
+
+    L = len(work)
+    best = np.inf
+    for cuts in itertools.combinations(range(1, L), S - 1):
+        b = (0, *cuts, L)
+        best = min(best, max(sum(work[i:j]) for i, j in zip(b[:-1], b[1:])))
+    return best
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_stage_split_matches_brute_force(seed):
+    """``stage_split`` gives contiguous stages that cover every layer once,
+    never more stages than layers, and its largest stage is the
+    brute-force least over every contiguous split of up to 8 layers."""
+    from repro_torch.kernels.vtime_scan import stage_split
+
+    rng = np.random.default_rng(seed)
+    L = int(rng.integers(1, 9))
+    work = rng.integers(1, 1000, L).astype(float)
+    for S in range(1, L + 1):
+        split = stage_split(work, S)
+        assert len(split) == S + 1 and split[0] == 0 and split[-1] == L
+        assert all(a < b for a, b in zip(split[:-1], split[1:]))
+        largest = max(work[a:b].sum() for a, b in zip(split[:-1], split[1:]))
+        assert largest == _brute_split(list(work), S)
+    with pytest.raises(ValueError):
+        stage_split(work, L + 1)
+
+
+def test_stage_count_chosen_and_capped():
+    """S is the smallest count that reaches the least largest stage; it is
+    capped by the resident clusters (``clusters``), and S = 1 when the
+    configs fill the card's SMs."""
+    from repro_torch.kernels.vtime_scan import SM_COUNT
+
+    blocks, patches = [1, 5, 9, 18, 18, 36, 36, 36], [1024, 256, 64, 64, 16, 16, 4, 4]
+    lanes = np.full((15, sum(blocks)), 4)
+    lanes[:, 0] = 128
+    plan = kernel_plan(lanes, blocks, patches)
+    assert plan.stages == 2 and plan.split == (0, 1, 8)  # layer 0 outweighs the other seven together
+    uniform = np.full((3, 8), 4)
+    assert kernel_plan(uniform, [1] * 8, [100] * 8).stages == 8
+    assert kernel_plan(uniform, [1] * 8, [100] * 8, clusters=lambda S, p: 3 if S <= 4 else 2).stages == 4
+    assert kernel_plan(uniform, [1] * 8, [100] * 8, clusters=lambda S, p: 2).stages == 1
+    assert kernel_plan(np.full((SM_COUNT, 8), 4), [1] * 8, [100] * 8).stages == 1
+    assert kernel_plan(np.full((SM_COUNT - 1, 8), 4), [1] * 8, [100] * 8).stages == 1  # 2 x 131 blocks do not fit
+    assert kernel_plan(np.full((30, 8), 4), [1] * 8, [100] * 8).stages == 4  # 30 clusters of 4 fit 132 SMs
+
+
+def _brute_path(w, N, conc):
+    """The longest path through the (r, l) DAG by memoised recursion over
+    its edges: (r-1, l), (r, l-1) and, closed loop, (r-conc, L-1) -> (r, 0)."""
+    import functools
+
+    L = len(w)
+
+    @functools.cache
+    def T(r, l):
+        preds = []
+        if r > 0:
+            preds.append(T(r - 1, l))
+        if l > 0:
+            preds.append(T(r, l - 1))
+        if l == 0 and conc is not None and r >= conc:
+            preds.append(T(r - conc, L - 1))
+        return max(preds, default=0.0) + w[l]
+
+    return max(T(r, l) for r in range(N) for l in range(L))
+
+
+@pytest.mark.parametrize("conc", [None, 1, 2, 3, 4], ids=["open", "c1", "c2", "c3", "c4"])
+@pytest.mark.parametrize("seed", range(3))
+def test_critical_path_matches_brute_force(conc, seed):
+    """``critical_path`` equals a brute-force longest path over the (request,
+    layer) DAG, in job steps and with per-layer weights."""
+    from repro_torch.kernels.vtime_scan import critical_path
+
+    rng = np.random.default_rng(seed)
+    L, N = int(rng.integers(1, 6)), int(rng.integers(1, 12))
+    jobs = rng.integers(1, 50, L)
+    weights = rng.random(L) * 3
+    assert critical_path(jobs, N, conc) == _brute_path(list(jobs.astype(float)), N, conc)
+    assert critical_path(jobs, N, conc, weights) == pytest.approx(_brute_path(list(jobs * weights), N, conc),
+                                                                  rel=1e-12)
+
+
+@pytest.mark.parametrize("L, conc", [(1, None), (1, 3), (4, 1), (6, 1)])
+def test_critical_path_serial_cases(L, conc):
+    """One layer, or one request in flight: the path is every job, N x sum."""
+    from repro_torch.kernels.vtime_scan import critical_path
+
+    jobs = np.arange(1, L + 1) * 7
+    assert critical_path(jobs, 9, conc) == 9 * jobs.sum()
+
+
+def test_critical_path_of_the_fabric_cells():
+    """fabric_tail (VGG11, 400 open-loop requests): 1,448 + 399 x 1,024 job
+    steps against 579,200 serial; ResNet18's ClosedLoop(120, 40): 30,233 +
+    119 x 12,544."""
+    from repro_torch.kernels.vtime_scan import critical_path
+
+    vgg = [l.patches_per_image for l in T.vgg11_cifar10().layers]
+    assert sum(vgg) == 1448
+    assert critical_path(vgg, 400) == 1448 + 399 * 1024 == 410_024
+    r18 = [l.patches_per_image for l in T.resnet18_imagenet().layers]
+    assert sum(r18) == 30_233
+    assert critical_path(r18, 120, 40) == 30_233 + 119 * 12_544
+
+
+def test_chain_weights():
+    from repro_torch.kernels.vtime_scan import chain_weights
+
+    lanes = np.array([[1, 0, 2, 1], [1, 1, 0, 0]])
+    np.testing.assert_array_equal(chain_weights(lanes, [2, 2], 5.0, 11.0), [[5.0, 11.0], [5.0, 5.0]])
 
 
 def test_vtime_scan_checks_inputs():
@@ -300,13 +442,25 @@ def _card():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ["open", "closed", "closed1", "stats", "placements", "fractional"])
-def test_vt_run_batch_on_card(case):
-    """``run_batch(engine="torch")`` on the card: one VT launch for the six
-    policies; completions equal to FabricSim's on the host, and with stats
-    the sums at rtol 1e-12 of the numpy engine."""
-    dev = _card()
+@pytest.fixture
+def force_stages(monkeypatch):
+    """Make every VT launch of the test run at S stages (``kernel_plan``'s
+    explicit count, which no entry point exposes)."""
+    import functools
+
+    from repro_torch.kernels import vtime_scan as vtk
+
+    def force(S):
+        monkeypatch.setattr(vtk, "kernel_plan", functools.partial(kernel_plan, stages=S))
+    return force
+
+
+_HOST = {}
+
+
+def _vt_card_case(case, dev):
+    """(spec, profile, allocations, process, live profile, placements, the
+    host FabricSim's results) of one card case, the host's run once."""
     spec = T.vgg11_cifar10()
     prof = _synthetic(spec, 1, dev)
     pes = spec.min_pes() * 2
@@ -319,35 +473,57 @@ def test_vt_run_batch_on_card(case):
     if case == "placements":
         rng = np.random.default_rng(3)
         places = [_Placement(rng.random(len(spec.layers)) * 300.0) for _ in allocs]
+    if case not in _HOST:
+        _HOST[case] = [TF.FabricSim(spec, prof, a, seed=3, live_prof=live,
+                                    placement=None if places is None else places[k]).run(proc)
+                       for k, a in enumerate(allocs)]
+        if case == "stats":
+            _HOST["stats_numpy"] = TF.VirtualTimeFabric(spec, prof, device=dev).run_batch(
+                allocs, proc, seed=3, engine="numpy", collect_stats=True)
+    return spec, prof, allocs, proc, live, places, _HOST[case]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stages", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", ["open", "closed", "closed1", "stats", "placements", "fractional"])
+def test_vt_run_batch_on_card(case, stages, force_stages):
+    """``run_batch(engine="torch")`` on the card at S = 1, 2, 4 and 8 stages
+    of VGG11's 8 layers: one VT launch for the six policies; completions
+    equal to FabricSim's on the host, and with stats the sums at rtol 1e-12
+    of the numpy engine."""
+    dev = _card()
+    force_stages(stages)
+    spec, prof, allocs, proc, live, places, want = _vt_card_case(case, dev)
     vt = TF.VirtualTimeFabric(spec, prof, live_prof=live, device=dev)
     before = vtime_scan.launches
     res = vt.run_batch(allocs, proc, seed=3, placements=places, collect_stats=case == "stats")
     torch.cuda.synchronize()
     assert vtime_scan.launches == before + 1
-    for k, a in enumerate(allocs):
-        want = TF.FabricSim(spec, prof, a, seed=3, live_prof=live,
-                            placement=None if places is None else places[k]).run(proc)
-        np.testing.assert_array_equal(res.completions[k], want.completions)
-        np.testing.assert_array_equal(res.arrivals[k], want.arrivals)
+    for k, w in enumerate(want):
+        np.testing.assert_array_equal(res.completions[k], w.completions)
+        np.testing.assert_array_equal(res.arrivals[k], w.arrivals)
     if case == "stats":
-        host = TF.VirtualTimeFabric(spec, prof, device=dev).run_batch(
-            allocs, proc, seed=3, engine="numpy", collect_stats=True)
+        host = _HOST["stats_numpy"]
         np.testing.assert_allclose(res.layer_busy, host.layer_busy, rtol=1e-12, atol=0)
         np.testing.assert_allclose(res.layer_wait, host.layer_wait, rtol=1e-12, atol=0)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("stages", [1, 2, 4, 8])
 @pytest.mark.parametrize("max_lanes", [1, 6, 40, 300, 1500, 4096, 65_536])
-def test_vt_equals_plain_on_card(max_lanes):
-    """VT against its plain version on the card on random problems (every
-    (K, G) class up to 16 lanes a thread over 32 threads, and pools wider
-    than 512 whose lanes stay in the pool state, up to ``MAX_LANES``, where
-    the state no longer fits in shared memory; pools without servers;
-    fractional cycles; transfers; stats).  The first pool of the first
-    config holds ``max_lanes`` servers."""
+def test_vt_equals_plain_on_card(max_lanes, stages):
+    """VT against its plain version on the card on random problems of 8
+    layers at S = 1, 2, 4 and 8 stages (every (K, G) class up to 32 lanes a
+    thread over 32 threads, and pools wider than 1,024 whose lanes stay in
+    the pool state, up to ``MAX_LANES``, where the state no longer fits in
+    shared memory; pools without servers; fractional cycles; transfers;
+    stats; open and closed loop).  The first pool of the first config
+    holds ``max_lanes`` servers."""
     dev = _card()
+    from repro_torch.kernels import vtime_scan as vtk
+
     rng = np.random.default_rng(max_lanes)
-    L, V, C, N = 5, 3, 7, 9
+    L, V, C, N = 8, 3, 7, 9
     shapes = [(int(rng.integers(1, 40)), int(rng.integers(1, 20)), int(rng.integers(0, 30))) for _ in range(L)]
     tables = [torch.as_tensor(rng.random((V, s, b)) * 100.0, device=dev) for s, b, _ in shapes]
     idx = [torch.as_tensor(rng.integers(0, s, (N, p)), dtype=torch.int32, device=dev) for s, _, p in shapes]
@@ -358,17 +534,84 @@ def test_vt_equals_plain_on_card(max_lanes):
     var = torch.as_tensor(rng.integers(0, V, C), dtype=torch.int32, device=dev)
     xfer = torch.as_tensor(rng.random((C, L)) * 50.0, device=dev)
     arr = torch.as_tensor(np.cumsum(rng.exponential(300.0, (C, N)), axis=1), device=dev)
+    plan = kernel_plan(lanes_np, [b for _, b, _ in shapes], [p for _, _, p in shapes], stats=True, stages=stages)
     if max_lanes > 512:
-        plan = kernel_plan(lanes_np, [b for _, b, _ in shapes], [p for _, _, p in shapes])
-        assert plan.kmax == 32 and not plan.smem_state
+        assert plan.kmax == 32
+    if max_lanes > 4096:
+        assert not plan.smem_state
     for kw in (dict(arrivals=arr), dict(concurrency=3, xfer=xfer)):
-        got = vtime_scan(tables, idx, var, lanes, n_requests=N, collect_stats=True, **kw)
+        p = vtk._prepare(tables, idx, var, lanes, N, kw.get("arrivals"), kw.get("concurrency"), kw.get("xfer"))
+        packed = vtk._pack(p, True, stages=stages)
+        assert packed.plan == plan
+        got = vtk._launch(packed, True)
         want = vtime_scan_ref(tables, idx, var, lanes, n_requests=N, collect_stats=True, **kw)
         torch.cuda.synchronize()
         for g, w in zip(got[:2], want[:2]):
             assert torch.equal(g, w)
         for g, w in zip(got[2:], want[2:]):
             torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stages", [1, 3])
+@pytest.mark.parametrize("closed", [False, True], ids=["open", "closed"])
+def test_vt_multi_chunk_layers_on_card(closed, stages):
+    """Layers of several staging chunks (6 pools x 700 jobs, 9 x 400), one
+    wide pool beside warps that have none: a warp without pools runs chunks
+    ahead of the busy one, and no buffer is restaged before every warp is
+    done with it.  VT equals its plain version, open and closed loop."""
+    dev = _card()
+    from repro_torch.kernels import vtime_scan as vtk
+
+    rng = np.random.default_rng(5)
+    V, C, N = 2, 3, 6
+    shapes = [(30, 6, 700), (12, 3, 20), (20, 9, 400)]
+    tables = [torch.as_tensor(rng.random((V, s, b)) * 100.0, device=dev) for s, b, _ in shapes]
+    idx = [torch.as_tensor(rng.integers(0, s, (N, p)), dtype=torch.int32, device=dev) for s, _, p in shapes]
+    lanes_np = rng.integers(0, 3, (C, 18))
+    lanes_np[:, 0], lanes_np[:, 9] = 300, 40
+    lanes = torch.as_tensor(lanes_np, dtype=torch.int32, device=dev)
+    var = torch.as_tensor(rng.integers(0, V, C), dtype=torch.int32, device=dev)
+    kw = dict(concurrency=2) if closed else dict(
+        arrivals=torch.as_tensor(np.cumsum(rng.exponential(3e4, (C, N)), axis=1), device=dev))
+    p = vtk._prepare(tables, idx, var, lanes, N, kw.get("arrivals"), kw.get("concurrency"), None)
+    packed = vtk._pack(p, True, stages=stages)
+    assert packed.plan.chunk < 6 * 700 and packed.plan.chunk < 9 * 400
+    got = vtk._launch(packed, True)
+    want = vtime_scan_ref(tables, idx, var, lanes, n_requests=N, collect_stats=True, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:2], want[:2]):
+        assert torch.equal(g, w)
+    for g, w in zip(got[2:], want[2:]):
+        torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_refused_launch_raises():
+    """A cluster launch the card refuses raises; it never runs at fewer
+    stages: 9 blocks a cluster (more than the portable 8), and a split that
+    leaves a stage no layer."""
+    dev = _card()
+    from repro_torch.kernels import vtime_scan as vtk
+
+    rng = np.random.default_rng(0)
+    L, N = 9, 4
+    tables = [torch.as_tensor(rng.random((1, 8, 2)) * 100.0, device=dev) for _ in range(L)]
+    idx = [torch.as_tensor(rng.integers(0, 8, (N, 5)), dtype=torch.int32, device=dev) for _ in range(L)]
+    lanes = torch.full((3, 2 * L), 2, dtype=torch.int32, device=dev)
+    p = vtk._prepare(tables, idx, torch.zeros(3, dtype=torch.int32, device=dev), lanes, N, None, 2, None)
+    packed = vtk._pack(p, stages=8)
+    before = vtime_scan.launches
+    for plan in (packed.plan._replace(stages=9, split=tuple(range(10))),
+                 packed.plan._replace(split=(0, 1, 2, 3, 4, 5, 6, 6, 9))):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            vtk._launch(packed._replace(plan=plan), False)
+    assert vtime_scan.launches == before
+    got = vtk._launch(packed, False)  # the card is still usable
+    want = vtime_scan_ref(tables, idx, torch.zeros(3, dtype=torch.int32, device=dev), lanes, n_requests=N,
+                          concurrency=2)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
 
 
 @pytest.mark.cuda
