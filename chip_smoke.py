@@ -1904,7 +1904,9 @@ def vt_lane_costs(gpu, dev, clock_hz):
         arr = torch.as_tensor(np.cumsum(rng.exponential(1e4, (1, n)), axis=1), device=dev)
         saved = vtk.vtime_scan.launches
         packed = vtk._pack(vtk._prepare(tables, idx, torch.zeros(1, dtype=torch.int32, device=dev), lanes, n, arr,
-                                        None, None), stages=1)
+                                        None, None))
+        if L > 1:  # one stage, so that the (request, layer) cost is not shared out among stages
+            packed = packed._replace(plan=vtk.kernel_plan(np.full((1, L), d), [1] * L, [P] * L, stages=1))
         ms = timed(lambda: vtk._launch(packed, False), reps=3)
         vtk.vtime_scan.launches = saved
         return ms * 1e-3 * clock_hz / n

@@ -63,12 +63,11 @@
 //     consumers a (request, layer), for the layer's completion;
 //   * a pool of at most 8 servers runs on one thread, its lanes in
 //     registers (1, 2, 4 or 8; one server is a plain running sum); a wider
-//     pool runs on a whole warp, 1 to 32 lanes a thread, and every thread
-//     also keeps replicas of the pool's lowest kRep + 1 lanes, updated with
-//     the warp-uniform end: a job's chain is one add and one compare and
-//     select on registers, and the shuffle that brings lane kRep + 1 from
-//     its owner has kRep jobs of slack; each thread's upper neighbour lane
-//     comes by another shuffle, off the chain;
+//     pool runs on a whole warp, 1 to 32 lanes a thread, every thread also
+//     keeping lanes 0 and 1: a job's chain is an add and a min, and lane 1
+//     comes back from its owner by a shuffle (the KMAX 32 build keeps lanes
+//     0..kRep on every thread instead, which takes that shuffle off the
+//     chain);
 //   * the kernel is built for the widest pool of a launch (KMAX 1, 4, 16 or
 //     32 lanes a thread), so narrower launches keep fewer registers;
 //   * each stage's pool state (a power of two of lanes a pool, at least 32
@@ -76,7 +75,8 @@
 //     scratch row per block;
 //   * a pool wider than 1,024 servers (more than a warp's registers hold)
 //     runs, in the KMAX 32 build, on a warp with its lanes in that state
-//     memory: lane 0 comes from registers (the same replicas), and the warp
+//     memory: lane 0 comes from registers (replicas of lanes 0..kRep on
+//     every thread, advanced with each end), and the warp
 //     rewrites the sorted insert a row of 32 lanes at a time, stopping at
 //     the first row that the end does not reach.  A pool may hold up to
 //     65,536 servers.
@@ -114,14 +114,14 @@ constexpr int kMaxThreads = 512;  // the shared arrays' room; a build's own boun
 // KMAX 1 and 4 (170 registers a thread), 256 for the wider builds (255
 // registers), and 192 for VT's KMAX 16 build without STATS, which keeps two
 // blocks an SM (170 registers: the fused sweep's fabric stage launches
-// hundreds of configs).
+// hundreds of configs).  The host reads it back through vtime_max_threads.
 constexpr int build_threads(int kmax, bool stats, bool stream) {
   return kmax <= 4 ? 384 : kmax == 16 && !stats && !stream ? 192 : 256;
 }
 constexpr int kMaxStages = 8;  // the portable cluster size
 constexpr int kSmallPool = 8;  // pools of at most this many servers run on one thread
 constexpr int kRegLanes = 1024;  // the widest pool a warp holds in registers (32 lanes a thread)
-constexpr int kRep = 2;  // a warp pool's lanes 0..kRep are replicated on every thread
+constexpr int kRep = 2;  // a pool in the state memory keeps its lanes 0..kRep in registers on every thread
 constexpr int kBufs = 4;  // staging buffers of service times in a stage's ring
 constexpr int kSlots = 16;  // slots of the ring between two stages
 constexpr int kWarpRows = 1024;  // sample rows a streaming loader warp hashes once a chunk
@@ -271,9 +271,9 @@ __device__ double run_thread(double* st, const double* sv, int nj, int B, double
   return mx;
 }
 
-// The replicas of a warp pool's lanes 0..kRep on every thread, advanced by
+// The replicas of a pool's lanes 0..kRep on every thread, advanced by
 // one job with end: z_k <- (z_{k+1} < end) ? z_{k+1} : (z_k < end) ? end : z_k,
-// lane kRep + 1's old value `g` coming from its owner.
+// lane kRep + 1's old value `g` read from the state memory.
 __device__ __forceinline__ void advance_replicas(double (&z)[kRep + 1], double g, double end) {
   bool pk = true;
 #pragma unroll
@@ -285,17 +285,71 @@ __device__ __forceinline__ void advance_replicas(double (&z)[kRep + 1], double g
   }
 }
 
-// A wide pool's jobs of a chunk on a whole warp: thread w holds the pool's
-// lanes w*K .. w*K+K-1 and replicas z of lanes 0..kRep.  A job's end is z_0
-// + s on every thread (warp-uniform), and the replicas advance with it, so
-// the chain from one end to the next is an add, a compare and a select on
-// registers.  Lane kRep + 1 (old value) reaches the replicas by a shuffle
-// from its owner, issued a job ahead: the replicas' lane k needs it only
-// kRep - k jobs later.  Each thread's upper neighbour lane (old value) comes
-// by another shuffle.  Every thread computes the same end, so the warp's
-// maximum is uniform.
+// A wide pool's jobs of a chunk on a whole warp: lane w holds the pool's
+// lanes w*K .. w*K+K-1, and every thread also keeps the pool's lanes 0 and
+// 1 (z0, z1).  A job's end is z0 + s and the new lane 0 is min(end, z1) on
+// every thread, so the chain is an add and a min; the new lane 1 comes from
+// its owner by a shuffle that overlaps the next job's add, and each
+// thread's upper neighbour lane (old value) by another.  Every thread
+// computes the same end, so the warp's maximum is uniform.
 template <int K, bool STATS>
-__device__ double run_warp(double* st, const double* sv, int nj, int B, double t, int w, double& bs, double& ws) {
+__device__ double run_warp_shuffle(double* st, const double* sv, int nj, int B, double t, int w, double& bs,
+                                   double& ws) {
+  constexpr unsigned kFull = 0xffffffffu;
+  constexpr int kAhead = 8;  // service times read ahead
+  double f[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) f[k] = dmax(st[w * K + k], t);
+  // lane 1 is thread 0's f[1] (K > 1) or thread 1's f[0]
+  double z0 = __shfl_sync(kFull, f[0], 0);
+  double z1 = __shfl_sync(kFull, f[K > 1 ? 1 : 0], K > 1 ? 0 : 1);
+  double mx = -CUDART_INF;
+  auto step = [&](double s) {
+    double above = __shfl_down_sync(kFull, f[0], 1);
+    if (w == 31) above = CUDART_INF;
+    const double end = __dadd_rn(z0, s);
+    if (STATS && w == 0) {
+      bs = __dadd_rn(bs, s);
+      ws = __dadd_rn(ws, __dsub_rn(z0, t));
+    }
+    z0 = dmin(end, z1);
+    f[0] = w == 0 ? z0 : dmin(dmax(f[0], end), K > 1 ? f[1 % K] : above);
+#pragma unroll
+    for (int k = 1; k < K; ++k) f[k] = dmin(dmax(f[k], end), k + 1 < K ? f[(k + 1) % K] : above);
+    z1 = __shfl_sync(kFull, f[K > 1 ? 1 : 0], K > 1 ? 0 : 1);
+    mx = dmax(mx, end);
+  };
+  int j = 0;
+  if (nj >= kAhead) {
+    double cur[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) cur[u] = sv[u * B];
+    for (; j + kAhead <= nj; j += kAhead) {
+      double nxt[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) nxt[u] = j + kAhead + u < nj ? sv[(j + kAhead + u) * B] : 0.0;
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) step(cur[u]);
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) cur[u] = nxt[u];
+    }
+  }
+  for (; j < nj; ++j) step(sv[j * B]);
+#pragma unroll
+  for (int k = 0; k < K; ++k) st[w * K + k] = f[k];
+  return mx;
+}
+
+// The same on a whole warp with replicas z of lanes 0..kRep on every
+// thread, advanced with the warp-uniform end: the chain from one end to the
+// next is an add, a compare and a select on registers, and lane kRep + 1
+// (old value) reaches the replicas by a shuffle from its owner issued a
+// job ahead, which lane k of the replicas needs only kRep - k jobs later.
+// More instructions a job than the shuffle's chain saves, except in the
+// widest pools (chip_vt_variants.py).
+template <int K, bool STATS>
+__device__ double run_warp_replicas(double* st, const double* sv, int nj, int B, double t, int w, double& bs,
+                                    double& ws) {
   constexpr unsigned kFull = 0xffffffffu;
   constexpr int kAhead = K == 1 ? 8 : K >= 8 ? 2 : 4;  // service times read ahead: more for quicker jobs
   constexpr int go = (kRep + 1) / K, gk = (kRep + 1) % K;  // owner thread and slot of lane kRep + 1
@@ -347,10 +401,22 @@ __device__ double run_warp(double* st, const double* sv, int nj, int B, double t
   return mx;
 }
 
+// The warp pool a build runs: replicas in the KMAX 32 build (pools wider
+// than 512 servers), the shuffle of lane 1 in the others, whichever
+// measured faster for that build on the H100 (chip_vt_variants.py).
+__host__ __device__ constexpr bool warp_replicas(int kmax) { return kmax == 32; }
+
+template <int K, int KMAX, bool STATS>
+__device__ __forceinline__ double run_warp(double* st, const double* sv, int nj, int B, double t, int w, double& bs,
+                                           double& ws) {
+  if constexpr (warp_replicas(KMAX)) return run_warp_replicas<K, STATS>(st, sv, nj, B, t, w, bs, ws);
+  else return run_warp_shuffle<K, STATS>(st, sv, nj, B, t, w, bs, ws);
+}
+
 // A pool wider than kRegLanes on a whole warp, its `cap` lanes (a power of
 // two) in the state memory `st`, sorted ascending (+inf: absent).  Lanes
-// 0..kRep are replicated in registers as in run_warp, so a job's end does
-// not wait on shared memory; the sorted insert then rewrites only the rows
+// 0..kRep are replicated in registers on every thread, so a job's end does
+// not wait on the state memory; the sorted insert then rewrites only the rows
 // of 32 lanes below the first row whose lowest lane is already >= end:
 // lanes at or above it keep their values (they are >= end, so min(max(f,
 // end), f_next) = f).  A lane below `end` becomes min(end, f_next), with
@@ -426,26 +492,26 @@ __device__ __forceinline__ void run_pools(double* state, const int* s_off, const
     double b2 = 0.0, w2 = 0.0, m;
     const int k = pow2_ceil(d) / 32;  // lanes a thread: 1 to KMAX
     if constexpr (KMAX == 1) {
-      m = run_warp<1, STATS>(st, sv + p, nj, B, t, lane, b2, w2);
+      m = run_warp<1, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2);
     } else if constexpr (KMAX == 4) {
-      m = k <= 1   ? run_warp<1, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-          : k == 2 ? run_warp<2, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-                   : run_warp<4, STATS>(st, sv + p, nj, B, t, lane, b2, w2);
+      m = k <= 1   ? run_warp<1, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
+          : k == 2 ? run_warp<2, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
+                   : run_warp<4, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2);
     } else if constexpr (KMAX == 16) {
-      m = k <= 1   ? run_warp<1, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-          : k == 2 ? run_warp<2, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-          : k == 4 ? run_warp<4, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-          : k == 8 ? run_warp<8, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-                   : run_warp<16, STATS>(st, sv + p, nj, B, t, lane, b2, w2);
+      m = k <= 1   ? run_warp<1, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
+          : k == 2 ? run_warp<2, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
+          : k == 4 ? run_warp<4, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
+          : k == 8 ? run_warp<8, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
+                   : run_warp<16, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2);
     } else {
       // the host gives a launch with a pool wider than 512 the KMAX 32 build
       m = d > kRegLanes ? run_mem<STATS>(st, sv + p, nj, B, t, pool_cap(d), lane, b2, w2)
-          : k <= 1      ? run_warp<1, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-          : k == 2      ? run_warp<2, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-          : k == 4      ? run_warp<4, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-          : k == 8      ? run_warp<8, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-          : k == 16     ? run_warp<16, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-                        : run_warp<32, STATS>(st, sv + p, nj, B, t, lane, b2, w2);
+          : k <= 1      ? run_warp<1, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
+          : k == 2      ? run_warp<2, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
+          : k == 4      ? run_warp<4, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
+          : k == 8      ? run_warp<8, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
+          : k == 16     ? run_warp<16, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
+                        : run_warp<32, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2);
     }
     mx = dmax(mx, m);
     if (STATS) {
@@ -501,52 +567,77 @@ __device__ __forceinline__ int first_patch(int jj, int K, int nbulk) {
   return jj < nbulk ? jj * K : nbulk * K + (jj - nbulk);
 }
 
-// Stage one streaming chunk of a layer's jobs j0 .. j0 + nj - 1, [job][pool],
-// for the pools that have servers, by one loader warp.  Job jj < n_bulk is
-// the left fold of the K patches jj*K .. jj*K+K-1 (vtime._chunk_services), a
-// later job one patch.  The chunk's patches are contiguous: first their
-// sample rows, hashed from (salt, r, patch) or read from `ix`, once each
-// into the warp's `rows` (not once a pool); then the gathers and folds,
-// eight elements a thread at a time, their loads in flight together.
-__device__ __forceinline__ void stage_stream(double* dst, int* rows, const double* tbl, const int32_t* ix,
-                                             uint32_t salt, uint32_t r, int S, const int* lanes, int j0, int nj,
-                                             int B, int K, int nbulk, int first, int step) {
-  const int p_lo = first_patch(j0, K, nbulk);
-  const int last = j0 + nj - 1;
-  const int np = first_patch(last, K, nbulk) + (last < nbulk ? K : 1) - p_lo;
-  for (int q = first; q < np; q += step) {
-    const int p = p_lo + q;
-    rows[q] = ix ? __ldg(ix + p) : (int)(hash_index(salt, r, (uint32_t)p) % (uint32_t)S);
-  }
-  __syncwarp();
-  const int n = nj * B;
+// Gather and left-fold, for the elements e < n of a streaming chunk
+// ([job][pool], jobs from j0), the patches whose sample rows lie in `rows`:
+// the chunk's patches q0 .. q1 - 1 (relative to its first, p_lo).  Eight
+// elements a thread at a time, their loads in flight together.  With
+// PIECES a macro-job may have begun in an earlier piece: its fold goes on
+// from the partial sum that piece left in `dst`.
+template <bool PIECES>
+__device__ __forceinline__ void fold_rows(double* dst, const int* rows, const double* tbl, const int* lanes, int j0,
+                                          int n, int B, int K, int nbulk, int p_lo, int q0, int q1, int first,
+                                          int step) {
   for (int e0 = first; e0 < n; e0 += 8 * step) {
-    int p0[8], k[8], pp[8];
+    int a[8], k[8], pp[8];  // an element's first row in `rows` (-1: its fold goes on) and its count there
+    double v[8];
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
       const int e = e0 + u * step, jj = j0 + e / B;
       pp[u] = e - (e / B) * B;
       const bool live = e < n && lanes[pp[u]];
-      k[u] = !live ? 0 : jj < nbulk ? K : 1;
-      p0[u] = first_patch(jj, K, nbulk) - p_lo;
+      const int p0 = first_patch(jj, K, nbulk) - p_lo, kj = jj < nbulk ? K : 1;
+      if (PIECES) {
+        a[u] = p0 < q0 ? -1 : p0 - q0;
+        k[u] = live ? max(0, min(p0 + kj, q1) - max(p0, q0)) : 0;
+        v[u] = live && p0 < q0 ? dst[e] : 0.0;
+      } else {
+        a[u] = p0;
+        k[u] = live ? kj : 0;
+        v[u] = 0.0;
+      }
     }
     const int kmax = max(max(max(k[0], k[1]), max(k[2], k[3])), max(max(k[4], k[5]), max(k[6], k[7])));
-    double v[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) v[u] = 0.0;
     for (int q = 0; q < kmax; ++q) {
       double x[8];
 #pragma unroll
-      for (int u = 0; u < 8; ++u) x[u] = q < k[u] ? __ldg(tbl + (size_t)rows[p0[u] + q] * B + pp[u]) : 0.0;
+      for (int u = 0; u < 8; ++u)
+        x[u] = q < k[u] ? __ldg(tbl + (size_t)rows[(PIECES ? max(a[u], 0) : a[u]) + q] * B + pp[u]) : 0.0;
 #pragma unroll
       for (int u = 0; u < 8; ++u)
-        if (q < k[u]) v[u] = q == 0 ? x[u] : __dadd_rn(v[u], x[u]);
+        if (q < k[u]) v[u] = q == 0 && (!PIECES || a[u] >= 0) ? x[u] : __dadd_rn(v[u], x[u]);
     }
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
       const int e = e0 + u * step;
       if (e < n) dst[e] = v[u];
     }
+  }
+}
+
+// Stage one streaming chunk of a layer's jobs j0 .. j0 + nj - 1, [job][pool],
+// for the pools that have servers, by one loader warp.  Job jj < n_bulk is
+// the left fold of the K patches jj*K .. jj*K+K-1 (vtime._chunk_services), a
+// later job one patch.  The chunk's patches are contiguous: first their
+// sample rows, hashed from (salt, r, patch) or read from `ix`, once each
+// into the warp's `rows` (not once a pool); then the gathers and folds.
+// A chunk spans more than kWarpRows patches only when it is one macro-job
+// of K > kWarpRows patches: then the rows are taken kWarpRows at a time.
+__device__ __forceinline__ void stage_stream(double* dst, int* rows, const double* tbl, const int32_t* ix,
+                                             uint32_t salt, uint32_t r, int S, const int* lanes, int j0, int nj,
+                                             int B, int K, int nbulk, int first, int step) {
+  const int p_lo = first_patch(j0, K, nbulk);
+  const int last = j0 + nj - 1;
+  const int np = first_patch(last, K, nbulk) + (last < nbulk ? K : 1) - p_lo;
+  for (int q0 = 0; q0 < np; q0 += kWarpRows) {
+    const int q1 = min(np, q0 + kWarpRows);
+    if (q0) __syncwarp();  // every thread is done with the previous piece's rows
+    for (int q = q0 + first; q < q1; q += step) {
+      const int p = p_lo + q;
+      rows[q - q0] = ix ? __ldg(ix + p) : (int)(hash_index(salt, r, (uint32_t)p) % (uint32_t)S);
+    }
+    __syncwarp();
+    if (np <= kWarpRows) fold_rows<false>(dst, rows, tbl, lanes, j0, nj * B, B, K, nbulk, p_lo, 0, np, first, step);
+    else fold_rows<true>(dst, rows, tbl, lanes, j0, nj * B, B, K, nbulk, p_lo, q0, q1, first, step);
   }
 }
 
@@ -1089,6 +1180,47 @@ extern "C" int vtime_stream_launch(const void* tables, const void* tbl_off, cons
       return (int)cudaErrorInvalidValue;
   }
   return dispatch_stream(a, C, kmax, threads, smem, s, clusters);
+}
+
+namespace {
+
+template <class Kernel>
+int max_threads(Kernel kernel) {
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  return e == cudaSuccess ? attr.maxThreadsPerBlock : -(int)e;
+}
+
+}  // namespace
+
+// The threads a block of the build for `kmax` (1, 4, 16 or 32) may run, its
+// launch bound as the device reports it (cudaFuncGetAttributes), for VT
+// with or without `stats` or for the streaming entry (`stream`); minus the
+// CUDA error when the query fails.
+extern "C" int vtime_max_threads(int kmax, int stats, int stream) {
+  if (stream) {
+    switch (kmax) {
+      case 1: return max_threads(vtime_stream_kernel<1>);
+      case 4: return max_threads(vtime_stream_kernel<4>);
+      case 16: return max_threads(vtime_stream_kernel<16>);
+      case 32: return max_threads(vtime_stream_kernel<32>);
+    }
+  } else if (stats) {
+    switch (kmax) {
+      case 1: return max_threads(vtime_scan_kernel<1, true>);
+      case 4: return max_threads(vtime_scan_kernel<4, true>);
+      case 16: return max_threads(vtime_scan_kernel<16, true>);
+      case 32: return max_threads(vtime_scan_kernel<32, true>);
+    }
+  } else {
+    switch (kmax) {
+      case 1: return max_threads(vtime_scan_kernel<1, false>);
+      case 4: return max_threads(vtime_scan_kernel<4, false>);
+      case 16: return max_threads(vtime_scan_kernel<16, false>);
+      case 32: return max_threads(vtime_scan_kernel<32, false>);
+    }
+  }
+  return -(int)cudaErrorInvalidValue;
 }
 
 namespace {

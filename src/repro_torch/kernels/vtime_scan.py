@@ -74,7 +74,6 @@ from . import _build
 __all__ = [
     "MAX_LANES",
     "StreamState",
-    "build_warps",
     "chain_weights",
     "critical_path",
     "kernel_plan",
@@ -96,7 +95,8 @@ MAX_LAYERS = 64
 MAX_POOLS = 1024
 MAX_LANES = 65_536  # servers a pool; a warp holds up to 1,024 in registers
 MAX_STAGES = 8  # blocks of a config's cluster (the portable cluster size)
-SM_COUNT = 132  # the H100's SMs: with this many configs one block each fills the card
+SM_COUNT = 132  # the H100's SMs: with no card asked, S is capped at SM_COUNT // S resident clusters
+WARPS = 8  # with no card asked, the warps a block may hold; on the card, the build's launch bound
 SMALL_POOL = 8  # pools of at most this many servers run on one thread
 CHUNK = 2048  # doubles of service times a staging buffer holds
 BUFS = 4  # staging buffers in a stage's ring
@@ -104,12 +104,12 @@ ROWS = 1024  # sample rows a streaming loader warp hashes once a chunk (int32 sc
 LOADER_WARPS = 2  # warps of a VT block that stage service times
 STREAM_LOADER_WARPS = 4  # of a streaming block, which also hash and fold macro-jobs
 # cycles a job by a pool's lane capacity (pool_caps), and a (request, layer)
-# of one job, as chip_smoke.py's vt_lane_costs measured them on the H100;
-# they weigh the layers when kernel_plan splits them into stages (only their
-# ratios matter)
-JOB_CYCLES = {0: 0.0, 1: 14.0, 2: 31.0, 4: 44.0, 8: 66.0, 32: 87.0, 64: 87.0, 128: 100.0, 256: 144.0, 512: 214.0,
-              1024: 345.0}
-LAYER_CYCLES = 1870.0
+# of one job, as chip_smoke.py's vt_lane_costs measured them on the H100
+# (PERF.md); they weigh the layers when kernel_plan splits them into stages
+# (only their ratios matter)
+JOB_CYCLES = {0: 0.0, 1: 14.0, 2: 31.0, 4: 42.0, 8: 65.0, 32: 84.0, 64: 77.0, 128: 84.0, 256: 121.0, 512: 192.0,
+              1024: 343.0}
+LAYER_CYCLES = 1720.0
 
 
 @functools.cache
@@ -117,6 +117,14 @@ def _launcher():
     fn = _build.load("vtime_scan").vtime_scan_launch
     fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong] + [ctypes.c_int] * 13
                    + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _max_threads_fn():
+    fn = _build.load("vtime_scan").vtime_max_threads
+    fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_int
     return fn
 
@@ -183,23 +191,17 @@ def _stage_work(work, split) -> float:
     return max(float(np.sum(work[a:b])) for a, b in zip(split[:-1], split[1:]))
 
 
-def build_warps(kmax: int, stats: bool = False, stream: bool = False) -> int:
-    """Warps a block of the kernel's build holds at most (its launch
-    bound): 12 for KMAX 1 and 4, 8 for the wider builds, 6 for VT's KMAX 16
-    build without stats, which keeps two blocks an SM."""
-    return 12 if kmax <= 4 else 6 if kmax == 16 and not stats and not stream else 8
-
-
-def kernel_plan(lanes: np.ndarray, blocks, patches, *, jobs=None, stream: bool = False, stats: bool = False,
-                stages: int | None = None, clusters=None) -> KernelPlan:
+def kernel_plan(lanes: np.ndarray, blocks, patches, *, jobs=None, stream: bool = False, stages: int | None = None,
+                warps=None, clusters=None) -> KernelPlan:
     """VT's host-side choices for (C, pools) lane counts over layers of
     ``blocks`` pools and ``patches`` jobs a request (``jobs``: (C, L) jobs a
     request when macro-jobs change them), for the streaming entry
-    (``stream``) or VT with or without ``stats``:
+    (``stream``) or VT:
 
     * consumer warps with a thread for every small pool of the layer that
       has most and a warp for every pool of more than 8 servers in the layer
-      that has most, within the build's ``build_warps`` beside
+      that has most, within the build's warps (``warps(kmax)``: the card's
+      answer for the build's launch bound; ``WARPS`` with no card) beside
       ``LOADER_WARPS`` (``STREAM_LOADER_WARPS`` for the streaming entry)
       warps that stage service times;
     * the build for the widest pool (``kmax``; 32 for pools wider than 512);
@@ -210,9 +212,9 @@ def kernel_plan(lanes: np.ndarray, blocks, patches, *, jobs=None, stream: bool =
       turn, plus ``LAYER_CYCLES``; for S stages ``stage_split`` minimises
       the largest stage's weight, and S is the smallest count that reaches
       the least such weight over the counts whose C clusters are all
-      resident at once (``clusters(S, plan)``: the device's count, by
-      default one block an SM of ``SM_COUNT``), S = 1 when C fills the
-      card.  ``stages`` forces S (tests and measurements only);
+      resident at once (``clusters(S, plan)``: the device's occupancy
+      query; with no card, one block an SM of ``SM_COUNT``), so S = 1 when
+      C fills the card.  ``stages`` forces S (tests and measurements only);
     * the pool state of a stage (``pool_caps`` summed over its pools, the
       largest stage and config) in shared memory when it fits."""
     lanes = np.asarray(lanes, dtype=np.int64)
@@ -232,7 +234,8 @@ def kernel_plan(lanes: np.ndarray, blocks, patches, *, jobs=None, stream: bool =
     top = max(width, default=1)
     kmax = 1 if top <= 32 else 4 if top <= 128 else 16 if top <= 512 else 32
     loaders = STREAM_LOADER_WARPS if stream else LOADER_WARPS
-    consumers = min(build_warps(kmax, stats, stream) - loaders, max(1, -(-max(small) // 32), max(wide)))
+    most = warps(kmax) if warps is not None else WARPS
+    consumers = min(most - loaders, max(1, -(-max(small) // 32), max(wide)))
     work = [int(jobs[:, l].max(initial=0)) * job_cycles(width[l])
             * max(1, -(-wide[l] // consumers), -(-small[l] // (32 * consumers))) + LAYER_CYCLES for l in range(L)]
     chunk = max(max(blocks), min(CHUNK, max(b * p for b, p in zip(blocks, patches))))
@@ -253,8 +256,6 @@ def kernel_plan(lanes: np.ndarray, blocks, patches, *, jobs=None, stream: bool =
             raise ValueError(f"{stages} stages: 1 to {min(MAX_STAGES, L)} for {L} layers")
         return shape(int(stages))
     best = shape(1)
-    if C >= SM_COUNT:
-        return best
     for S in range(2, min(MAX_STAGES, L) + 1):
         plan = shape(S)
         if (clusters(S, plan) if clusters is not None else SM_COUNT // S) < C:
@@ -319,14 +320,31 @@ def _clusters(device: int, stream: bool, stats: bool, plan: KernelPlan) -> int:
     return out.value
 
 
-def _resident(device, stream: bool, stats: bool):
-    """``kernel_plan``'s ``clusters`` for a launch on ``device``."""
+@functools.cache
+def _build_warps(device: int, kmax: int, stats: bool, stream: bool) -> int:
+    """Warps a block of the kernel's build for ``kmax`` holds at most (its
+    launch bound, as the device reports it)."""
+    n = _max_threads_fn()(kmax, int(stats), int(stream))
+    if n < 32:
+        raise RuntimeError(f"vtime_scan: the launch bound query failed: CUDA error {-n}")
+    return n // 32
+
+
+def _limits(device, stream: bool, stats: bool) -> dict:
+    """``kernel_plan``'s ``warps`` and ``clusters`` for a launch on
+    ``device``: the card's answers, or none (the defaults) off the card."""
+    if device.type != "cuda":
+        return {}
     index = device.index if device.index is not None else torch.cuda.current_device()
 
-    def count(S, plan):
+    def warps(kmax):
+        with torch.cuda.device(index):
+            return _build_warps(index, kmax, stats, stream)
+
+    def clusters(S, plan):
         with torch.cuda.device(index):
             return _clusters(index, stream, stats, plan)
-    return count
+    return dict(warps=warps, clusters=clusters)
 
 
 class _Problem(NamedTuple):
@@ -482,16 +500,13 @@ def _meta(tables, patches, n_requests: int):
     return tbl_off, meta
 
 
-def _pack(p: _Problem, collect_stats: bool = False, stages: int | None = None) -> _Packed:
+def _pack(p: _Problem, collect_stats: bool = False) -> _Packed:
     """The flat buffers and ``kernel_plan``'s choices (on the card, with the
-    device's resident clusters; ``stages`` forces S, for tests and
-    measurements only)."""
+    build's launch bound and the device's resident clusters)."""
     dev = p.variant.device
     blocks = [t.shape[2] for t in p.tables]
     patches = [i.shape[1] for i in p.idx]
-    clusters = _resident(dev, False, collect_stats) if dev.type == "cuda" else None
-    plan = kernel_plan(p.lanes.cpu().numpy(), blocks, patches, stats=collect_stats, stages=stages,
-                       clusters=clusters)
+    plan = kernel_plan(p.lanes.cpu().numpy(), blocks, patches, **_limits(dev, False, collect_stats))
     tbl_off, meta = _meta(p.tables, patches, p.n_requests)
     return _Packed(
         p, plan, torch.cat([t.reshape(-1) for t in p.tables]), tbl_off.to(dev), meta.to(dev),
@@ -899,25 +914,23 @@ def _stream_plain(p: _Stream, emit: bool):
     return out, ((t_arr, comp) if emit else None)
 
 
-def _stream_plan(p: _Stream, stages: int | None = None) -> KernelPlan:
+def _stream_plan(p: _Stream) -> KernelPlan:
     """``kernel_plan`` for a streaming launch: each layer weighs its
     macro-jobs and exact tail (the plans), and the carry's lanes stay
     where ``stream_state`` put them (a stage's pools are one slice of it)."""
     blocks = [t.shape[2] for t in p.tables]
     jobs = p.plans[..., 1] + np.asarray(p.patches)[None, :] - p.plans[..., 1] * p.plans[..., 0]
-    dev = p.variant.device
-    clusters = _resident(dev, True, False) if dev.type == "cuda" else None
-    return kernel_plan(p.lanes.cpu().numpy(), blocks, p.patches, jobs=jobs, stream=True, stages=stages,
-                       clusters=clusters)
+    return kernel_plan(p.lanes.cpu().numpy(), blocks, p.patches, jobs=jobs, stream=True,
+                       **_limits(p.variant.device, True, False))
 
 
-def _stream_launch(p: _Stream, emit: bool, stages: int | None = None):
-    """One streaming launch as C clusters of the plan's stages (``stages``
-    forces S, for tests and measurements only); a refused launch raises."""
+def _stream_launch(p: _Stream, emit: bool):
+    """One streaming launch as C clusters of the plan's stages; a refused
+    launch raises."""
     dev = p.variant.device
     C, N, L = p.variant.shape[0], p.n_requests, len(p.tables)
     V = p.tables[0].shape[0]
-    plan = _stream_plan(p, stages)
+    plan = _stream_plan(p)
     tbl_off, meta = _meta(p.tables, p.patches, N)
     tables = torch.cat([t.reshape(-1) for t in p.tables])
     idx = None if p.idx is None else torch.cat([i.reshape(-1) for i in p.idx])

@@ -244,7 +244,21 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
 
 
-@functools.cache
+def _once_per_device(make):
+    """``make(*key)`` kept per key, except under a ``FakeTensorMode`` (the
+    dry run), whose tensors are fresh each call and never kept: a kept fake
+    tensor would turn every later real computation that reads it fake."""
+    kept = functools.cache(make)
+
+    @functools.wraps(make)
+    def get(*key):
+        from torch._guards import detect_fake_mode
+
+        return make(*key) if detect_fake_mode() is not None else kept(*key)
+    return get
+
+
+@_once_per_device
 def _rope_freqs_on(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
     """``rope_freqs`` as float32 on ``device``, made once per device: a copy
     from the host at every call would synchronise the card's stream.  Made
@@ -710,7 +724,7 @@ def expert_replication_table(replication: tuple[int, ...]) -> np.ndarray:
     return np.stack([starts, np.asarray(replication)], axis=1).astype(np.int32)
 
 
-@functools.cache
+@_once_per_device
 def _replication_table_on(replication: tuple[int, ...], device: torch.device) -> torch.Tensor:
     """``expert_replication_table`` as int64 on ``device``, made once per
     device, as ``_rope_freqs_on`` is and for the same reason."""

@@ -526,3 +526,37 @@ def test_stream_segments_across_stage_counts_on_card(mode, order, force_stages):
         assert torch.equal(g, w), name
     assert torch.equal(torch.cat([y0[1], y1[1]], dim=1), ys[1])
     assert torch.equal(torch.cat([y0[0], y1[0]], dim=1), ys[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stages", [1, 2])
+def test_stream_wide_macro_jobs_on_card(stages, force_stages):
+    """Macro-jobs of more patches than a loader warp hashes at once (K =
+    1,100, 1,500 and 2,500 against 1,024 sample rows): the fold goes on
+    across the pieces of rows, and the carry and completions equal the
+    plain version's, open and closed loop, at S = 1 and 2 stages."""
+    dev = _card()
+    rng = np.random.default_rng(17)
+    V, C, N = 2, 3, 3
+    shapes = [(50, 3, 3100), (20, 4, 12)]
+    tables = [torch.as_tensor(np.floor(rng.random((V, s, b)) * 300.0), device=dev) for s, b, _ in shapes]
+    patches = [p for _, _, p in shapes]
+    lanes = rng.integers(1, 40, (C, sum(b for _, b, _ in shapes)))
+    plans = np.array([[(1500, 2), (1, 0)], [(2500, 1), (3, 4)], [(1100, 2), (1, 0)]])
+    var = torch.as_tensor(rng.integers(0, V, C), dtype=torch.int32, device=dev)
+    lanes_t = torch.as_tensor(lanes, device=dev)
+    salts = [int(x) for x in rng.integers(0, 2**32, len(shapes))]
+    arr = torch.as_tensor(np.cumsum(rng.exponential(3e5, (C, N)), axis=1), device=dev)
+    force_stages(stages)
+    for conc in (None, 2):
+        carry = stream_state(lanes, lanes, n_bins=64, ring_len=conc or 1, device=dev)
+        kw = dict(n_requests=N, patches=patches, salts=salts, plans=plans, emit=True, concurrency=conc,
+                  arrivals=None if conc else arr)
+        before = vtime_stream.launches
+        got, ys = vtime_stream(tables, var, lanes_t, carry, **kw)
+        want, ys_h = vtime_stream_ref(tables, var, lanes_t, carry, **kw)
+        torch.cuda.synchronize()
+        assert vtime_stream.launches == before + 1
+        for name, g, w in zip(got._fields, got, want):
+            assert torch.equal(g, w), name
+        assert torch.equal(ys[0], ys_h[0]) and torch.equal(ys[1], ys_h[1])

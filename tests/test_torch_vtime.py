@@ -242,27 +242,30 @@ _TWO = np.array([[1, 3, 3, 1, 50], [1, 1, 1, 1, 1]])
                                         smem_bytes=8 * (4 * 1024 + 73), stages=2, split=(0, 1, 2))),
     (_TWO, [1, 4], [1024, 16], dict(stages=1), dict(state_stride=74, smem_bytes=8 * (4 * 1024 + 74), stages=1,
                                                     split=(0, 2))),
-    # 36 wide pools in a layer: the KMAX 1 build's 12 warps, 10 on the
-    # pools and 2 staging
-    (np.full((2, 40), 9), [4, 36], [64, 64], {}, dict(threads=384, consumer_warps=10, kmax=1, chunk=2048)),
+    # 36 wide pools in a layer: a build of 12 warps (the card's answer for
+    # KMAX 1), 10 on the pools and 2 staging; with no card, WARPS (8)
+    (np.full((2, 40), 9), [4, 36], [64, 64], dict(warps={1: 12}.get),
+     dict(threads=384, consumer_warps=10, kmax=1, chunk=2048)),
+    (np.full((2, 40), 9), [4, 36], [64, 64], {}, dict(threads=256, consumer_warps=6, kmax=1, chunk=2048)),
     # the streaming entry: 4 loader warps, and each one's rows
-    (np.full((2, 40), 9), [4, 36], [64, 64], dict(stream=True),
+    (np.full((2, 40), 9), [4, 36], [64, 64], dict(stream=True, warps={1: 12}.get),
      dict(threads=384, consumer_warps=8, loader_warps=4, smem_bytes=8 * (4 * 2048 + 1152) + 4 * 1024 * 4)),
-    # KMAX 16 without stats keeps two blocks an SM: 6 warps; with stats 8
-    (np.full((2, 40), 222), [4, 36], [64, 64], {}, dict(threads=192, consumer_warps=4, kmax=16)),
-    (np.full((2, 40), 222), [4, 36], [64, 64], dict(stats=True), dict(threads=256, consumer_warps=6, kmax=16)),
+    # a KMAX 16 build of 6 warps (two blocks an SM) or 8
+    (np.full((2, 40), 222), [4, 36], [64, 64], dict(warps={16: 6}.get), dict(threads=192, consumer_warps=4, kmax=16)),
+    (np.full((2, 40), 222), [4, 36], [64, 64], dict(warps={16: 8}.get), dict(threads=256, consumer_warps=6, kmax=16)),
     (np.full((1, 247), 300), [247], [4], {}, dict(smem_state=False, stages=1)),
     # a pool wider than 512 servers: the KMAX 32 build (registers up to
     # 1,024 lanes, the pool state above), its lanes counted in the stride
     (np.array([[700]]), [1], [64], {}, dict(threads=96, consumer_warps=1, kmax=32, chunk=64, state_stride=1024)),
-], ids=["small+wide", "one-stage", "36-wide", "stream", "kmax16", "kmax16-stats", "global-state", "f8"])
+], ids=["small+wide", "one-stage", "36-wide", "36-wide-no-card", "stream", "kmax16", "kmax16-stats", "global-state",
+        "f8"])
 def test_kernel_plan(lanes, blocks, patches, kw, want):
     """Consumer warps with a thread for each small pool of the layer that has
     most and a warp for each pool of more than 8 servers in the layer with
-    most, within the build's warps (``build_warps``: 12, 8, or 6 for KMAX 16
-    without stats) beside 2 staging warps (4 for the streaming entry); state
-    lanes a power of two a pool (at least
-    32 for a warp's), a stage's in shared memory while they fit beside four
+    most, within the build's warps (``warps(kmax)``, the card's answer for
+    the build's launch bound, else ``WARPS``) beside 2 staging warps (4 for
+    the streaming entry); state lanes a power of two a pool (at least 32 for
+    a warp's), a stage's in shared memory while they fit beside four
     staging buffers of at most 2048 service times; the stages split the
     layers by their weight."""
     plan = kernel_plan(lanes, blocks, patches, **kw)
@@ -314,8 +317,9 @@ def test_stage_split_matches_brute_force(seed):
 
 def test_stage_count_chosen_and_capped():
     """S is the smallest count that reaches the least largest stage; it is
-    capped by the resident clusters (``clusters``), and S = 1 when the
-    configs fill the card's SMs."""
+    capped by the resident clusters (``clusters``: the card's occupancy
+    query, else ``SM_COUNT // S``), so S = 1 when the configs fill the
+    card's SMs."""
     from repro_torch.kernels.vtime_scan import SM_COUNT
 
     blocks, patches = [1, 5, 9, 18, 18, 36, 36, 36], [1024, 256, 64, 64, 16, 16, 4, 4]
@@ -327,6 +331,7 @@ def test_stage_count_chosen_and_capped():
     assert kernel_plan(uniform, [1] * 8, [100] * 8).stages == 8
     assert kernel_plan(uniform, [1] * 8, [100] * 8, clusters=lambda S, p: 3 if S <= 4 else 2).stages == 4
     assert kernel_plan(uniform, [1] * 8, [100] * 8, clusters=lambda S, p: 2).stages == 1
+    assert kernel_plan(np.full((200, 8), 4), [1] * 8, [100] * 8, clusters=lambda S, p: 400 // S).stages == 2
     assert kernel_plan(np.full((SM_COUNT, 8), 4), [1] * 8, [100] * 8).stages == 1
     assert kernel_plan(np.full((SM_COUNT - 1, 8), 4), [1] * 8, [100] * 8).stages == 1  # 2 x 131 blocks do not fit
     assert kernel_plan(np.full((30, 8), 4), [1] * 8, [100] * 8).stages == 4  # 30 clusters of 4 fit 132 SMs
@@ -511,7 +516,7 @@ def test_vt_run_batch_on_card(case, stages, force_stages):
 @pytest.mark.cuda
 @pytest.mark.parametrize("stages", [1, 2, 4, 8])
 @pytest.mark.parametrize("max_lanes", [1, 6, 40, 300, 1500, 4096, 65_536])
-def test_vt_equals_plain_on_card(max_lanes, stages):
+def test_vt_equals_plain_on_card(max_lanes, stages, force_stages):
     """VT against its plain version on the card on random problems of 8
     layers at S = 1, 2, 4 and 8 stages (every (K, G) class up to 32 lanes a
     thread over 32 threads, and pools wider than 1,024 whose lanes stay in
@@ -534,15 +539,15 @@ def test_vt_equals_plain_on_card(max_lanes, stages):
     var = torch.as_tensor(rng.integers(0, V, C), dtype=torch.int32, device=dev)
     xfer = torch.as_tensor(rng.random((C, L)) * 50.0, device=dev)
     arr = torch.as_tensor(np.cumsum(rng.exponential(300.0, (C, N)), axis=1), device=dev)
-    plan = kernel_plan(lanes_np, [b for _, b, _ in shapes], [p for _, _, p in shapes], stats=True, stages=stages)
-    if max_lanes > 512:
-        assert plan.kmax == 32
-    if max_lanes > 4096:
-        assert not plan.smem_state
+    force_stages(stages)
     for kw in (dict(arrivals=arr), dict(concurrency=3, xfer=xfer)):
         p = vtk._prepare(tables, idx, var, lanes, N, kw.get("arrivals"), kw.get("concurrency"), kw.get("xfer"))
-        packed = vtk._pack(p, True, stages=stages)
-        assert packed.plan == plan
+        packed = vtk._pack(p, True)
+        assert packed.plan.stages == stages
+        if max_lanes > 512:
+            assert packed.plan.kmax == 32
+        if max_lanes > 4096:
+            assert not packed.plan.smem_state
         got = vtk._launch(packed, True)
         want = vtime_scan_ref(tables, idx, var, lanes, n_requests=N, collect_stats=True, **kw)
         torch.cuda.synchronize()
@@ -555,7 +560,7 @@ def test_vt_equals_plain_on_card(max_lanes, stages):
 @pytest.mark.cuda
 @pytest.mark.parametrize("stages", [1, 3])
 @pytest.mark.parametrize("closed", [False, True], ids=["open", "closed"])
-def test_vt_multi_chunk_layers_on_card(closed, stages):
+def test_vt_multi_chunk_layers_on_card(closed, stages, force_stages):
     """Layers of several staging chunks (6 pools x 700 jobs, 9 x 400), one
     wide pool beside warps that have none: a warp without pools runs chunks
     ahead of the busy one, and no buffer is restaged before every warp is
@@ -575,7 +580,8 @@ def test_vt_multi_chunk_layers_on_card(closed, stages):
     kw = dict(concurrency=2) if closed else dict(
         arrivals=torch.as_tensor(np.cumsum(rng.exponential(3e4, (C, N)), axis=1), device=dev))
     p = vtk._prepare(tables, idx, var, lanes, N, kw.get("arrivals"), kw.get("concurrency"), None)
-    packed = vtk._pack(p, True, stages=stages)
+    force_stages(stages)
+    packed = vtk._pack(p, True)
     assert packed.plan.chunk < 6 * 700 and packed.plan.chunk < 9 * 400
     got = vtk._launch(packed, True)
     want = vtime_scan_ref(tables, idx, var, lanes, n_requests=N, collect_stats=True, **kw)
@@ -587,7 +593,7 @@ def test_vt_multi_chunk_layers_on_card(closed, stages):
 
 
 @pytest.mark.cuda
-def test_refused_launch_raises():
+def test_refused_launch_raises(force_stages):
     """A cluster launch the card refuses raises; it never runs at fewer
     stages: 9 blocks a cluster (more than the portable 8), and a split that
     leaves a stage no layer."""
@@ -600,7 +606,8 @@ def test_refused_launch_raises():
     idx = [torch.as_tensor(rng.integers(0, 8, (N, 5)), dtype=torch.int32, device=dev) for _ in range(L)]
     lanes = torch.full((3, 2 * L), 2, dtype=torch.int32, device=dev)
     p = vtk._prepare(tables, idx, torch.zeros(3, dtype=torch.int32, device=dev), lanes, N, None, 2, None)
-    packed = vtk._pack(p, stages=8)
+    force_stages(8)
+    packed = vtk._pack(p)
     before = vtime_scan.launches
     for plan in (packed.plan._replace(stages=9, split=tuple(range(10))),
                  packed.plan._replace(split=(0, 1, 2, 3, 4, 5, 6, 6, 9))):
@@ -612,6 +619,24 @@ def test_refused_launch_raises():
                           concurrency=2)
     torch.cuda.synchronize()
     assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_launch_bounds_on_card():
+    """``kernel_plan`` on the card takes each build's launch bound from the
+    library (``vtime_max_threads``): 12 warps for KMAX 1 and 4, 8 for the
+    wider builds, 6 for VT's KMAX 16 build without stats (two blocks an
+    SM); the 36 pools of a layer then get 10, 6 or 4 consumer warps."""
+    dev = _card()
+    from repro_torch.kernels import vtime_scan as vtk
+
+    want = {(1, False, False): 12, (4, True, False): 12, (16, False, False): 6, (16, True, False): 8,
+            (16, False, True): 8, (32, False, False): 8, (32, False, True): 8}
+    got = {key: vtk._limits(dev, key[2], key[1])["warps"](key[0]) for key in want}
+    assert got == want
+    for d, stats, consumers in ((9, False, 10), (222, False, 4), (222, True, 6)):
+        plan = kernel_plan(np.full((2, 40), d), [4, 36], [64, 64], **vtk._limits(dev, False, stats))
+        assert plan.consumer_warps == consumers
 
 
 @pytest.mark.cuda
