@@ -62,7 +62,7 @@ from ..core.cim.network import NetworkSpec
 from ..core.cim.profile import ActivationCapture
 from ..core.cim.simulate import ARRAYS_PER_PE, CLOCK_HZ, _eval_kernel
 from ..core.cim.topology import allocate_placed, stage_transfer_matrix
-from ..fabric.telemetry import get_telemetry
+from ..fabric.telemetry import get_telemetry, spanned
 from ..fabric.vtime import sample_service_indices, upload_indices, variant_table
 from ..kernels.bitplane_profile import bitplane_cycle_bank
 from ..kernels.fused_alloc_eval import fused_alloc_eval
@@ -347,6 +347,7 @@ class FusedPipeline:
             )
         return policies, n_pes, total
 
+    @spanned("dse.fused.alloc_eval")
     def __call__(
         self,
         a_idx,  # (C,) index into self.adc_bits
@@ -427,6 +428,7 @@ class FusedPipeline:
         """``engine="torch"``: every greedy replica vector from the shared
         event schedules on the host, then scatter + eval on the device."""
         C = budgets.shape[0]
+        tel = get_telemetry()
         used_f = np.zeros(C)
         rows_B = np.nonzero(kind == 2)[0]
         r_blk = np.ones((rows_B.size, self.N))  # family "B", rows_B order
@@ -446,7 +448,6 @@ class FusedPipeline:
         used_f[rows_L] = (r_layer[rows_L] - 1.0) @ self.layer_arrays
         used_f[rows_B] = ((r_blk - 1.0) * self.cost_blk).sum(axis=1)
 
-        tel = get_telemetry()
         csize_max = n_chunks = 0
         for fam, rows, r_fam in (("L", rows_L, r_layer), ("B", rows_B, r_blk)):
             if rows.size == 0:
@@ -461,12 +462,13 @@ class FusedPipeline:
                 T, ips, layer_T, util, dups = self._eval_chunk(
                     fam, sel[part], layerwise[part], r_take, n_images, clock_hz
                 )
-                outs["total_cycles"][part] = T.cpu().numpy()
-                outs["images_per_sec"][part] = ips.cpu().numpy()
-                outs["layer_cycles"][part] = layer_T.cpu().numpy()
-                outs["layer_utilization"][part] = util.cpu().numpy()
-                if need_dups:
-                    outs["dups_lb"][part] = dups.cpu().numpy()
+                with tel.span("dse.fused.copy_out"):
+                    outs["total_cycles"][part] = T.cpu().numpy()
+                    outs["images_per_sec"][part] = ips.cpu().numpy()
+                    outs["layer_cycles"][part] = layer_T.cpu().numpy()
+                    outs["layer_utilization"][part] = util.cpu().numpy()
+                    if need_dups:
+                        outs["dups_lb"][part] = dups.cpu().numpy()
                 n_chunks += 1
         # chunking telemetry: the live device set per pass is one tile (the
         # (csize, L, B) replica tensor dominates), never the full C
@@ -488,6 +490,7 @@ class FusedPipeline:
         Proportional configs enter at budget 0 with their host-computed
         replicas as the warm start, where the greedy changes nothing."""
         dev = self.device
+        tel = get_telemetry()
         stats = self._stats()
         C = budgets.shape[0]
         used_f = np.zeros(C)
@@ -506,10 +509,12 @@ class FusedPipeline:
             def launch(bud, a, sel_, lw, r0_, fam=fam, base=base, cost=cost):
                 d = bud.device
                 *b5, b_mask, ppi, width, larr, _, _ = self._on(d)
-                out = fused_alloc_eval(
-                    base.to(d), cost.to(d), self._umaps[fam].to(d), tuple(b5), b_mask, ppi, width, larr,
-                    bud, a, sel_, lw, r0_, n_images=n_images, clock_hz=clock_hz,
-                )
+                with tel.span("k2.launch"):
+                    out = fused_alloc_eval(
+                        base.to(d), cost.to(d), self._umaps[fam].to(d), tuple(b5), b_mask, ppi, width, larr,
+                        bud, a, sel_, lw, r0_, n_images=n_images, clock_hz=clock_hz,
+                    )
+                tel.count("k2.launches")
                 return out[:5]
 
             r0 = np.ones((rows.size, base.shape[1]))
@@ -527,20 +532,21 @@ class FusedPipeline:
                     on_dev(sel[part], torch.int32), on_dev(layerwise[part], torch.bool),
                     on_dev(r0[sl]),
                 )
-                outs["total_cycles"][part] = T.cpu().numpy()
-                outs["images_per_sec"][part] = ips.cpu().numpy()
-                outs["layer_cycles"][part] = layer_T.cpu().numpy()
-                outs["layer_utilization"][part] = util.cpu().numpy()
-                # integer-valued terms: exact in any order
-                used_f[part] = ((r - 1.0) * cost).sum(dim=1).cpu().numpy()
-                if need_dups:
-                    r = r.cpu().numpy()
-                    if fam == "L":
-                        outs["dups_lb"][part] = r[:, :, None]
-                    else:
-                        d = np.ones((part.size, self.L, self.B))
-                        d[:, self.l_idx, self.blk_idx] = r
-                        outs["dups_lb"][part] = d
+                with tel.span("dse.fused.copy_out"):
+                    outs["total_cycles"][part] = T.cpu().numpy()
+                    outs["images_per_sec"][part] = ips.cpu().numpy()
+                    outs["layer_cycles"][part] = layer_T.cpu().numpy()
+                    outs["layer_utilization"][part] = util.cpu().numpy()
+                    # integer-valued terms: exact in any order
+                    used_f[part] = ((r - 1.0) * cost).sum(dim=1).cpu().numpy()
+                    if need_dups:
+                        r = r.cpu().numpy()
+                        if fam == "L":
+                            outs["dups_lb"][part] = r[:, :, None]
+                        else:
+                            d = np.ones((part.size, self.L, self.B))
+                            d[:, self.l_idx, self.blk_idx] = r
+                            outs["dups_lb"][part] = d
         return used_f
 
     # ----------------------------------------------------- fused fabric stage
@@ -565,6 +571,7 @@ class FusedPipeline:
             self._vt_tables = tables
         return self._vt_tables
 
+    @spanned("dse.fused.fabric")
     def fabric_percentiles(
         self,
         a_idx: np.ndarray,  # (C,)
@@ -607,8 +614,11 @@ class FusedPipeline:
             arrivals=torch.as_tensor(np.asarray(arrival_times, dtype=np.float64), device=dev),
             xfer=None if xfer is None else torch.as_tensor(np.asarray(xfer, dtype=np.float64), device=dev),
         )
-        lat = comp.cpu().numpy() - t_arr.cpu().numpy()
-        return np.percentile(lat, qs, axis=1).T
+        tel = get_telemetry()
+        with tel.span("vt.wait"):
+            comp, t_arr = comp.cpu().numpy(), t_arr.cpu().numpy()
+        with tel.span("vt.percentiles", host=True):
+            return np.percentile(comp - t_arr, qs, axis=1).T
 
 
 def get_fused_pipeline(
@@ -656,6 +666,7 @@ def clear_fused_caches() -> None:
     _PIPELINE_CACHE.clear()
 
 
+@spanned("dse.fused.sweep")
 def run_fused_sweep(
     points: list[SweepPoint],
     *,
@@ -696,13 +707,22 @@ def run_fused_sweep(
     total = np.zeros(C, dtype=np.int64)
     pcts = np.full((C, 3), np.nan) if fabric is not None else None
 
-    groups: dict[tuple, list[int]] = {}
-    for i, p in enumerate(points):
-        groups.setdefault((p.network, _canonical(p.array)), []).append(i)
+    tel = get_telemetry()
+    with tel.span("dse.fused.points", host=True):
+        groups: dict[tuple, list[int]] = {}
+        for i, p in enumerate(points):
+            groups.setdefault((p.network, _canonical(p.array)), []).append(i)
+        packed = []
+        for (net, arr), rows in groups.items():
+            adcs = tuple(sorted({points[i].array.adc_bits for i in rows}))
+            pos = {a: k for k, a in enumerate(adcs)}
+            packed.append((net, arr, adcs, np.asarray(rows),
+                           np.array([pos[points[i].array.adc_bits] for i in rows], dtype=np.int32),
+                           np.array([points[i].policy for i in rows], dtype=object),
+                           np.array([points[i].n_pes for i in rows], dtype=np.int64)))
 
     elapsed = 0.0
-    for (net, arr), rows in groups.items():
-        adcs = tuple(sorted({points[i].array.adc_bits for i in rows}))
+    for net, arr, adcs, idx, a_idx, pols, pes in packed:
         pipe = get_fused_pipeline(
             net,
             arr,
@@ -714,11 +734,6 @@ def run_fused_sweep(
             shard=shard_devices,
             device=dev,
         )
-        idx = np.asarray(rows)
-        pos = {a: k for k, a in enumerate(adcs)}
-        a_idx = np.array([pos[points[i].array.adc_bits] for i in rows], dtype=np.int32)
-        pols = np.array([points[i].policy for i in rows], dtype=object)
-        pes = np.array([points[i].n_pes for i in rows], dtype=np.int64)
         t0 = time.perf_counter()
         res = pipe(a_idx, pols, pes, n_images=n_images, chunk=chunk,
                    need_dups=fabric is not None, engine=engine)
@@ -729,9 +744,10 @@ def run_fused_sweep(
         used[idx] = res["arrays_used"]
         total[idx] = res["arrays_total"]
         if fabric is not None:
-            gaps = np.random.default_rng(fabric.seed).exponential(1.0, size=fabric.n_requests)
-            rates = fabric.load_frac * res["images_per_sec"] / CLOCK_HZ
-            times = np.cumsum(gaps)[None, :] / rates[:, None]
+            with tel.span("dse.fused.arrivals", host=True):
+                gaps = np.random.default_rng(fabric.seed).exponential(1.0, size=fabric.n_requests)
+                rates = fabric.load_frac * res["images_per_sec"] / CLOCK_HZ
+                times = np.cumsum(gaps)[None, :] / rates[:, None]
             pcts[idx] = pipe.fabric_percentiles(
                 a_idx, res["dups_lb"], res["layerwise"], res["zskip"], times, seed=fabric.seed
             )

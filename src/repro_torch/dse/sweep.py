@@ -180,14 +180,13 @@ def get_captured(
     tel = get_telemetry()
     if key not in _CAPTURE_CACHE:
         tel.count("dse.capture.miss")
-        with tel.timed("dse.capture", network=network):
-            _CAPTURE_CACHE[key] = capture_activations(
-                _SPEC_FNS[network](),
-                n_images=profile_images,
-                sample_patches=sample_patches,
-                seed=seed,
-                device=dev,
-            )
+        _CAPTURE_CACHE[key] = capture_activations(
+            _SPEC_FNS[network](),
+            n_images=profile_images,
+            sample_patches=sample_patches,
+            seed=seed,
+            device=dev,
+        )
     else:
         tel.count("dse.capture.hit")
     return _CAPTURE_CACHE[key]
@@ -219,8 +218,7 @@ def get_profiled(
             device=dev,
         )
         spec = _spec_for(network, array)
-        with tel.timed("dse.profile", network=network):
-            _PROFILE_CACHE[key] = (spec, derive_profile(cap, spec, array=array))
+        _PROFILE_CACHE[key] = (spec, derive_profile(cap, spec, array=array))
     else:
         tel.count("dse.profile.hit")
     return _PROFILE_CACHE[key]
@@ -316,47 +314,46 @@ def run_sweep(
         pols = np.array([points[i].policy for i in rows], dtype=object)
         pes = np.array([points[i].n_pes for i in rows], dtype=np.int64)
         t0 = time.perf_counter()
-        with tel.timed("dse.sweep.group", network=net, points=len(rows)):
-            if engine == "batch":
-                key = (net, arr, profile_images, sample_patches, seed, str(dev), shard_devices)
-                if key not in _SIMULATOR_CACHE:
-                    tel.count("dse.simulator.miss")
-                    _SIMULATOR_CACHE[key] = BatchSimulator(spec, prof, shard=shard_devices)
-                else:
-                    tel.count("dse.simulator.hit")
-                alloc, res = run_batch(
-                    spec, prof, pols, pes,
-                    n_images=n_images,
-                    arrays_per_pe=arrays_per_pe,
-                    simulator=_SIMULATOR_CACHE[key],
-                    latency_load_frac=latency_load_frac,
-                )
-                out["total_cycles"][idx] = res.total_cycles.cpu().numpy()
-                out["images_per_sec"][idx] = res.images_per_sec.cpu().numpy()
-                out["mean_utilization"][idx] = res.mean_utilization.cpu().numpy()
-                used[idx] = alloc.arrays_used
-                total[idx] = alloc.arrays_total
-                allocs = [to_allocation(alloc, k, spec) for k in range(len(rows))]
+        if engine == "batch":
+            key = (net, arr, profile_images, sample_patches, seed, str(dev), shard_devices)
+            if key not in _SIMULATOR_CACHE:
+                tel.count("dse.simulator.miss")
+                _SIMULATOR_CACHE[key] = BatchSimulator(spec, prof, shard=shard_devices)
             else:
-                allocs = []
-                for i in rows:
-                    p = points[i]
-                    a = allocate(
-                        spec, prof, p.policy, p.n_pes, arrays_per_pe,
-                        load_frac=latency_load_frac,
-                    )
-                    s = simulate(spec, prof, a, n_images=n_images)
-                    out["total_cycles"][i] = s.total_cycles
-                    out["images_per_sec"][i] = s.images_per_sec
-                    out["mean_utilization"][i] = s.mean_utilization
-                    used[i] = a.arrays_used
-                    total[i] = a.arrays_total
-                    allocs.append(a)
-            if fabric is not None:
-                pcts[idx] = _fabric_eval(
-                    spec, prof, allocs, out["images_per_sec"][idx], fabric, engine,
-                    (net, arr, profile_images, sample_patches, seed, str(dev)),
+                tel.count("dse.simulator.hit")
+            alloc, res = run_batch(
+                spec, prof, pols, pes,
+                n_images=n_images,
+                arrays_per_pe=arrays_per_pe,
+                simulator=_SIMULATOR_CACHE[key],
+                latency_load_frac=latency_load_frac,
+            )
+            out["total_cycles"][idx] = res.total_cycles.cpu().numpy()
+            out["images_per_sec"][idx] = res.images_per_sec.cpu().numpy()
+            out["mean_utilization"][idx] = res.mean_utilization.cpu().numpy()
+            used[idx] = alloc.arrays_used
+            total[idx] = alloc.arrays_total
+            allocs = [to_allocation(alloc, k, spec) for k in range(len(rows))]
+        else:
+            allocs = []
+            for i in rows:
+                p = points[i]
+                a = allocate(
+                    spec, prof, p.policy, p.n_pes, arrays_per_pe,
+                    load_frac=latency_load_frac,
                 )
+                s = simulate(spec, prof, a, n_images=n_images)
+                out["total_cycles"][i] = s.total_cycles
+                out["images_per_sec"][i] = s.images_per_sec
+                out["mean_utilization"][i] = s.mean_utilization
+                used[i] = a.arrays_used
+                total[i] = a.arrays_total
+                allocs.append(a)
+        if fabric is not None:
+            pcts[idx] = _fabric_eval(
+                spec, prof, allocs, out["images_per_sec"][idx], fabric, engine,
+                (net, arr, profile_images, sample_patches, seed, str(dev)),
+            )
         elapsed += time.perf_counter() - t0
         done += len(rows)
         tel.gauge("dse.sweep.points_done", done)

@@ -54,6 +54,7 @@ from ..core.cim.simulate import CLOCK_HZ, Allocation, _layer_patch_cycles
 from ..kernels.vtime_scan import vtime_scan
 from .arrivals import ArrivalProcess, ClosedLoop, PoissonOpen, arrival_times
 from .metrics import LatencyStats, latency_stats, percentile_kernel, steady_throughput
+from .telemetry import get_telemetry, spanned
 
 __all__ = [
     "CoarsenConfig",
@@ -404,6 +405,7 @@ def _np_scan(f, init, xs):
 
 
 # --------------------------------------------------------------- packing
+@spanned("vt.draw", host=True)
 def sample_service_indices(rng: np.random.Generator, dims, n_requests: int):
     """Per-layer (N, ppi) sample-row indices, drawn layer-major.
 
@@ -411,6 +413,9 @@ def sample_service_indices(rng: np.random.Generator, dims, n_requests: int):
     virtual-time paths draw through this helper with the same generator
     state, so all engines see identical service times per (request, patch).
     """
+    tel = get_telemetry()
+    if tel.enabled:
+        tel.count("vt.indices", int(n_requests) * sum(int(ppi) for _, ppi in dims))
     return [
         rng.integers(0, s, size=(int(n_requests), int(ppi))) for s, ppi in dims
     ]
@@ -560,12 +565,18 @@ def pool_lanes(spec: NetworkSpec, alloc: Allocation) -> np.ndarray:
     return np.concatenate(parts)
 
 
+@spanned("vt.upload")
 def upload_indices(idx, device: torch.device) -> list[torch.Tensor]:
     """Per-layer (N, P_l) sample indices as int32 on ``device``: one host
     buffer, pinned for a card, and one copy."""
-    flat = torch.from_numpy(np.concatenate([np.asarray(i).ravel() for i in idx]).astype(np.int32))
+    tel = get_telemetry()
+    with tel.span("vt.pack_indices", host=True):
+        flat = torch.from_numpy(np.concatenate([np.asarray(i).ravel() for i in idx]).astype(np.int32))
+        if device.type == "cuda":
+            flat = flat.pin_memory()
+    tel.count("vt.upload_bytes", flat.nbytes)
     if device.type == "cuda":
-        flat = flat.pin_memory().to(device, non_blocking=True)
+        flat = flat.to(device, non_blocking=True)
     parts = torch.split(flat, [int(np.asarray(i).size) for i in idx])
     return [p.view(np.asarray(i).shape) for p, i in zip(parts, idx)]
 
@@ -695,10 +706,11 @@ class VirtualTimeFabric:
 
     def _run_torch(self, allocs, placements, times, concurrency, idx, collect_stats):
         dev = self.device
-        kind = [(a.layer_dups is not None, a.policy != "baseline") for a in allocs]
-        keys = tuple(sorted(set(kind)))
-        variant = np.asarray([keys.index(k) for k in kind], dtype=np.int32)
-        lanes = np.stack([pool_lanes(self.spec, a) for a in allocs]).astype(np.int32)
+        with get_telemetry().span("vt.configs", host=True):
+            kind = [(a.layer_dups is not None, a.policy != "baseline") for a in allocs]
+            keys = tuple(sorted(set(kind)))
+            variant = np.asarray([keys.index(k) for k in kind], dtype=np.int32)
+            lanes = np.stack([pool_lanes(self.spec, a) for a in allocs]).astype(np.int32)
         xfer = None
         if placements is not None:
             xfer = np.stack(
@@ -716,10 +728,11 @@ class VirtualTimeFabric:
             xfer=xfer,
             collect_stats=collect_stats,
         )
-        host = [None if x is None else x.cpu().numpy() for x in (t_arr, comp, busy, wait)]
-        return tuple(host)
+        with get_telemetry().span("vt.wait"):
+            return tuple(None if x is None else x.cpu().numpy() for x in (t_arr, comp, busy, wait))
 
     # ------------------------------------------------------------------ run
+    @spanned("vt.run_batch")
     def run_batch(
         self,
         allocs,
@@ -764,19 +777,21 @@ class VirtualTimeFabric:
         closed = isinstance(procs[0], ClosedLoop)
         if any(isinstance(p, ClosedLoop) != closed for p in procs):
             raise ValueError("cannot mix closed- and open-loop processes in one batch")
-        if closed:
-            concurrency = procs[0].concurrency
-            if any(p.concurrency != concurrency or p.n_requests != procs[0].n_requests for p in procs):
-                raise ValueError("closed-loop batch needs identical (n_requests, concurrency)")
-            n = procs[0].n_requests
-            times = np.zeros((len(allocs), n))
-        else:
-            concurrency = None
-            tlist = [arrival_times(p) for p in procs]
-            n = tlist[0].size
-            if any(t.size != n for t in tlist):
-                raise ValueError("all arrival traces in a batch need the same length")
-            times = np.stack(tlist).astype(np.float64)
+        tel = get_telemetry()
+        with tel.span("vt.arrivals", host=True):
+            if closed:
+                concurrency = procs[0].concurrency
+                if any(p.concurrency != concurrency or p.n_requests != procs[0].n_requests for p in procs):
+                    raise ValueError("closed-loop batch needs identical (n_requests, concurrency)")
+                n = procs[0].n_requests
+                times = np.zeros((len(allocs), n))
+            else:
+                concurrency = None
+                tlist = [arrival_times(p) for p in procs]
+                n = tlist[0].size
+                if any(t.size != n for t in tlist):
+                    raise ValueError("all arrival traces in a batch need the same length")
+                times = np.stack(tlist).astype(np.float64)
 
         # one draw shared by every config: sampling dims depend only on the
         # profile (S_l, ppi_l), not on dataflow or zero-skipping
@@ -799,8 +814,9 @@ class VirtualTimeFabric:
             arrivals, completions, busy, wait = self._run_torch(
                 allocs, placements, times, concurrency, idx, collect_stats
             )
-            lat = completions - arrivals
-            pcts = np.stack([percentile_kernel(np, lat[k], qs) for k in range(C)])
+            with tel.span("vt.percentiles", host=True):
+                lat = completions - arrivals
+                pcts = np.stack([percentile_kernel(np, lat[k], qs) for k in range(C)])
             return VTResult(
                 arrivals, completions, pcts, qs, self.clock_hz,
                 layer_busy=busy, layer_wait=wait,

@@ -76,9 +76,13 @@ def library_path(name: str) -> Path:
 def build(*names: str) -> dict[str, str]:
     """Compile every named source whose library (or its log) is missing;
     returns the compiler's output for every name, read back from the log of
-    a library built before (the ``-Xptxas -v`` report).  Raises, after every
-    ``nvcc`` started has ended, if any failed."""
+    a library built before (the ``-Xptxas -v`` report).  Each ``nvcc``
+    started adds one to the recorder's ``kernels.nvcc``.  Raises, after
+    every ``nvcc`` started has ended, if any failed."""
+    from ..fabric.telemetry import get_telemetry  # at the call: the fabric package imports the kernels
+
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tel = get_telemetry()
     jobs, logs = {}, {}
     for name in names:
         out = library_path(name)
@@ -91,6 +95,7 @@ def build(*names: str) -> dict[str, str]:
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
+        tel.count("kernels.nvcc")
         jobs[name] = (proc, tmp, out, log)
     failed = []
     for name, (proc, tmp, out, log) in jobs.items():

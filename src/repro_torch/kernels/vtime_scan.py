@@ -112,6 +112,14 @@ JOB_CYCLES = {0: 0.0, 1: 14.0, 2: 31.0, 4: 42.0, 8: 65.0, 32: 84.0, 64: 77.0, 12
 LAYER_CYCLES = 1720.0
 
 
+def _telemetry():
+    """The recorder in force (``fabric.telemetry``, imported at the call:
+    the fabric package imports this module)."""
+    from ..fabric.telemetry import get_telemetry
+
+    return get_telemetry()
+
+
 @functools.cache
 def _launcher():
     fn = _build.load("vtime_scan").vtime_scan_launch
@@ -506,7 +514,9 @@ def _pack(p: _Problem, collect_stats: bool = False) -> _Packed:
     dev = p.variant.device
     blocks = [t.shape[2] for t in p.tables]
     patches = [i.shape[1] for i in p.idx]
-    plan = kernel_plan(p.lanes.cpu().numpy(), blocks, patches, **_limits(dev, False, collect_stats))
+    lanes = p.lanes.cpu().numpy()
+    with _telemetry().span("vt.kernel_plan", host=True):
+        plan = kernel_plan(lanes, blocks, patches, **_limits(dev, False, collect_stats))
     tbl_off, meta = _meta(p.tables, patches, p.n_requests)
     return _Packed(
         p, plan, torch.cat([t.reshape(-1) for t in p.tables]), tbl_off.to(dev), meta.to(dev),
@@ -584,13 +594,35 @@ def vtime_scan(
     synchronisation) and add one to ``vtime_scan.launches``; CPU tensors run
     ``vtime_scan_ref``.  Inputs are checked first (shapes, index ranges),
     which reads the flags back from the device in one transfer; a failure to
-    build or launch raises."""
-    p = _prepare(tables, idx, variant, lanes, n_requests, arrivals, concurrency, xfer)
+    build or launch raises.  Each run, on either device, adds one to the
+    recorder's ``vt.launches`` and its job steps (configs x requests x jobs
+    a request) to ``vt.job_steps``."""
+    tel = _telemetry()
+    stats = bool(collect_stats)
+    with tel.span("vt.prepare"):
+        p = _prepare(tables, idx, variant, lanes, n_requests, arrivals, concurrency, xfer)
     if p.variant.device.type == "cpu":
-        return _plain(p, bool(collect_stats))
-    if p.variant.device.type != "cuda":
+        out = _plain(p, stats)
+    elif p.variant.device.type == "cuda":
+        with tel.span("vt.plan"):
+            k = _pack(p, stats)
+        with tel.span("vt.launch") as attrs:
+            if attrs is not None:
+                attrs.update(configs=p.variant.shape[0], requests=p.n_requests, stages=k.plan.stages,
+                             kmax=k.plan.kmax, threads=k.plan.threads, smem_state=bool(k.plan.smem_state),
+                             job_steps=_job_steps(p))
+            out = _launch(k, stats)
+    else:
         raise ValueError(f"no kernel for device {p.variant.device}")
-    return _launch(_pack(p, bool(collect_stats)), bool(collect_stats))
+    tel.count("vt.launches")
+    if tel.enabled:
+        tel.count("vt.job_steps", _job_steps(p))
+    return out
+
+
+def _job_steps(p: _Problem) -> int:
+    """Job steps a run of VT takes: every config's requests x jobs a request."""
+    return p.variant.shape[0] * p.n_requests * sum(i.shape[1] for i in p.idx)
 
 
 vtime_scan.launches = 0
