@@ -108,7 +108,11 @@ sources.  Phases, each of which fails the run on any mismatch:
      (stats, transfers, fractional cycles); VT's times beside its bound (a
      one-thread FP64 add + min chain measured here, or the bytes), the
      device's busy share over the fused sweep, and VT's cycles a job by
-     pool width and a (request, layer) on synthetic one-pool problems;
+     pool width and a (request, layer) on synthetic one-pool problems; the
+     service-index draw (``csrc/service_draw.cu``) at the benchmark cells'
+     sizes equal to the host's draw, timed alone, through its path and
+     against the host's draw and upload, and its launches counted on every
+     VT path of phases 17 and 18 (one draw a VT launch);
  18. the multi-chip half (slice 9): F8, VT on VGG11 blockwise at 10x to 20x
      the minimum PEs (pools wider than 512 servers) equal to FabricSim; the
      reference's multi-chip sweep (VGG11, 1 to 8 chips x 16 to 256 Gb/s
@@ -1919,12 +1923,104 @@ def vt_lane_costs(gpu, dev, clock_hz):
     return per_job, per_layer
 
 
+def draw_numbers(gpu, dev, seed=3_000_000_019, reps=20):
+    """The service-index draw at the benchmark cells' sizes, equal to the
+    host's: the kernel's device time (``torch.profiler``, ``reps``
+    launches), the card's whole path (``service_indices``: the plan,
+    numpy's layers and their copy, the launch) and its plain version (the
+    host's draw and ``upload_indices``), each by the host clock to a
+    synchronize; beside the bytes bound (4 B written an index, 4 more read
+    a copied one, at 3.35 TB/s).  Returns {cell: numbers}."""
+    import numpy as np
+    import torch
+
+    import repro_torch as T
+    from repro_torch.fabric.vtime import sample_service_indices, service_indices, upload_indices
+    from repro_torch.kernels import service_draw as sd
+
+    r18 = [l.patches_per_image for l in T.resnet18_imagenet().layers]
+    vgg = [l.patches_per_image for l in T.vgg11_cifar10().layers]
+    cells = (("resnet18.closed_query", [(min(64, p), p) for p in r18], 120),
+             ("resnet18.dse_tail", [(min(128, p), p) for p in r18], 200),
+             ("vgg11.tail_query", [(min(128, 2 * p), p) for p in vgg], 400))
+
+    def wall_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    out = {}
+    for label, dims, n in cells:
+        def plain():
+            return upload_indices(sample_service_indices(np.random.default_rng(seed), dims, n), dev)
+
+        def card():
+            return service_indices(seed, dims, n, dev)
+
+        want, got = plain(), card()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)), f"{label}: the card's draw != the host's")
+        plan = sd.draw_plan(seed, dims, n)
+        host = torch.from_numpy(plan.host).to(dev) if plan.host.size else None
+        flat = torch.empty(plan.total, dtype=torch.int32, device=dev)
+        before = sd.service_draw.launches
+
+        def launches():
+            for _ in range(reps):
+                sd.service_draw(plan, host, flat)
+
+        _, _, by_name = device_busy(launches)
+        check(sd.service_draw.launches == before + reps, f"{label}: {sd.service_draw.launches - before} launches")
+        kernel_ms = sum(ms for name, ms in by_name.items() if "service_draw_kernel" in name) / reps
+        check(kernel_ms > 0, f"{label}: no service_draw_kernel in the trace")
+        err = int((flat - torch.cat([w.reshape(-1) for w in want])).abs().max())
+        check(err == 0, f"{label}: the launch != the host's (max abs diff {err})")
+        nbytes = 4 * plan.total + 4 * plan.host.size
+        bound_ms = nbytes / 3.35e12 * 1e3
+        out[label] = dict(indices=plan.total, host_indices=int(plan.host.size), max_abs_err=err, kernel_ms=kernel_ms,
+                          bound_ms=bound_ms, path_ms=wall_ms(card), plain_ms=wall_ms(plain))
+        o = out[label]
+        print(f"{gpu}: draw {label}: {plan.total:,} indices ({o['host_indices']:,} numpy's), kernel "
+              f"{kernel_ms:.4f} ms against {bound_ms:.4f} ({nbytes:,} B; {bound_ms / kernel_ms:.3f} of the bound), "
+              f"the card's path {o['path_ms']:.3f} ms, the host's draw and upload {o['plain_ms']:.3f} ms")
+    return out
+
+
+def draw_entry(draw, fab, mcf):
+    """The draw's entry of the ``kernels`` line: its launches on the main
+    path (phases 17 and 18, by path), max |kernel - host draw| and its
+    times at ``resnet18.closed_query``'s size beside every cell's
+    (``draw_numbers``)."""
+    return {
+        "name": "service_draw",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/service_draw.cu",
+        "replaces": "the host's draw and upload_indices (src/repro_torch/fabric/vtime.py), no Pallas kernel",
+        "launches": sum(fab["draw_launches"].values()) + sum(mcf["draw_launches"].values()),
+        "launches_by_path": {**fab["draw_launches"], **mcf["draw_launches"]},
+        "max_abs_err": max(d["max_abs_err"] for d in draw.values()),
+        # resnet18.closed_query's draw (3,627,960 indices); the kernel alone by
+        # torch.profiler, the path and its plain version by the host clock
+        "ms": draw["resnet18.closed_query"]["path_ms"],
+        "kernel_ms": draw["resnet18.closed_query"]["kernel_ms"],
+        "plain_ms": draw["resnet18.closed_query"]["plain_ms"],
+        "bound_ms": draw["resnet18.closed_query"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "cells": draw,
+    }
+
+
 def fabric_phase(gpu, dev):
     """The fabric engines on the card (slice 8): profiles by K1, then (1) the
     reference's fabric_tail grid on VGG11, (2) ResNet18's closed loop, (3)
     the fused sweep's fabric stage over 1,024 VGG11 configs, (4) VT against
     its plain version, (5) VT's numbers and its cost by path.  Each path's
-    VT count is set to 0 just before it and read just after."""
+    VT count and draw count (``service_draw``, one a VT launch on the card)
+    are set to 0 just before it and read just after."""
     import numpy as np
     import torch
 
@@ -1933,10 +2029,20 @@ def fabric_phase(gpu, dev):
     from repro_torch.fabric import (
         ClosedLoop, FabricSim, PoissonOpen, VirtualTimeFabric, provision_latency_aware, shift_profile,
     )
+    from repro_torch.kernels.service_draw import service_draw as sd
     from repro_torch.kernels.vtime_scan import vtime_scan as vt, vtime_scan_ref as vt_plain
 
     t_phase = time.perf_counter()
-    out = {"launches": {}}
+    out = {"launches": {}, "draw_launches": {}}
+
+    def zero():
+        vt.launches = sd.launches = 0
+
+    def count(path):
+        """Record a path's VT and draw launches; each VT launch takes one draw."""
+        out["launches"][path], out["draw_launches"][path] = vt.launches, sd.launches
+        check(sd.launches == vt.launches, f"{path}: {sd.launches} draws on the card for {vt.launches} VT launches")
+
     chain_ns = (vt_chain_ns(dev), vt_chain_ns(dev, with_min=False))  # (add + min, add alone)
     print(f"{gpu}: one thread's dependent FP64 add + min: {chain_ns[0]:.3f} ns a step; add alone "
           f"{chain_ns[1]:.3f} ns")
@@ -1952,14 +2058,14 @@ def fabric_phase(gpu, dev):
     wb = T.allocate(spec, prof, "weight_based", pes)
     bw = T.allocate(spec, prof, "blockwise", pes)
     cap = T.simulate(spec, prof, bw, n_images=64).images_per_sec
-    vt.launches = 0
+    zero()
     t0 = time.perf_counter()
     vt_prov = VirtualTimeFabric(spec, prof, lane_quantum=8, device=dev)
     las = {f: provision_latency_aware(spec, prof, pes, offered_ips=f * cap, calib_requests=FABRIC_CALIB,
                                       grants=0, vt=vt_prov) for f in FABRIC_LOADS}
     torch.cuda.synchronize()
     prov_s = time.perf_counter() - t0
-    out["launches"]["provision"] = vt.launches
+    count("provision")
     check(vt.launches == 2 * len(FABRIC_LOADS),
           f"provision_latency_aware: VT launched {vt.launches} times, want {2 * len(FABRIC_LOADS)}")
     allocs, procs, labels = [], [], []
@@ -1972,7 +2078,7 @@ def fabric_phase(gpu, dev):
     lanes_max = max(int(np.max(a.layer_dups if a.layer_dups is not None else np.concatenate(a.block_dups)))
                     for a in allocs)
     vtf = VirtualTimeFabric(spec, prof, device=dev)
-    vt.launches = 0
+    zero()
     with VTRecorder() as rec:
         t0 = time.perf_counter()
         cold = vtf.run_batch(allocs, procs, seed=3)
@@ -1980,7 +2086,7 @@ def fabric_phase(gpu, dev):
         t0 = time.perf_counter()
         res = vtf.run_batch(allocs, procs, seed=3)
         warm_s = time.perf_counter() - t0
-    out["launches"]["fabric_tail"] = vt.launches
+    count("fabric_tail")
     check(vt.launches == 2, f"fabric_tail: VT launched {vt.launches} times, want 2 (cold and warm)")
     check(np.array_equal(cold.completions, res.completions), "fabric_tail: cold != warm")
     t0 = time.perf_counter()
@@ -2008,12 +2114,12 @@ def fabric_phase(gpu, dev):
     lanes_max = max(int(np.max(a.layer_dups if a.layer_dups is not None else np.concatenate(a.block_dups)))
                     for a in r_allocs)
     vtr = VirtualTimeFabric(spec, prof, device=dev)
-    vt.launches = 0
+    zero()
     with VTRecorder() as rec:
         t0 = time.perf_counter()
         res = vtr.run_batch(r_allocs, ClosedLoop(*FABRIC_R18_LOOP), seed=1)
         r18_s = time.perf_counter() - t0
-    out["launches"]["resnet18_loop"] = vt.launches
+    count("resnet18_loop")
     check(vt.launches == 1, f"resnet18 closed loop: VT launched {vt.launches} times, want 1")
     worst = 0.0
     for k, a in enumerate(r_allocs):
@@ -2029,9 +2135,9 @@ def fabric_phase(gpu, dev):
             r18_s, r18_s)
     out["r18"] = r18
     bwr = r_allocs[T.POLICIES.index("blockwise")]
-    vt.launches = 0
+    zero()
     got = vtr.run_batch([bwr], ClosedLoop(*FABRIC_R18_EQUAL), seed=1)
-    out["launches"]["resnet18_equal"] = vt.launches
+    count("resnet18_equal")
     t0 = time.perf_counter()
     want = FabricSim(spec, prof, bwr, seed=1).run(ClosedLoop(*FABRIC_R18_EQUAL))
     r18_host_s = time.perf_counter() - t0
@@ -2051,19 +2157,19 @@ def fabric_phase(gpu, dev):
     clear_fused_caches()
     fe = FabricEval()
     run_fused_sweep(pts[:8], fabric=fe, device=dev)  # capture, derive and tables outside the count
-    vt.launches = 0
+    zero()
     with VTRecorder() as rec:
         t0 = time.perf_counter()
         fused = run_fused_sweep(pts, fabric=fe, device=dev)
         torch.cuda.synchronize()
         fused_s = time.perf_counter() - t0
-    out["launches"]["fused"] = vt.launches
+    count("fused")
     check(vt.launches == len(FUSED_ROWS), f"fused fabric stage: VT launched {vt.launches} times, want {len(FUSED_ROWS)}")
-    vt.launches = 0
+    zero()
     t0 = time.perf_counter()
     staged = run_sweep(pts, fabric=fe, engine="batch", device=dev)
     staged_s = time.perf_counter() - t0
-    out["launches"]["staged"] = vt.launches
+    count("staged")
     for col in ("arrays_used", "images_per_sec", "p50_cycles", "p95_cycles", "p99_cycles"):
         x, y = getattr(fused, col), getattr(staged, col)
         check(np.array_equal(x, y), f"fused fabric stage != staged sweep on {col}")
@@ -2138,7 +2244,8 @@ def fabric_phase(gpu, dev):
     out.update(max_abs_err=err, plain_ms=plain_ms, check=check_n)
     out["lane_costs"] = vt_lane_costs(gpu, dev, sm_clock_hz())
     out["phase_s"] = time.perf_counter() - t_phase
-    print(f"{gpu}: fabric phase {out['phase_s']:.3f} s; VT launches by path: {json.dumps(out['launches'])}")
+    print(f"{gpu}: fabric phase {out['phase_s']:.3f} s; VT launches by path: {json.dumps(out['launches'])}; "
+          f"draws on the card by path: {json.dumps(out['draw_launches'])}")
     out["chain_ns"], out["vgg11"] = chain_ns, profiles["vgg11"]
     return out
 
@@ -2307,12 +2414,21 @@ def multichip_fleet_phase(gpu, dev, fab):
         arrival_times, degrade_plan, generate_failure_trace, run_stream, run_trace_segments, segment_growth_plan,
     )
     from repro_torch.fabric.vtime import pool_lanes
+    from repro_torch.kernels.service_draw import service_draw as sd
     from repro_torch.kernels.vtime_scan import vtime_scan as vt, vtime_stream as vs
     from repro_torch.obs import build_trace, utilization_report, validate_trace
 
     t_phase = time.perf_counter()
     chain_ns = fab["chain_ns"]
-    out = {"launches": {}, "stream_launches": {}}
+    out = {"launches": {}, "stream_launches": {}, "draw_launches": {}}
+
+    def zero():
+        vt.launches = sd.launches = 0
+
+    def count(path):
+        """Record a path's VT and draw launches; each VT launch takes one draw."""
+        out["launches"][path], out["draw_launches"][path] = vt.launches, sd.launches
+        check(sd.launches == vt.launches, f"{path}: {sd.launches} draws on the card for {vt.launches} VT launches")
 
     # ---- (1) F8: VGG11 blockwise at 10x to 20x its minimum PEs through VT
     spec, prof = fab["vgg11"]
@@ -2321,10 +2437,10 @@ def multichip_fleet_phase(gpu, dev, fab):
     check(max(widest) > 512, f"F8: no pool wider than 512 servers at {F8_MULTS}x ({widest})")
     cap = T.simulate(spec, prof, allocs[0]).images_per_sec
     proc = PoissonOpen(FABRIC_CHECK_REQUESTS, 0.6 * cap / 1e8, seed=1)
-    vt.launches = 0
+    zero()
     with VTRecorder() as rec:
         res = VirtualTimeFabric(spec, prof, device=dev).run_batch(allocs, proc, seed=0)
-    out["launches"]["f8"] = vt.launches
+    count("f8")
     check(vt.launches == 1, f"F8: VT launched {vt.launches} times, want 1")
     for m, a, w, got in zip(F8_MULTS, allocs, widest, res.completions):
         want = FabricSim(spec, prof, a, seed=0).run(proc)
@@ -2338,12 +2454,12 @@ def multichip_fleet_phase(gpu, dev, fab):
     # ---- (2) the multi-chip sweep: VGG11, chips x links at equal silicon
     pts = chip_grid(networks=("vgg11",), chips=MC_CHIPS, link_gbps=MC_LINKS, pe_multiplier=2.0)
     run_multichip_sweep(pts[:1], device=dev, **MC_RUN)  # capture and derive outside the count and the clock
-    vt.launches = 0
+    zero()
     t0 = time.perf_counter()
     mc = run_multichip_sweep(pts, device=dev, **MC_RUN)
     torch.cuda.synchronize()
     mc_s = time.perf_counter() - t0
-    out["launches"]["multichip"] = vt.launches
+    count("multichip")
     check(vt.launches == 2, f"multichip sweep: VT launched {vt.launches} times, want 2 (closed and open loop)")
     for i, p in enumerate(mc.points):
         check(np.isfinite(mc.images_per_sec[i]) and mc.images_per_sec[i] > 0 and mc.p99_cycles[i] >= mc.p50_cycles[i],
@@ -2371,12 +2487,12 @@ def multichip_fleet_phase(gpu, dev, fab):
     # ---- (3) the fused (placement x load) surface against the staged sweep at 0.7
     cpts = chip_grid(networks=("vgg11",), **FUSED_CHIP)
     run_fused_multichip_sweep(cpts[:1], load_fracs=(0.7,), device=dev, **FUSED_CHIP_RUN)
-    vt.launches = 0
+    zero()
     t0 = time.perf_counter()
     fused = run_fused_multichip_sweep(cpts, load_fracs=FUSED_CHIP_LOADS, device=dev, **FUSED_CHIP_RUN)
     torch.cuda.synchronize()
     fused_s = time.perf_counter() - t0
-    out["launches"]["fused_multichip"] = vt.launches
+    count("fused_multichip")
     check(vt.launches == 2, f"fused multichip surface: VT launched {vt.launches} times, want 2")
     t0 = time.perf_counter()
     staged = {lf: run_multichip_sweep(cpts, load_frac=lf, device=dev, **FUSED_CHIP_RUN) for lf in FUSED_CHIP_LOADS}
@@ -2537,7 +2653,8 @@ def multichip_fleet_phase(gpu, dev, fab):
           f"over {len(chips) - 1} chip processes, schema valid; mean duty cycle {rep.mean_duty_cycle:.4f}")
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"{gpu}: multichip and fleet phase {out['phase_s']:.3f} s; VT launches {json.dumps(out['launches'])}; "
-          f"streaming launches {json.dumps(out['stream_launches'])}")
+          f"draws on the card {json.dumps(out['draw_launches'])}; streaming launches "
+          f"{json.dumps(out['stream_launches'])}")
     return out
 
 
@@ -4267,10 +4384,13 @@ def main() -> int:
     # ---- 1. build, and the kernel against its plain version on edge cases
     t0 = time.perf_counter()
     logs = _build.build("bitplane_profile", "fused_alloc_eval", "zskip_matmul", "flash_attention", "ssd_chunk",
-                        "vtime_scan")
-    print(f"build: K1, K2, K3, K4, K5 and VT in {time.perf_counter() - t0:.3f} s (wall, six nvcc processes together)")
+                        "vtime_scan", "service_draw")
+    print(f"build: K1, K2, K3, K4, K5, VT and the draw in {time.perf_counter() - t0:.3f} s (wall, seven nvcc "
+          f"processes together)")
     for name, log in logs.items():
         print(f"[nvcc {name}]\n{log.strip()}")
+    check("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in logs["service_draw"],
+          "service_draw: the kernel keeps a stack frame or spills (its layer table copied to local memory?)")
     # the Hopper kernels of K3, K4 and K5 keep their accumulators in registers
     # (a library built before this run is checked by the log kept beside it)
     for name in ("zskip_matmul", "flash_attention", "ssd_chunk"):
@@ -4639,6 +4759,7 @@ def main() -> int:
     # ---- 17. the fabric engines: fabric_tail, ResNet18's closed loop, the
     # fused sweep's fabric stage, VT against its plain version
     fab = fabric_phase(gpu, dev)
+    draw = draw_numbers(gpu, dev)
 
     # ---- 18. the multi-chip half: F8, the multi-chip sweeps, fleet replay
     # with the streaming VT entry, the fault sweep, observability
@@ -4795,7 +4916,7 @@ def main() -> int:
         "fused_device_busy": fab["fused_busy"],
         "f8_kernel_ms": mcf["f8"]["kernel_ms"],
         "f8_bound_ms": mcf["f8"]["bound_ms"],
-    }, {
+    }, draw_entry(draw, fab, mcf), {
         "name": "vtime_stream",
         "route": "cuda",
         "source": "src/repro_torch/csrc/vtime_scan.cu",

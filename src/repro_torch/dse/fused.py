@@ -63,7 +63,7 @@ from ..core.cim.profile import ActivationCapture
 from ..core.cim.simulate import ARRAYS_PER_PE, CLOCK_HZ, _eval_kernel
 from ..core.cim.topology import allocate_placed, stage_transfer_matrix
 from ..fabric.telemetry import get_telemetry, spanned
-from ..fabric.vtime import sample_service_indices, upload_indices, variant_table
+from ..fabric.vtime import service_indices, variant_table
 from ..kernels.bitplane_profile import bitplane_cycle_bank
 from ..kernels.fused_alloc_eval import fused_alloc_eval
 from ..kernels.vtime_scan import vtime_scan
@@ -596,7 +596,7 @@ class FusedPipeline:
         lw = np.asarray(layerwise, dtype=bool)
         z = np.asarray(zskip, dtype=bool)
         dims = [(self.S_l[li], l.patches_per_image) for li, l in enumerate(self.spec.layers)]
-        idx = sample_service_indices(np.random.default_rng(seed), dims, n)
+        idx = service_indices(seed, dims, n, dev)
         lanes = []
         for li, layer in enumerate(self.spec.layers):
             b = layer.n_blocks
@@ -607,7 +607,7 @@ class FusedPipeline:
         variant = ((a_idx * 2 + z) * 2 + lw).astype(np.int32)
         t_arr, comp, _, _ = vtime_scan(
             self._fabric_tables(),
-            upload_indices(idx, dev),
+            idx,
             torch.as_tensor(variant, device=dev),
             torch.as_tensor(lanes, device=dev),
             n_requests=n,

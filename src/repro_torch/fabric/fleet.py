@@ -64,8 +64,7 @@ from .vtime import (
     _pack_group,
     chunk_plan,
     pool_lanes,
-    sample_service_indices,
-    upload_indices,
+    service_indices,
 )
 from ..kernels.vtime_scan import StreamState, stream_dense, stream_flat, stream_state, vtime_stream
 
@@ -577,7 +576,7 @@ def _segments(
     idx = None
     if not stream:
         dims = [(vt._cyc[True][i].shape[0], p) for i, p in enumerate(patches)]
-        idx = upload_indices(sample_service_indices(np.random.default_rng(seed), dims, times.size), dev)
+        idx = service_indices(seed, dims, times.size, dev)
     comps = []
     times_t = torch.as_tensor(times, device=dev)
     for s in range(len(segs)):

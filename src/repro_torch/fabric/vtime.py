@@ -36,8 +36,10 @@ Two engines, bit-identical to each other and to ``FabricSim``:
 Service times are presampled request-major (``sample_service_indices``) from
 the profiled per-(patch, block) cycle sample; ``FabricSim`` consumes the
 same helper in the same order, which is what makes the engines
-bit-identical rather than merely statistically equivalent.  Percentiles are
-``np.percentile`` on the host over the exact latencies.
+bit-identical rather than merely statistically equivalent.  VT on a card
+takes the same numbers drawn there (``service_indices``,
+``kernels.service_draw``).  Percentiles are ``np.percentile`` on the host
+over the exact latencies.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from .. import resolve_device
 from ..core.cim.network import NetworkSpec
 from ..core.cim.profile import NetworkProfile
 from ..core.cim.simulate import CLOCK_HZ, Allocation, _layer_patch_cycles
+from ..kernels import service_draw as _draw
 from ..kernels.vtime_scan import vtime_scan
 from .arrivals import ArrivalProcess, ClosedLoop, PoissonOpen, arrival_times
 from .metrics import LatencyStats, latency_stats, percentile_kernel, steady_throughput
@@ -64,6 +67,7 @@ __all__ = [
     "pool_dispatch",
     "pool_dispatch_stream",
     "sample_service_indices",
+    "service_indices",
     "variant_table",
     "VTResult",
     "VirtualTimeFabric",
@@ -581,6 +585,37 @@ def upload_indices(idx, device: torch.device) -> list[torch.Tensor]:
     return [p.view(np.asarray(i).shape) for p, i in zip(parts, idx)]
 
 
+def service_indices(seed: int, dims, n_requests: int, device: torch.device) -> list[torch.Tensor]:
+    """``upload_indices(sample_service_indices(default_rng(seed), dims, n),
+    device)``, the same int32 numbers: on a CUDA device drawn there
+    (``kernels.service_draw``: the layers whose S is a power of two or 1 by
+    the kernel, the others by numpy from their start state and copied with
+    the launch's input), on any other by the host.
+
+    On the card ``vt.draw`` holds the plan, the host's layers and the
+    launch (not mirrored: it encloses a launch), ``vt.upload`` only the
+    host's layers' copy; ``vt.indices`` counts every index,
+    ``vt.indices_device`` those the kernel wrote."""
+    if device.type != "cuda":
+        return upload_indices(sample_service_indices(np.random.default_rng(seed), dims, n_requests), device)
+    tel = get_telemetry()
+    with tel.span("vt.draw"):
+        plan = _draw.draw_plan(seed, dims, n_requests)
+        host = None
+        if plan.host.size:
+            with tel.span("vt.upload"):
+                with tel.span("vt.pack_indices", host=True):
+                    pinned = torch.from_numpy(plan.host).pin_memory()
+                tel.count("vt.upload_bytes", pinned.nbytes)
+                host = pinned.to(device, non_blocking=True)
+        flat = _draw.service_draw(plan, host, torch.empty(plan.total, dtype=torch.int32, device=device))
+    if tel.enabled:
+        tel.count("vt.indices", plan.total)
+        tel.count("vt.indices_device", plan.total - plan.host.size)
+    parts = torch.split(flat, [n * p for n, p in plan.shapes])
+    return [part.view(shape) for part, shape in zip(parts, plan.shapes)]
+
+
 # ----------------------------------------------------------------- results
 @dataclass(frozen=True)
 class VTResult:
@@ -719,7 +754,7 @@ class VirtualTimeFabric:
             xfer = torch.as_tensor(xfer, device=dev)
         t_arr, comp, busy, wait = vtime_scan(
             self._variant_tables(keys),
-            upload_indices(idx, dev),
+            idx,
             torch.as_tensor(variant, device=dev),
             torch.as_tensor(lanes, device=dev),
             n_requests=times.shape[1],
@@ -799,7 +834,10 @@ class VirtualTimeFabric:
             (self._cyc[True][i].shape[0], l.patches_per_image)
             for i, l in enumerate(self.spec.layers)
         ]
-        idx = sample_service_indices(np.random.default_rng(seed), dims, n)
+        if engine == "torch":
+            idx = service_indices(seed, dims, n, self.device)
+        else:
+            idx = sample_service_indices(np.random.default_rng(seed), dims, n)
 
         C = len(allocs)
         L = len(self.spec.layers)

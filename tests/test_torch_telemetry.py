@@ -134,8 +134,8 @@ def _tiny():
     return spec, NetworkProfile("tiny", tuple(layers))
 
 
-RUN_BATCH_TREE = [("vt.arrivals", "vt.run_batch"), ("vt.draw", "vt.run_batch"), ("vt.configs", "vt.run_batch"),
-                  ("vt.pack_indices", "vt.upload"), ("vt.upload", "vt.run_batch"),
+RUN_BATCH_TREE = [("vt.arrivals", "vt.run_batch"), ("vt.draw", "vt.run_batch"),
+                  ("vt.pack_indices", "vt.upload"), ("vt.upload", "vt.run_batch"), ("vt.configs", "vt.run_batch"),
                   ("vt.prepare", "vt.run_batch"), ("vt.wait", "vt.run_batch"),
                   ("vt.percentiles", "vt.run_batch"), ("vt.run_batch", None)]
 
