@@ -53,6 +53,7 @@ from .core.cim import (  # noqa: E402
     run_policy,
     simulate,
     vgg11_cifar10,
+    vit_b16_imagenet,
 )
 
 __all__ = [
@@ -72,4 +73,5 @@ __all__ = [
     "run_policy",
     "simulate",
     "vgg11_cifar10",
+    "vit_b16_imagenet",
 ]

@@ -7,7 +7,11 @@ over 128x128 binary arrays: 8 cells per 8-bit weight means an array holds a
 and therefore input data — is the paper's *block*.
 
 ResNet18 (ImageNet) lowers to 20 conv layers = 5472 arrays in 247 blocks,
-the counts quoted in the paper.
+the counts quoted in the paper.  ViT-B/16 (``vit_b16_imagenet``, not in the
+reference) lowers its patch embedding and each block's four weight products
+to 1x1 layers on the 14x14 token grid: 49 layers, 41,760 arrays in 510
+blocks; its attention's score and value products have no fixed weights and
+stay off the crossbars.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ __all__ = [
     "NetworkSpec",
     "resnet18_imagenet",
     "vgg11_cifar10",
+    "vit",
+    "vit_b16_imagenet",
     "with_array",
 ]
 
@@ -75,6 +81,12 @@ class LayerSpec:
 class NetworkSpec:
     name: str
     layers: tuple[LayerSpec, ...]
+    family: str = ""  # the forward plan the capture plays; empty: the name
+    heads: int = 0  # attention heads a block (a transformer's plan)
+
+    @property
+    def plan(self) -> str:
+        return self.family or self.name
 
     @property
     def n_arrays(self) -> int:
@@ -99,7 +111,7 @@ class NetworkSpec:
 def with_array(spec: NetworkSpec, array: ArrayConfig) -> NetworkSpec:
     """Retarget a network onto a different crossbar geometry / ADC config:
     the lowered matrix shapes are unchanged, the tiling re-derives."""
-    return NetworkSpec(spec.name, tuple(replace(l, array=array) for l in spec.layers))
+    return replace(spec, layers=tuple(replace(l, array=array) for l in spec.layers))
 
 
 def resnet18_imagenet() -> NetworkSpec:
@@ -150,3 +162,23 @@ def vgg11_cifar10() -> NetworkSpec:
         LayerSpec(f"conv{i+1}", 3, cin, cout, hw) for i, (cin, cout, hw) in enumerate(cfg)
     )
     return NetworkSpec("vgg11", layers)
+
+
+def vit(name: str, depth: int, width: int, mlp: int, heads: int, patch: int, image_hw: int) -> NetworkSpec:
+    """A plain ViT's crossbar layers: the patch embedding (a ``patch`` x
+    ``patch`` conv of stride ``patch``), then per block ``qkv``, ``proj``,
+    ``fc1`` and ``fc2`` as 1x1 layers on the token grid.  The class token,
+    the final norm and the head are left out (a global-average-pooled head,
+    as ``resnet18`` and ``vgg11`` leave out their fc layer)."""
+    grid = image_hw // patch
+    layers = [LayerSpec("patch", patch, 3, width, grid, patch)]
+    for b in range(depth):
+        layers += [LayerSpec(f"{b}.qkv", 1, width, 3 * width, grid), LayerSpec(f"{b}.proj", 1, width, width, grid),
+                   LayerSpec(f"{b}.fc1", 1, width, mlp, grid), LayerSpec(f"{b}.fc2", 1, mlp, width, grid)]
+    return NetworkSpec(name, tuple(layers), family="vit", heads=heads)
+
+
+def vit_b16_imagenet() -> NetworkSpec:
+    """ViT-B/16 at 224x224 (Dosovitskiy et al., arXiv:2010.11929, Table 1):
+    12 blocks, width 768, MLP 3072, 12 heads, 196 tokens."""
+    return vit("vit_b16", depth=12, width=768, mlp=3072, heads=12, patch=16, image_hw=224)

@@ -19,6 +19,12 @@ Tensors stay on the device they were made on: a capture on the card derives
 and simulates on the card.  The forward is im2col (``F.unfold``) and
 ``torch.matmul`` in float32 with TF32 off, as in the reference; no
 convolution goes to cuDNN.
+
+A crossbar takes unsigned inputs.  The CNNs' inputs all come after a ReLU;
+a transformer's mostly do not (LayerNorm, attention and GELU outputs), so
+a layer whose input has a negative minimum m takes it as affine uint8: the
+crossbar quantizes x - m, and the periphery adds m * colsum(W) back.  A
+non-negative input has m = 0 and takes the unshifted path, bit for bit.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ __all__ = [
     "PROFILE_ENGINES",
     "capture_activations",
     "derive_profile",
+    "posemb_sincos_2d",
     "profile_network",
     "synthetic_images",
 ]
@@ -175,9 +182,14 @@ class _CaptureTracer:
         self.sampled: list = [None] * len(spec.layers)
 
     def conv(self, idx: int, x: torch.Tensor) -> torch.Tensor:
-        """Quantize -> record stats -> matmul -> (N, Cout, H', W')."""
+        """Shift -> quantize -> record stats -> matmul -> (N, Cout, H', W')."""
         layer = self.spec.layers[idx]
-        pat = torch.relu(_im2col(x, layer))  # (P, rows) float32, >= 0
+        pat = _im2col(x, layer)  # (P, rows) float32
+        m = min(0.0, float(pat.min()))  # the zero point: 0 for a non-negative input
+        _telemetry().count("cim.capture.shifted_layers", float(m < 0.0))
+        if m < 0.0:
+            pat = pat - m
+        pat = torch.relu(pat)  # >= 0; a no-op once shifted
         # per-tensor uint8 quantization: the scale is computed in float64
         # and applied in float32; torch.round rounds half to even, like jnp
         scale = pat.max().to(torch.float64) / 255.0 + 1e-12
@@ -190,6 +202,8 @@ class _CaptureTracer:
         self.rowbits[idx] = rowbits
         self.sampled[idx] = q[self.sel[idx]]
         y = (q.to(torch.float32) * s32) @ self.weights[idx]
+        if m < 0.0:
+            y = y + m * self.weights[idx].sum(dim=0)
         n = x.shape[0]
         return y.reshape(n, layer.out_hw, layer.out_hw, layer.cout).permute(0, 3, 1, 2)
 
@@ -225,7 +239,73 @@ def _forward_vgg11(p: _CaptureTracer, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-_FORWARD = {"resnet18": _forward_resnet18, "vgg11": _forward_vgg11}
+def posemb_sincos_2d(h: int, w: int, width: int, temperature: float = 10_000.0) -> np.ndarray:
+    """The fixed 2-D sin-cos position embedding (big_vision's
+    ``posemb_sincos_2d``): (h * w, width) over the grid in row-major order,
+    [sin(x w), cos(x w), sin(y w), cos(y w)] with w_i = 1 / T^(i / (width/4
+    - 1)), in float64, cast to float32."""
+    y, x = np.mgrid[:h, :w]
+    omega = 1.0 / temperature ** (np.arange(width // 4) / (width // 4 - 1))
+    y = np.outer(y.flatten(), omega)
+    x = np.outer(x.flatten(), omega)
+    return np.concatenate([np.sin(x), np.cos(x), np.sin(y), np.cos(y)], axis=1).astype(np.float32)
+
+
+def _layer_norm(t: torch.Tensor) -> torch.Tensor:
+    """Over the channels of each token: biased variance, eps 1e-6, no
+    affine (its initial gamma 1, beta 0), float32."""
+    mu = t.mean(dim=-1, keepdim=True)
+    var = ((t - mu) ** 2).mean(dim=-1, keepdim=True)
+    return (t - mu) / torch.sqrt(var + 1e-6)
+
+
+def _gelu(t: torch.Tensor) -> torch.Tensor:
+    """Exact GELU, 0.5 x (1 + erf(x / sqrt 2)), in float64 (a division by
+    a tensor: CUDA takes one by a Python scalar as a product by its
+    reciprocal), cast to float32."""
+    x = t.to(torch.float64)
+    root2 = torch.tensor(np.sqrt(2.0), dtype=torch.float64, device=t.device)
+    return (0.5 * x * (1.0 + torch.erf(x / root2))).to(torch.float32)
+
+
+def _forward_vit(p: _CaptureTracer, x: torch.Tensor) -> torch.Tensor:
+    """A pre-LN ViT over the spec's layers: the patch embedding plus the
+    position embedding, then per block x + proj(attention(qkv(LN(x)))) and
+    x + fc2(GELU(fc1(LN(x)))).  Attention's products (softmax(q k^T /
+    sqrt(d)) v per head, float32, the maximum subtracted) have no fixed
+    weights and run off the crossbars; their MACs are counted
+    (``cim.capture.offfabric_macs``)."""
+    y = p.conv(0, x)  # (N, D, g, g)
+    n, d, g, _ = y.shape
+    heads = p.spec.heads
+    dh = d // heads
+    pos = torch.as_tensor(posemb_sincos_2d(g, g, d), device=y.device)
+    tok = y.flatten(2).transpose(1, 2) + pos  # (N, T, D), tokens row-major
+
+    def xb(i, t):  # a crossbar layer over the token grid
+        return p.conv(i, t.transpose(1, 2).reshape(n, -1, g, g)).flatten(2).transpose(1, 2)
+
+    for b in range(1, len(p.spec.layers), 4):
+        qkv = xb(b, _layer_norm(tok))
+        q, k, v = (z.reshape(n, g * g, heads, dh).transpose(1, 2) for z in qkv.split(d, dim=-1))
+        s = (q @ k.transpose(-1, -2)) * dh**-0.5
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        a = (e / e.sum(dim=-1, keepdim=True)) @ v  # (N, heads, T, dh)
+        _telemetry().count("cim.capture.offfabric_macs", 2.0 * n * heads * (g * g) ** 2 * dh)
+        tok = tok + xb(b + 1, a.transpose(1, 2).reshape(n, g * g, d))
+        tok = tok + xb(b + 3, _gelu(xb(b + 2, _layer_norm(tok))))
+    return tok
+
+
+_FORWARD = {"resnet18": _forward_resnet18, "vgg11": _forward_vgg11, "vit": _forward_vit}
+
+
+def _telemetry():
+    """The recorder in force (``fabric.telemetry``, imported at the call:
+    the fabric package imports this one)."""
+    from ...fabric.telemetry import get_telemetry
+
+    return get_telemetry()
 
 
 def capture_activations(
@@ -249,71 +329,76 @@ def capture_activations(
     images first, and are not the reference's numbers.  The patch sample is
     drawn with numpy's ``default_rng(0)`` in layer order, the reference's
     exact draw.  ``batch_images`` bounds device memory (``None`` = one
-    batch)."""
-    if spec.name not in _FORWARD:
+    batch).  The forward plan is the spec's family's (``spec.plan``); the
+    images' size defaults to the first layer's input (``out_hw * stride``).
+    The capture is a span ``cim.capture``, with counters
+    ``cim.capture.shifted_layers`` (layers, a batch, whose input was
+    shifted) and ``cim.capture.offfabric_macs``."""
+    if spec.plan not in _FORWARD:
         raise ValueError(f"no forward plan for {spec.name}")
-    dev = resolve_device(device)
-    # full float32 products: TF32 would move quantized values
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    if (images is None) != (weights is None):
-        raise ValueError("pass both images and weights, or neither")
-    if images is None:
-        if image_hw is None:
-            image_hw = 224 if spec.name == "resnet18" else 32
-        gen = torch.Generator().manual_seed(seed)
-        images = synthetic_images(n_images, image_hw, gen, device=dev)
-        weights = tuple(_kaiming(gen, l.rows, l.cout).to(dev) for l in spec.layers)
-    if images.shape[0] != n_images:
-        raise ValueError(f"{images.shape[0]} images given, n_images={n_images}")
-    if len(weights) != len(spec.layers):
-        raise ValueError(f"{len(weights)} weights for {len(spec.layers)} layers")
-    x = images.to(dev, torch.float32).permute(0, 3, 1, 2)  # NCHW
-    weights = tuple(w.to(dev, torch.float32) for w in weights)
+    with _telemetry().span("cim.capture"):
+        dev = resolve_device(device)
+        # full float32 products: TF32 would move quantized values
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if (images is None) != (weights is None):
+            raise ValueError("pass both images and weights, or neither")
+        if images is None:
+            if image_hw is None:
+                image_hw = spec.layers[0].out_hw * spec.layers[0].stride
+            gen = torch.Generator().manual_seed(seed)
+            images = synthetic_images(n_images, image_hw, gen, device=dev)
+            weights = tuple(_kaiming(gen, l.rows, l.cout).to(dev) for l in spec.layers)
+        if images.shape[0] != n_images:
+            raise ValueError(f"{images.shape[0]} images given, n_images={n_images}")
+        if len(weights) != len(spec.layers):
+            raise ValueError(f"{len(weights)} weights for {len(spec.layers)} layers")
+        x = images.to(dev, torch.float32).permute(0, 3, 1, 2)  # NCHW
+        weights = tuple(w.to(dev, torch.float32) for w in weights)
 
-    # sample patch indices over the FULL calibration run, one rng stream in
-    # layer order (the reference's exact draw sequence)
-    rng = np.random.default_rng(0)
-    sel_global = []
-    for layer in spec.layers:
-        P = n_images * layer.patches_per_image
-        sel_global.append(rng.choice(P, size=min(sample_patches, P), replace=False))
+        # sample patch indices over the FULL calibration run, one rng stream in
+        # layer order (the reference's exact draw sequence)
+        rng = np.random.default_rng(0)
+        sel_global = []
+        for layer in spec.layers:
+            P = n_images * layer.patches_per_image
+            sel_global.append(rng.choice(P, size=min(sample_patches, P), replace=False))
 
-    rowbits = [torch.zeros(l.rows, dtype=torch.int64, device=dev) for l in spec.layers]
-    sampled = [
-        torch.zeros((sg.size, l.rows), dtype=torch.uint8, device=dev)
-        for sg, l in zip(sel_global, spec.layers)
-    ]
-    batch = n_images if batch_images is None else max(1, min(batch_images, n_images))
-    for i0 in range(0, n_images, batch):
-        i1 = min(i0 + batch, n_images)
-        pb_imgs = i1 - i0
-        sel_local, owned = [], []
-        for layer, sg in zip(spec.layers, sel_global):
-            pb = pb_imgs * layer.patches_per_image
-            loc = sg - i0 * layer.patches_per_image
-            owned.append((loc >= 0) & (loc < pb))
-            sel_local.append(torch.as_tensor(np.clip(loc, 0, pb - 1), device=dev))
-        tr = _CaptureTracer(spec, weights, sel_local)
-        _FORWARD[spec.name](tr, x[i0:i1])
-        for li in range(len(spec.layers)):
-            rowbits[li] += tr.rowbits[li]
-            m = owned[li]
-            if m.any():
-                mt = torch.as_tensor(m, device=dev)
-                sampled[li][mt] = tr.sampled[li][mt]
+        rowbits = [torch.zeros(l.rows, dtype=torch.int64, device=dev) for l in spec.layers]
+        sampled = [
+            torch.zeros((sg.size, l.rows), dtype=torch.uint8, device=dev)
+            for sg, l in zip(sel_global, spec.layers)
+        ]
+        batch = n_images if batch_images is None else max(1, min(batch_images, n_images))
+        for i0 in range(0, n_images, batch):
+            i1 = min(i0 + batch, n_images)
+            pb_imgs = i1 - i0
+            sel_local, owned = [], []
+            for layer, sg in zip(spec.layers, sel_global):
+                pb = pb_imgs * layer.patches_per_image
+                loc = sg - i0 * layer.patches_per_image
+                owned.append((loc >= 0) & (loc < pb))
+                sel_local.append(torch.as_tensor(np.clip(loc, 0, pb - 1), device=dev))
+            tr = _CaptureTracer(spec, weights, sel_local)
+            _FORWARD[spec.plan](tr, x[i0:i1])
+            for li in range(len(spec.layers)):
+                rowbits[li] += tr.rowbits[li]
+                m = owned[li]
+                if m.any():
+                    mt = torch.as_tensor(m, device=dev)
+                    sampled[li][mt] = tr.sampled[li][mt]
 
-    layers = tuple(
-        LayerCapture(
-            name=l.name,
-            rowbits=rowbits[i],
-            sampled_q=sampled[i],
-            n_patches=n_images * l.patches_per_image,
-            patches_per_image=l.patches_per_image,
+        layers = tuple(
+            LayerCapture(
+                name=l.name,
+                rowbits=rowbits[i],
+                sampled_q=sampled[i],
+                n_patches=n_images * l.patches_per_image,
+                patches_per_image=l.patches_per_image,
+            )
+            for i, l in enumerate(spec.layers)
         )
-        for i, l in enumerate(spec.layers)
-    )
-    return ActivationCapture(spec.name, n_images, sample_patches, seed, layers)
+        return ActivationCapture(spec.name, n_images, sample_patches, seed, layers)
 
 
 def _resolve_array(spec: NetworkSpec, array: ArrayConfig | None) -> ArrayConfig:

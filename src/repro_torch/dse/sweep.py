@@ -32,7 +32,7 @@ import torch
 
 from .. import resolve_device
 from ..core.cim.cost import DEFAULT_ARRAY, ArrayConfig
-from ..core.cim.network import NetworkSpec, resnet18_imagenet, vgg11_cifar10, with_array
+from ..core.cim.network import NetworkSpec, resnet18_imagenet, vgg11_cifar10, vit_b16_imagenet, with_array
 from ..core.cim.profile import (
     ActivationCapture,
     NetworkProfile,
@@ -66,7 +66,7 @@ __all__ = [
     "clear_caches",
 ]
 
-_SPEC_FNS = {"resnet18": resnet18_imagenet, "vgg11": vgg11_cifar10}
+_SPEC_FNS = {"resnet18": resnet18_imagenet, "vgg11": vgg11_cifar10, "vit_b16": vit_b16_imagenet}
 _CAPTURE_CACHE: dict[tuple, ActivationCapture] = {}
 _PROFILE_CACHE: dict[tuple, tuple[NetworkSpec, NetworkProfile]] = {}
 _SIMULATOR_CACHE: dict[tuple, BatchSimulator] = {}

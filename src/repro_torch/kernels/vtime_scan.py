@@ -148,6 +148,7 @@ class KernelPlan(NamedTuple):
     smem_bytes: int  # dynamic shared memory a block takes
     stages: int  # S: blocks of a config's cluster
     split: tuple  # S + 1 layer indices: stage s runs layers split[s] .. split[s+1] - 1
+    stage_weights: tuple  # S: each stage's sum of the layer weights stage_split balanced
 
 
 def pool_caps(lanes: np.ndarray) -> np.ndarray:
@@ -195,10 +196,6 @@ def stage_split(work, stages: int) -> tuple:
     return tuple([0] + split[::-1])
 
 
-def _stage_work(work, split) -> float:
-    return max(float(np.sum(work[a:b])) for a, b in zip(split[:-1], split[1:]))
-
-
 def kernel_plan(lanes: np.ndarray, blocks, patches, *, jobs=None, stream: bool = False, stages: int | None = None,
                 warps=None, clusters=None) -> KernelPlan:
     """VT's host-side choices for (C, pools) lane counts over layers of
@@ -218,7 +215,8 @@ def kernel_plan(lanes: np.ndarray, blocks, patches, *, jobs=None, stream: bool =
     * the stages: each layer weighs its most jobs times ``job_cycles`` of
       its widest pool, times the pools a consumer warp (or thread) runs in
       turn, plus ``LAYER_CYCLES``; for S stages ``stage_split`` minimises
-      the largest stage's weight, and S is the smallest count that reaches
+      the largest stage's weight (the plan keeps each stage's weight,
+      ``stage_weights``), and S is the smallest count that reaches
       the least such weight over the counts whose C clusters are all
       resident at once (``clusters(S, plan)``: the device's occupancy
       query; with no card, one block an SM of ``SM_COUNT``), so S = 1 when
@@ -257,7 +255,8 @@ def kernel_plan(lanes: np.ndarray, blocks, patches, *, jobs=None, stream: bool =
             stride = max(stride, int(caps[:, q0:q1].sum(axis=1).max(initial=1)))
         smem = 8 * (BUFS * chunk + stride) + rows <= MAX_SMEM - STATIC_SMEM
         return KernelPlan(32 * (consumers + loaders), consumers, loaders, kmax, chunk, stride, smem,
-                          8 * (BUFS * chunk + (stride if smem else 0)) + rows, S, split)
+                          8 * (BUFS * chunk + (stride if smem else 0)) + rows, S, split,
+                          tuple(float(np.sum(work[a:b])) for a, b in zip(split[:-1], split[1:])))
 
     if stages is not None:
         if not 1 <= int(stages) <= min(MAX_STAGES, L):
@@ -268,7 +267,7 @@ def kernel_plan(lanes: np.ndarray, blocks, patches, *, jobs=None, stream: bool =
         plan = shape(S)
         if (clusters(S, plan) if clusters is not None else SM_COUNT // S) < C:
             break
-        if _stage_work(work, plan.split) < _stage_work(work, best.split):
+        if max(plan.stage_weights) < max(best.stage_weights):
             best = plan
     return best
 
@@ -610,7 +609,7 @@ def vtime_scan(
             if attrs is not None:
                 attrs.update(configs=p.variant.shape[0], requests=p.n_requests, stages=k.plan.stages,
                              kmax=k.plan.kmax, threads=k.plan.threads, smem_state=bool(k.plan.smem_state),
-                             job_steps=_job_steps(p))
+                             job_steps=_job_steps(p), stage_weights=list(k.plan.stage_weights))
             out = _launch(k, stats)
     else:
         raise ValueError(f"no kernel for device {p.variant.device}")
