@@ -32,10 +32,11 @@ needs (r, l-1) (its ready time) and (r-1, l) (the pools' state), and a
 closed loop adds (r - concurrency, L-1) before (r, 0); ``critical_path``
 is the longest path through that grid.  So a config's layers run as a
 wavefront: ``kernel_plan`` splits them into S <= 8 contiguous stages
-(``stage_split``, balancing each layer's jobs times the cost a job of its
-widest pool), one block of the config's cluster each, which hand every
-request to the next stage through distributed shared memory.  Arrivals,
-completions and the carried state do not depend on S.
+(balancing each layer's jobs times the cost a job of its widest pool; one
+pass of ``stage_splits``' DP holds every S's split), one block of the
+config's cluster each, which hand every request to the next stage through
+distributed shared memory.  Arrivals, completions and the carried state do
+not depend on S.
 
 ``vtime_stream`` is the second entry of the same source: the fleet's
 streaming replay (the reference's ``_run_stream_kernel``,
@@ -79,6 +80,7 @@ __all__ = [
     "kernel_plan",
     "pool_caps",
     "stage_split",
+    "stage_splits",
     "stream_dense",
     "stream_flat",
     "stream_state",
@@ -148,7 +150,7 @@ class KernelPlan(NamedTuple):
     smem_bytes: int  # dynamic shared memory a block takes
     stages: int  # S: blocks of a config's cluster
     split: tuple  # S + 1 layer indices: stage s runs layers split[s] .. split[s+1] - 1
-    stage_weights: tuple  # S: each stage's sum of the layer weights stage_split balanced
+    stage_weights: tuple  # S: each stage's sum of the layer weights the split balanced
 
 
 def pool_caps(lanes: np.ndarray) -> np.ndarray:
@@ -168,32 +170,54 @@ def job_cycles(cap: int) -> float:
     return JOB_CYCLES[cap] if cap in JOB_CYCLES else 40.0 * cap / 32
 
 
+def stage_splits(work, most: int):
+    """Every split of layers with ``work`` into 1 to ``most`` contiguous
+    non-empty stages whose largest sum of work is least, from one pass of
+    the linear-partition DP: the table for k stages depends only on the one
+    for k - 1, so a pass to ``most`` stages keeps each k's cuts.  Returns
+    ``split(S)``, which reads back the split into S <= ``most`` stages (among
+    equal splits, the earliest boundaries): a tuple of S + 1 indices from 0
+    to len(work).  Counters ``vt.split_passes`` (a pass) and
+    ``vt.split_reads`` (a split read)."""
+    w = np.asarray(work, dtype=np.float64)
+    L, most = len(w), int(most)
+    if not 1 <= most <= L:
+        raise ValueError(f"{most} stages for {L} layers")
+    tel = _telemetry()
+    tel.count("vt.split_passes")
+    pre = np.concatenate([[0.0], np.cumsum(w)])
+    last = pre[1:, None] - pre[None, 1:]  # [i, j]: layers j+1 .. i, the last stage after a cut at j
+    last[np.triu_indices(L)] = np.inf  # j >= i leaves the last stage no layer
+    rows = np.arange(L)
+    best = pre[1:].copy()  # best[i]: the least largest stage over layers 0..i in k stages
+    cuts = [np.zeros(L, dtype=np.int64)]
+    for _ in range(1, most):
+        v = np.maximum(best[None, :], last)
+        j = np.argmin(v, axis=1)  # the first least: the earliest cut among equal splits
+        # rows i < k - 1 cannot hold k stages: their best stays inf, so no
+        # feasible row's least cuts there, and reading back never reaches them
+        best = v[rows, j]
+        cuts.append(j + 1)
+
+    def split(S: int) -> tuple:
+        S = int(S)
+        if not 1 <= S <= most:
+            raise ValueError(f"{S} stages for {L} layers")
+        tel.count("vt.split_reads")
+        out, i = [L], L - 1
+        for k in range(S - 1, 0, -1):
+            out.append(int(cuts[k][i]))
+            i = out[-1] - 1
+        return tuple([0] + out[::-1])
+
+    return split
+
+
 def stage_split(work, stages: int) -> tuple:
     """The split of layers with ``work`` into ``stages`` contiguous non-empty
-    stages whose largest sum of work is least (a linear-partition DP; among
-    equal splits, the earliest boundaries): a tuple of stages + 1 indices
-    from 0 to len(work)."""
-    w = np.asarray(work, dtype=np.float64)
-    L, S = len(w), int(stages)
-    if not 1 <= S <= L:
-        raise ValueError(f"{S} stages for {L} layers")
-    pre = np.concatenate([[0.0], np.cumsum(w)])
-    best = pre[1:].copy()  # best[i]: the least largest stage over layers 0..i in k stages
-    cut = [np.zeros(L, dtype=np.int64)]
-    for _ in range(1, S):
-        nb, nc = np.full(L, np.inf), np.zeros(L, dtype=np.int64)
-        for i in range(L):
-            for j in range(i):  # the last stage is layers j+1 .. i
-                v = max(best[j], pre[i + 1] - pre[j + 1])
-                if v < nb[i]:
-                    nb[i], nc[i] = v, j + 1
-        best = nb
-        cut.append(nc)
-    split, i = [L], L - 1
-    for k in range(S - 1, 0, -1):
-        split.append(int(cut[k][i]))
-        i = split[-1] - 1
-    return tuple([0] + split[::-1])
+    stages whose largest sum of work is least (``stage_splits``' split of
+    ``stages``): a tuple of stages + 1 indices from 0 to len(work)."""
+    return stage_splits(work, stages)(stages)
 
 
 def kernel_plan(lanes: np.ndarray, blocks, patches, *, jobs=None, stream: bool = False, stages: int | None = None,
@@ -214,11 +238,13 @@ def kernel_plan(lanes: np.ndarray, blocks, patches, *, jobs=None, stream: bool =
       at least the widest layer's pools), ``BUFS`` of them;
     * the stages: each layer weighs its most jobs times ``job_cycles`` of
       its widest pool, times the pools a consumer warp (or thread) runs in
-      turn, plus ``LAYER_CYCLES``; for S stages ``stage_split`` minimises
-      the largest stage's weight (the plan keeps each stage's weight,
-      ``stage_weights``), and S is the smallest count that reaches
-      the least such weight over the counts whose C clusters are all
-      resident at once (``clusters(S, plan)``: the device's occupancy
+      turn, plus ``LAYER_CYCLES``; for S stages the split minimises the
+      largest stage's weight (the plan keeps each stage's weight,
+      ``stage_weights``), every S's split read from one ``stage_splits``
+      pass up to min(``MAX_STAGES``, L) stages (``stages`` when forced),
+      and S is the smallest count that reaches the least such weight over
+      the counts whose C clusters are all resident at once
+      (``clusters(S, plan)``: the device's occupancy
       query; with no card, one block an SM of ``SM_COUNT``), so S = 1 when
       C fills the card.  ``stages`` forces S (tests and measurements only);
     * the pool state of a stage (``pool_caps`` summed over its pools, the
@@ -246,9 +272,12 @@ def kernel_plan(lanes: np.ndarray, blocks, patches, *, jobs=None, stream: bool =
             * max(1, -(-wide[l] // consumers), -(-small[l] // (32 * consumers))) + LAYER_CYCLES for l in range(L)]
     chunk = max(max(blocks), min(CHUNK, max(b * p for b, p in zip(blocks, patches))))
     rows = 4 * ROWS * loaders if stream else 0
+    if stages is not None and not 1 <= int(stages) <= min(MAX_STAGES, L):
+        raise ValueError(f"{stages} stages: 1 to {min(MAX_STAGES, L)} for {L} layers")
+    splits = stage_splits(work, min(MAX_STAGES, L) if stages is None else int(stages))
 
     def shape(S):
-        split = stage_split(work, S)
+        split = splits(S)
         stride = 1
         for a, b in zip(split[:-1], split[1:]):
             q0, q1 = offs[a], offs[b - 1] + blocks[b - 1]
@@ -259,8 +288,6 @@ def kernel_plan(lanes: np.ndarray, blocks, patches, *, jobs=None, stream: bool =
                           tuple(float(np.sum(work[a:b])) for a, b in zip(split[:-1], split[1:])))
 
     if stages is not None:
-        if not 1 <= int(stages) <= min(MAX_STAGES, L):
-            raise ValueError(f"{stages} stages: 1 to {min(MAX_STAGES, L)} for {L} layers")
         return shape(int(stages))
     best = shape(1)
     for S in range(2, min(MAX_STAGES, L) + 1):

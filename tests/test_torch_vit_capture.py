@@ -37,7 +37,7 @@ import pytest
 import torch
 
 import repro_torch as T
-from repro_torch.core.cim import DEFAULT_ARRAY, LayerCapture, LayerSpec, NetworkSpec
+from repro_torch.core.cim import DEFAULT_ARRAY, LayerSpec, NetworkSpec
 from repro_torch.core.cim import profile as TP
 from repro_torch.core.cim.network import vit
 from repro_torch.dse import sweep as TS
@@ -313,17 +313,10 @@ def test_small_vit_through_the_closed_query_check(monkeypatch):
 
 
 def _vit_b16_lanes():
-    spec = T.vit_b16_imagenet()
-    rng = np.random.default_rng(0)
-    caps = [LayerCapture(l.name, torch.zeros(l.rows, dtype=torch.int64),
-                         torch.as_tensor(rng.integers(0, 256, (16, l.rows)), dtype=torch.uint8),
-                         l.patches_per_image, l.patches_per_image) for l in spec.layers]
-    cap = T.ActivationCapture(spec.name, 1, 16, 0, tuple(caps))
-    prof = T.derive_profile(cap, spec)
-    from repro_torch.fabric.vtime import pool_lanes
+    from test_torch_vtime import policy_lanes
 
-    pes = 2 * spec.min_pes()
-    return spec, np.stack([pool_lanes(spec, T.allocate(spec, prof, p, pes)) for p in T.POLICIES])
+    spec = T.vit_b16_imagenet()
+    return spec, policy_lanes(spec)
 
 
 def test_stage_weights_are_the_split_stage_split_balanced():

@@ -17,6 +17,7 @@ The card-only cases (marker ``cuda``) hold VT against its plain version and
 need neither jax nor the reference.
 """
 
+import functools
 import importlib
 
 import numpy as np
@@ -259,7 +260,7 @@ _TWO = np.array([[1, 3, 3, 1, 50], [1, 1, 1, 1, 1]])
     (np.array([[700]]), [1], [64], {}, dict(threads=96, consumer_warps=1, kmax=32, chunk=64, state_stride=1024)),
 ], ids=["small+wide", "one-stage", "36-wide", "36-wide-no-card", "stream", "kmax16", "kmax16-stats", "global-state",
         "f8"])
-def test_kernel_plan(lanes, blocks, patches, kw, want):
+def test_kernel_plan(lanes, blocks, patches, kw, want, monkeypatch):
     """Consumer warps with a thread for each small pool of the layer that has
     most and a warp for each pool of more than 8 servers in the layer with
     most, within the build's warps (``warps(kmax)``, the card's answer for
@@ -270,6 +271,7 @@ def test_kernel_plan(lanes, blocks, patches, kw, want):
     layers by their weight."""
     plan = kernel_plan(lanes, blocks, patches, **kw)
     assert {k: getattr(plan, k) for k in want} == want
+    assert plan == _per_s_plan(monkeypatch, lanes, blocks, patches, **kw)
 
 
 def test_pool_caps_and_limits():
@@ -315,6 +317,137 @@ def test_stage_split_matches_brute_force(seed):
         stage_split(work, L + 1)
 
 
+def _split_dp_ref(work, stages: int) -> tuple:
+    """The linear-partition DP rerun from one stage for the S asked, a
+    Python double loop (``stage_split`` before ``stage_splits``): the
+    one-pass splits' reference, ties included."""
+    w = np.asarray(work, dtype=np.float64)
+    L, S = len(w), int(stages)
+    if not 1 <= S <= L:
+        raise ValueError(f"{S} stages for {L} layers")
+    pre = np.concatenate([[0.0], np.cumsum(w)])
+    best = pre[1:].copy()  # best[i]: the least largest stage over layers 0..i in k stages
+    cut = [np.zeros(L, dtype=np.int64)]
+    for _ in range(1, S):
+        nb, nc = np.full(L, np.inf), np.zeros(L, dtype=np.int64)
+        for i in range(L):
+            for j in range(i):  # the last stage is layers j+1 .. i
+                v = max(best[j], pre[i + 1] - pre[j + 1])
+                if v < nb[i]:
+                    nb[i], nc[i] = v, j + 1
+        best = nb
+        cut.append(nc)
+    split, i = [L], L - 1
+    for k in range(S - 1, 0, -1):
+        split.append(int(cut[k][i]))
+        i = split[-1] - 1
+    return tuple([0] + split[::-1])
+
+
+def _per_s_plan(monkeypatch, *args, **kw):
+    """``kernel_plan`` with ``_split_dp_ref`` in the one pass's place: the
+    DP rerun for each S the plan tries."""
+    from repro_torch.kernels import vtime_scan as vtk
+
+    with monkeypatch.context() as m:
+        m.setattr(vtk, "stage_splits", lambda work, most: functools.partial(_split_dp_ref, work))
+        return kernel_plan(*args, **kw)
+
+
+def policy_lanes(spec):
+    """(5, pools) VT's lanes of the five policies at twice ``spec``'s
+    minimum PEs, from a synthetic capture (row minima 0, 16 random uint8
+    samples a layer): a deployment's shape without a forward pass."""
+    from repro_torch.core.cim import LayerCapture
+    from repro_torch.fabric.vtime import pool_lanes
+
+    rng = np.random.default_rng(0)
+    caps = [LayerCapture(l.name, torch.zeros(l.rows, dtype=torch.int64),
+                         torch.as_tensor(rng.integers(0, 256, (16, l.rows)), dtype=torch.uint8),
+                         l.patches_per_image, l.patches_per_image) for l in spec.layers]
+    prof = T.derive_profile(T.ActivationCapture(spec.name, 1, 16, 0, tuple(caps)), spec)
+    pes = 2 * spec.min_pes()
+    return np.stack([pool_lanes(spec, T.allocate(spec, prof, p, pes)) for p in T.POLICIES])
+
+
+@functools.cache
+def _policy_problem(net: str):
+    """(lanes, blocks, patches) of ``net``'s five policies."""
+    spec = {"resnet18": T.resnet18_imagenet, "vgg11": T.vgg11_cifar10, "vit_b16": T.vit_b16_imagenet}[net]()
+    return policy_lanes(spec), [l.n_blocks for l in spec.layers], [l.patches_per_image for l in spec.layers]
+
+
+def _vit_b16_work():
+    """The layer weights ``kernel_plan`` splits for ViT-B/16's five policies
+    (49 layers weighing nearly alike: ties abound)."""
+    from repro_torch.kernels import vtime_scan as vtk
+
+    seen, one_pass = [], vtk.stage_splits
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(vtk, "stage_splits", lambda work, most: seen.append(list(work)) or one_pass(work, most))
+        kernel_plan(*_policy_problem("vit_b16"))
+    return seen[0]
+
+
+@pytest.mark.parametrize("kind", ["random", "few-values", "equal", "vit_b16"])
+def test_stage_splits_match_the_per_s_dp(kind):
+    """One ``stage_splits`` pass gives, for every S from 1 to min(8, L), the
+    split the DP rerun for that S gives, for L from 1 to 64: random integer
+    works, works of three values and equal works (many equal splits: the
+    earliest boundaries win), and ViT-B/16's 49-layer work."""
+    from repro_torch.kernels.vtime_scan import stage_splits
+
+    rng = np.random.default_rng(11)
+    if kind == "vit_b16":
+        works = [_vit_b16_work()]
+        assert len(works[0]) == 49 and len(set(works[0])) < 49
+    else:
+        works = [rng.integers(1, 1000, L) if kind == "random" else rng.integers(1, 4, L) if kind == "few-values"
+                 else np.full(L, 7) for L in range(1, 65)]
+    for work in works:
+        L = len(work)
+        split = stage_splits(work, min(8, L))
+        assert [split(S) for S in range(1, min(8, L) + 1)] == [_split_dp_ref(work, S) for S in range(1, min(8, L) + 1)]
+        with pytest.raises(ValueError):
+            split(min(8, L) + 1)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(stream=True), dict(stages=3), dict(cap=2), dict(cap=4), dict(cap=8)],
+                         ids=["free", "stream", "stages3", "clusters2", "clusters4", "clusters8"])
+@pytest.mark.parametrize("net", ["vit_b16", "resnet18", "vgg11"])
+def test_kernel_plan_equals_the_per_s_dp(net, kw, monkeypatch):
+    """Every field of ``kernel_plan``'s plan (split, stage weights, S, state
+    stride, shared memory) is the plan the DP rerun for each S gives, on
+    the five policies' lanes of each network: free, streaming, at a forced
+    S, and with the resident clusters capping S at ``cap``."""
+    lanes, blocks, patches = _policy_problem(net)
+    kw = dict(kw)
+    cap = kw.pop("cap", None)
+    if cap is not None:
+        kw["clusters"] = lambda S, plan: len(lanes) if S <= cap else 0
+    plan = kernel_plan(lanes, blocks, patches, **kw)
+    assert plan == _per_s_plan(monkeypatch, lanes, blocks, patches, **kw)
+    assert cap is None or plan.stages <= cap
+
+
+@pytest.mark.parametrize("kw, tried", [({}, 8), (dict(clusters=lambda S, plan: 3 if S <= 2 else 0), 3),
+                                       (dict(stages=3), 1)], ids=["every-S", "capped", "forced"])
+def test_split_counters(kw, tried):
+    """One ``kernel_plan`` call makes one DP pass (``vt.split_passes``) and
+    reads a split from it for each S it tries (``vt.split_reads``); with
+    telemetry off neither is recorded."""
+    from repro_torch.fabric import telemetry as TM
+
+    lanes, blocks, patches = np.full((3, 12), 4), [1] * 12, [100] * 12
+    with TM.telemetry_session() as tel:
+        kernel_plan(lanes, blocks, patches, **kw)
+    assert tel.counters == {"vt.split_passes": 1.0, "vt.split_reads": float(tried)}
+    before = dict(TM.PROFILER_TELEMETRY.counters)
+    assert TM.get_telemetry() is TM.NULL_TELEMETRY
+    kernel_plan(lanes, blocks, patches, **kw)
+    assert TM.PROFILER_TELEMETRY.counters == before and not TM.NULL_TELEMETRY.counters
+
+
 def test_stage_count_chosen_and_capped():
     """S is the smallest count that reaches the least largest stage; it is
     capped by the resident clusters (``clusters``: the card's occupancy
@@ -340,8 +473,6 @@ def test_stage_count_chosen_and_capped():
 def _brute_path(w, N, conc):
     """The longest path through the (r, l) DAG by memoised recursion over
     its edges: (r-1, l), (r, l-1) and, closed loop, (r-conc, L-1) -> (r, 0)."""
-    import functools
-
     L = len(w)
 
     @functools.cache
@@ -451,8 +582,6 @@ def _card():
 def force_stages(monkeypatch):
     """Make every VT launch of the test run at S stages (``kernel_plan``'s
     explicit count, which no entry point exposes)."""
-    import functools
-
     from repro_torch.kernels import vtime_scan as vtk
 
     def force(S):
