@@ -1816,19 +1816,19 @@ def vt_work(args, kw):
     arrivals and transfers read once and the outputs written once; the
     operations are, per job and pool with d servers, one add and d max + d
     min (pools without servers do none)."""
-    tables, idx, variant, lanes = args
+    import numpy as np
+
+    tables, idx, patches, variant, lanes = args
     n = kw["n_requests"]
-    C = variant.shape[0]
-    patches = [int(i.shape[1]) for i in idx]
-    nbytes = sum(t.numel() * 8 for t in tables) + sum(i.numel() * 4 for i in idx) + lanes.numel() * 4 + C * 4
+    C = len(variant)
+    ln = np.asarray(lanes, dtype=np.int64)
+    nbytes = tables.flat.numel() * 8 + idx.numel() * 4 + ln.size * 4 + C * 4
     for key in ("arrivals", "xfer"):
         if kw.get(key) is not None:
             nbytes += kw[key].numel() * 8
-    nbytes += 2 * C * n * 8 + (2 * C * len(idx) * 8 if kw.get("collect_stats") else 0)
+    nbytes += 2 * C * n * 8 + (2 * C * len(patches) * 8 if kw.get("collect_stats") else 0)
     ops, off = 0, 0
-    ln = lanes.cpu().long()
-    for t, p in zip(tables, patches):
-        b = t.shape[2]
+    for b, p in zip(tables.blocks, patches):
         d = ln[:, off : off + b]
         off += b
         ops += n * p * int(((1 + 2 * d) * (d > 0)).sum())
@@ -1842,6 +1842,8 @@ def vt_numbers(call, chain_ns, reps):
     memory's rate.  The old serial chain (every job of the longest config
     one after another at one add + min) is kept beside it.  No launch may
     read below its bound."""
+    import numpy as np
+
     from repro_torch.kernels import vtime_scan as vtk
 
     args, kw = call
@@ -1853,16 +1855,15 @@ def vt_numbers(call, chain_ns, reps):
     kernel_ms = timed(lambda: vtk._launch(packed, stats), reps=reps)
     vtk.vtime_scan.launches = saved
     nbytes, ops = vt_work(args, kw)
-    lanes = args[3].cpu().numpy()
-    blocks = [t.shape[2] for t in args[0]]
-    patches = [int(i.shape[1]) for i in args[1]]
+    lanes = np.asarray(args[4])
+    blocks, patches = list(args[0].blocks), list(args[2])
     crit_steps, crit_ns, steps = vt_paths(lanes, blocks, patches, kw["n_requests"], kw.get("concurrency"), chain_ns)
     chain_ms, serial_ms = crit_ns * 1e-6, steps * chain_ns[0] * 1e-6
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     out = dict(ms=ms, kernel_ms=kernel_ms, steps=steps, crit_steps=crit_steps, nbytes=nbytes, ops=ops,
                chain_ms=chain_ms, serial_ms=serial_ms, bytes_ms=bytes_ms, ops_ms=ops / FP64_OPS_PER_S * 1e3,
                bound_ms=max(chain_ms, bytes_ms), bound_by="operations" if chain_ms >= bytes_ms else "bytes",
-               configs=args[2].shape[0], plan=packed.plan, stage_jobs=stage_jobs(packed.plan, patches))
+               configs=len(args[3]), plan=packed.plan, stage_jobs=stage_jobs(packed.plan, patches))
     check(kernel_ms >= out["bound_ms"], f"VT read {kernel_ms:.4f} ms, below its bound {out['bound_ms']:.4f} ms")
     return out
 
@@ -1901,14 +1902,13 @@ def vt_lane_costs(gpu, dev, clock_hz):
     rng = np.random.default_rng(7)
 
     def ms_of(L, P, d, n=100):
-        tables = [torch.as_tensor(rng.integers(20, 400, (1, 128, 1)).astype(np.float64), device=dev)
-                  for _ in range(L)]
-        idx = [torch.as_tensor(rng.integers(0, 128, (n, P)), dtype=torch.int32, device=dev) for _ in range(L)]
-        lanes = torch.full((1, L), d, dtype=torch.int32, device=dev)
+        tables = vtk.vt_tables([torch.as_tensor(rng.integers(20, 400, (1, 128, 1)).astype(np.float64), device=dev)
+                                for _ in range(L)])
+        idx = torch.as_tensor(np.concatenate([rng.integers(0, 128, n * P) for _ in range(L)]).astype(np.int32),
+                              device=dev)
         arr = torch.as_tensor(np.cumsum(rng.exponential(1e4, (1, n)), axis=1), device=dev)
         saved = vtk.vtime_scan.launches
-        packed = vtk._pack(vtk._prepare(tables, idx, torch.zeros(1, dtype=torch.int32, device=dev), lanes, n, arr,
-                                        None, None))
+        packed = vtk._pack(vtk._prepare(tables, idx, [P] * L, np.zeros(1), np.full((1, L), d), n, arr, None, None))
         if L > 1:  # one stage, so that the (request, layer) cost is not shared out among stages
             packed = packed._replace(plan=vtk.kernel_plan(np.full((1, L), d), [1] * L, [P] * L, stages=1))
         ms = timed(lambda: vtk._launch(packed, False), reps=3)
@@ -1962,7 +1962,7 @@ def draw_numbers(gpu, dev, seed=3_000_000_019, reps=20):
             return service_indices(seed, dims, n, dev)
 
         want, got = plain(), card()
-        check(all(torch.equal(g, w) for g, w in zip(got, want)), f"{label}: the card's draw != the host's")
+        check(torch.equal(got, want), f"{label}: the card's draw != the host's")
         plan = sd.draw_plan(seed, dims, n)
         host = torch.from_numpy(plan.host).to(dev) if plan.host.size else None
         flat = torch.empty(plan.total, dtype=torch.int32, device=dev)
@@ -1976,7 +1976,7 @@ def draw_numbers(gpu, dev, seed=3_000_000_019, reps=20):
         check(sd.service_draw.launches == before + reps, f"{label}: {sd.service_draw.launches - before} launches")
         kernel_ms = sum(ms for name, ms in by_name.items() if "service_draw_kernel" in name) / reps
         check(kernel_ms > 0, f"{label}: no service_draw_kernel in the trace")
-        err = int((flat - torch.cat([w.reshape(-1) for w in want])).abs().max())
+        err = int((flat - want).abs().max())
         check(err == 0, f"{label}: the launch != the host's (max abs diff {err})")
         nbytes = 4 * plan.total + 4 * plan.host.size
         bound_ms = nbytes / 3.35e12 * 1e3
@@ -2193,7 +2193,7 @@ def fabric_phase(gpu, dev):
           f"staged {staged_s:.3f} s, host scalar {scalar_s:.3f} s for {len(pick)} rows")
     print(f"{gpu}: fused sweep with its fabric stage under torch.profiler: window {win_ms:.3f} ms, device busy "
           f"{share:.4f} (idle {1 - share:.4f}); top device time: " + "; ".join(f"{n[:50]} {t:.3f} ms" for n, t in top))
-    fused_n = vt_numbers(max(rec.calls, key=lambda c: c[0][2].shape[0]), chain_ns, reps=5)
+    fused_n = vt_numbers(max(rec.calls, key=lambda c: len(c[0][3])), chain_ns, reps=5)
     vt_line(gpu, "fused fabric stage (largest group)", fused_n)
     out["fused"] = fused_n
     out["fused_busy"] = share
@@ -2311,21 +2311,20 @@ def stream_work(args, kw):
     import numpy as np
 
     tables, variant, lanes, carry = args
-    n = kw["n_requests"]
-    patches = [int(i.shape[1]) for i in kw["idx"]] if kw.get("idx") is not None else list(kw["patches"])
-    plans = np.ones((variant.shape[0], len(tables), 2), dtype=np.int64) * np.array([1, 0]) \
-        if kw.get("plans") is None else np.broadcast_to(np.asarray(kw["plans"]), (variant.shape[0], len(tables), 2))
+    n, C, L = kw["n_requests"], len(variant), len(tables.blocks)
+    patches = list(kw["patches"])
+    plans = np.ones((C, L, 2), dtype=np.int64) * np.array([1, 0]) \
+        if kw.get("plans") is None else np.broadcast_to(np.asarray(kw["plans"]), (C, L, 2))
     jobs = plans[..., 1] + np.asarray(patches)[None, :] - plans[..., 1] * plans[..., 0]  # (C, L)
-    nbytes = sum(t.numel() * 8 for t in tables) + lanes.numel() * 4 + variant.numel() * 4
+    ln = np.asarray(lanes, dtype=np.int64)
+    nbytes = tables.flat.numel() * 8 + ln.size * 4 + C * 4
     nbytes += 2 * sum(t.numel() * 8 for t in carry)
     if kw.get("arrivals") is not None:
-        nbytes += variant.shape[0] * n * 8
+        nbytes += C * n * 8
     if kw.get("emit"):
-        nbytes += 2 * variant.shape[0] * n * 8
-    ln = lanes.cpu().long().numpy()
+        nbytes += 2 * C * n * 8
     ops, off = 0, 0
-    for li, t in enumerate(tables):
-        b = t.shape[2]
+    for li, b in enumerate(tables.blocks):
         d = ln[:, off : off + b]
         off += b
         ops += int((n * jobs[:, li] * ((1 + 2 * d) * (d > 0)).sum(axis=1)).sum())
@@ -2338,6 +2337,8 @@ def stream_numbers(call, chain_ns, ms, kernel_ms):
     critical path (``vt_paths`` over the plans' jobs) and the bytes at the
     memory's rate, and the old serial chain.  No launch may read below its
     bound."""
+    import numpy as np
+
     from repro_torch.kernels import vtime_scan as vtk
 
     args, kw = call
@@ -2347,13 +2348,13 @@ def stream_numbers(call, chain_ns, ms, kernel_ms):
                             kw.get("idx"), kw.get("plans"), kw.get("r0", 0), kw.get("arrivals"),
                             kw.get("concurrency"), kw.get("xfer"), kw.get("sketch", (32, 0)))
     plan = vtk._stream_plan(p)
-    crit_steps, crit_ns, steps = vt_paths(lanes.cpu().numpy(), [t.shape[2] for t in tables], jobs,
+    crit_steps, crit_ns, steps = vt_paths(np.asarray(lanes), list(tables.blocks), jobs,
                                           kw["n_requests"], kw.get("concurrency"), chain_ns)
     chain_ms, serial_ms, bytes_ms = crit_ns * 1e-6, steps * chain_ns[0] * 1e-6, nbytes / HBM_BYTES_PER_S * 1e3
     out = dict(ms=ms, kernel_ms=kernel_ms, steps=steps, crit_steps=crit_steps, nbytes=nbytes, ops=ops,
                chain_ms=chain_ms, serial_ms=serial_ms, bytes_ms=bytes_ms, bound_ms=max(chain_ms, bytes_ms),
                bound_by="operations" if chain_ms >= bytes_ms else "bytes", n=kw["n_requests"],
-               configs=variant.shape[0], plan=plan, stage_jobs=stage_jobs(plan, jobs))
+               configs=len(variant), plan=plan, stage_jobs=stage_jobs(plan, jobs))
     check(kernel_ms >= out["bound_ms"],
           f"vtime_stream read {kernel_ms:.3f} ms, below its bound {out['bound_ms']:.3f} ms")
     return out
@@ -2368,21 +2369,25 @@ def stream_vs_plain(call, n):
     largest difference, the plain version's seconds)."""
     import torch
 
-    from repro_torch.kernels.vtime_scan import vtime_stream as vs, vtime_stream_ref as vs_plain
+    from repro_torch.kernels.vtime_scan import StreamState, VTTables, vtime_stream as vs, vtime_stream_ref as vs_plain
 
     args, kw = call
     kw = dict(kw, n_requests=n, emit=True)
     if kw.get("arrivals") is not None:
         kw["arrivals"] = kw["arrivals"][:, :n]
-    if kw.get("idx") is not None:
-        kw["idx"] = [i[:n] for i in kw["idx"]]
     saved = vs.launches
     got_c, got_y = vs(*args, **kw)
     vs.launches = saved
-    to_host = lambda x: [t.cpu() for t in x] if isinstance(x, list) else x.cpu()
-    args_h = [type(a)(*(t.cpu() for t in a)) if hasattr(a, "_fields") else to_host(a) for a in args]
-    kw_h = {k: to_host(v) if isinstance(v, torch.Tensor) or (isinstance(v, list) and k == "idx") else v
-            for k, v in kw.items()}
+
+    def to_host(x):
+        if isinstance(x, VTTables):
+            return x._replace(flat=x.flat.cpu(), tbl_off=x.tbl_off.cpu())
+        if isinstance(x, StreamState):
+            return StreamState(*(t.cpu() for t in x))
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    args_h = [to_host(a) for a in args]
+    kw_h = {k: to_host(v) for k, v in kw.items()}
     t0 = time.perf_counter()
     want_c, want_y = vs_plain(*args_h, **kw_h)
     plain_s = time.perf_counter() - t0

@@ -126,12 +126,11 @@ def main() -> int:
     def cycles(d, pools=1, P=1024, n=60, seed=7):
         """cycles a job step of one layer of ``pools`` pools of d servers, one config"""
         rng = np.random.default_rng(seed)
-        tables = [torch.as_tensor(rng.integers(20, 400, (1, 128, pools)).astype(np.float64), device=dev)]
-        idx = [torch.as_tensor(rng.integers(0, 128, (n, P)), dtype=torch.int32, device=dev)]
-        lanes = torch.full((1, pools), d, dtype=torch.int32, device=dev)
+        tables = vtk.vt_tables([torch.as_tensor(rng.integers(20, 400, (1, 128, pools)).astype(np.float64),
+                                                device=dev)])
+        idx = torch.as_tensor(rng.integers(0, 128, n * P).astype(np.int32), device=dev)
         arr = torch.as_tensor(np.cumsum(rng.exponential(1e4, (1, n)), axis=1), device=dev)
-        packed = vtk._pack(vtk._prepare(tables, idx, torch.zeros(1, dtype=torch.int32, device=dev), lanes, n,
-                                        arr, None, None))
+        packed = vtk._pack(vtk._prepare(tables, idx, [P], np.zeros(1), np.full((1, pools), d), n, arr, None, None))
         return timed(lambda: vtk._launch(packed, False)) * 1e-3 * clock / (n * P)
 
     def many(C, top, seed=3, n=40):
@@ -139,14 +138,14 @@ def main() -> int:
         pools of 1 to ``top`` servers"""
         rng = np.random.default_rng(seed)
         shapes = [(64, int(rng.integers(4, 17)), int(rng.integers(16, 513))) for _ in range(8)]
-        tables = [torch.as_tensor(rng.integers(20, 400, (1, s, b)).astype(np.float64), device=dev)
-                  for s, b, _ in shapes]
-        idx = [torch.as_tensor(rng.integers(0, s, (n, p)), dtype=torch.int32, device=dev) for s, _, p in shapes]
-        lanes = torch.as_tensor(rng.integers(1, top + 1, (C, sum(b for _, b, _ in shapes))), dtype=torch.int32,
-                                device=dev)
+        tables = vtk.vt_tables([torch.as_tensor(rng.integers(20, 400, (1, s, b)).astype(np.float64), device=dev)
+                                for s, b, _ in shapes])
+        idx = torch.as_tensor(np.concatenate([rng.integers(0, s, (n, p)).ravel() for s, _, p in shapes])
+                              .astype(np.int32), device=dev)
+        lanes = rng.integers(1, top + 1, (C, sum(b for _, b, _ in shapes)))
         arr = torch.as_tensor(np.cumsum(rng.exponential(1e5, (C, n)), axis=1), device=dev)
-        packed = vtk._pack(vtk._prepare(tables, idx, torch.zeros(C, dtype=torch.int32, device=dev), lanes, n,
-                                        arr, None, None))
+        packed = vtk._pack(vtk._prepare(tables, idx, [p for _, _, p in shapes], np.zeros(C), lanes, n, arr, None,
+                                        None))
         return timed(lambda: vtk._launch(packed, False)), packed.plan.stages, packed.plan.kmax
 
     # F8's launch and two streaming launches, recorded from the fabric's
@@ -181,7 +180,7 @@ def main() -> int:
     vtk._stream_launch = real_stream
     torch.cuda.synchronize()
     print(f"F8: {calls['f8'][0].p.variant.shape[0]} configs x {calls['f8'][0].p.n_requests} requests; streams: "
-          + ", ".join(f"{k} {calls[k][0].n_requests} requests x {calls[k][0].variant.shape[0]} configs"
+          + ", ".join(f"{k} {calls[k][0].p.n_requests} requests x {calls[k][0].p.variant.shape[0]} configs"
                       for k in ("exact", "coarse")), flush=True)
     stream_argtypes = vtk._stream_launcher().argtypes
 

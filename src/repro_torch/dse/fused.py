@@ -63,10 +63,10 @@ from ..core.cim.profile import ActivationCapture
 from ..core.cim.simulate import ARRAYS_PER_PE, CLOCK_HZ, _eval_kernel
 from ..core.cim.topology import allocate_placed, stage_transfer_matrix
 from ..fabric.telemetry import get_telemetry, spanned
-from ..fabric.vtime import service_indices, variant_table
+from ..fabric.vtime import lanes_of, service_indices, variant_table
 from ..kernels.bitplane_profile import bitplane_cycle_bank
 from ..kernels.fused_alloc_eval import fused_alloc_eval
-from ..kernels.vtime_scan import vtime_scan
+from ..kernels.vtime_scan import VTTables, vt_tables, vtime_scan
 from .engine import flat_unit_map
 from ..distrib.sharding import shard_map_batch
 from .sweep import (
@@ -550,9 +550,9 @@ class FusedPipeline:
         return used_f
 
     # ----------------------------------------------------- fused fabric stage
-    def _fabric_tables(self) -> list[torch.Tensor]:
-        """VT's variant table: per layer (4A, S_l, B_l) float64 on the
-        device, variant ``(a * 2 + zskip) * 2 + layerwise``: the derived
+    def _fabric_tables(self) -> VTTables:
+        """VT's tables: per layer (4A, S_l, B_l) on the device, packed,
+        variant ``(a * 2 + zskip) * 2 + layerwise``: the derived
         bank (zero-skip) or the baseline cycles broadcast over the samples,
         and for the layer-wise dataflow the per-patch barrier on pool 0."""
         if self._vt_tables is None:
@@ -568,7 +568,7 @@ class FusedPipeline:
                     for c in (c0, c1):
                         per += [variant_table(c, False), variant_table(c, True)]
                 tables.append(torch.stack(per))
-            self._vt_tables = tables
+            self._vt_tables = vt_tables(tables)
         return self._vt_tables
 
     @spanned("dse.fused.fabric")
@@ -591,25 +591,16 @@ class FusedPipeline:
         through the staged ``VirtualTimeFabric``; the percentiles are
         ``np.percentile`` on the host over the exact latencies."""
         dev = self.device
-        C, n = arrival_times.shape
-        a_idx = np.asarray(a_idx, dtype=np.int64)
+        n = arrival_times.shape[1]
         lw = np.asarray(layerwise, dtype=bool)
-        z = np.asarray(zskip, dtype=bool)
         dims = [(self.S_l[li], l.patches_per_image) for li, l in enumerate(self.spec.layers)]
         idx = service_indices(seed, dims, n, dev)
-        lanes = []
-        for li, layer in enumerate(self.spec.layers):
-            b = layer.n_blocks
-            d = np.asarray(dups_lb[:, li, :b]).astype(np.int64)
-            first = np.where(np.arange(b) == 0, d[:, :1], 0)
-            lanes.append(np.where(lw[:, None], first, d))
-        lanes = np.concatenate(lanes, axis=1).astype(np.int32)
-        variant = ((a_idx * 2 + z) * 2 + lw).astype(np.int32)
         t_arr, comp, _, _ = vtime_scan(
             self._fabric_tables(),
             idx,
-            torch.as_tensor(variant, device=dev),
-            torch.as_tensor(lanes, device=dev),
+            [p for _, p in dims],
+            (np.asarray(a_idx, dtype=np.int64) * 2 + np.asarray(zskip, dtype=bool)) * 2 + lw,
+            lanes_of([l.n_blocks for l in self.spec.layers], np.asarray(dups_lb).astype(np.int64), lw),
             n_requests=n,
             arrivals=torch.as_tensor(np.asarray(arrival_times, dtype=np.float64), device=dev),
             xfer=None if xfer is None else torch.as_tensor(np.asarray(xfer, dtype=np.float64), device=dev),

@@ -56,16 +56,7 @@ from ..core.cim.simulate import (
 from .arrivals import ArrivalProcess, ClosedLoop, arrival_times
 from .drift import DriftConfig
 from .metrics import LatencySketch, LatencyStats, SketchConfig
-from .vtime import (
-    CoarsenConfig,
-    VirtualTimeFabric,
-    _GroupPack,
-    _hash_salt,
-    _pack_group,
-    chunk_plan,
-    pool_lanes,
-    service_indices,
-)
+from .vtime import CoarsenConfig, VirtualTimeFabric, _hash_salt, chunk_plan, service_indices
 from ..kernels.vtime_scan import StreamState, stream_dense, stream_flat, stream_state, vtime_stream
 
 __all__ = [
@@ -80,15 +71,6 @@ __all__ = [
 
 
 # ------------------------------------------------------------ launch inputs
-def _stream_dims_salts(vt: VirtualTimeFabric, seed: int):
-    dims = tuple(
-        (int(vt._cyc[True][i].shape[0]), int(l.patches_per_image))
-        for i, l in enumerate(vt.spec.layers)
-    )
-    salts = tuple(_hash_salt(seed, li) for li in range(len(dims)))
-    return dims, salts
-
-
 def _group_plans(vt: VirtualTimeFabric, groups, n_cfg: int, coarsen) -> np.ndarray:
     """(C, L, 2) macro-job plans: each config's group's ``chunk_plan`` at
     the group's padded lane width per layer (the reference's
@@ -105,14 +87,11 @@ def _group_plans(vt: VirtualTimeFabric, groups, n_cfg: int, coarsen) -> np.ndarr
 
 
 def _stream_inputs(vt: VirtualTimeFabric, allocs, seed: int):
-    """Variant tables, per-config variant and lanes, and the hash salts and
-    patches of one streaming launch over ``allocs`` on the fabric's device."""
-    kind = [(a.layer_dups is not None, a.policy != "baseline") for a in allocs]
-    keys = tuple(sorted(set(kind)))
-    variant = torch.as_tensor(np.asarray([keys.index(k) for k in kind], dtype=np.int32), device=vt.device)
-    lanes = np.stack([pool_lanes(vt.spec, a) for a in allocs]).astype(np.int64)
-    dims, salts = _stream_dims_salts(vt, seed)
-    return vt._variant_tables(keys), variant, lanes, salts, [p for _, p in dims]
+    """Packed tables, per-config variant and lanes (``vt.vt_inputs``), and
+    the hash salts and patches of one streaming launch over ``allocs``."""
+    inp = vt.vt_inputs(allocs)
+    salts = [_hash_salt(seed, li) for li in range(len(inp.dims))]
+    return inp.tables, inp.variant, inp.lanes, salts, [p for _, p in inp.dims]
 
 
 def _xfer_tensor(vt: VirtualTimeFabric, placements):
@@ -302,7 +281,7 @@ def run_stream(
         carry = stream_state(lanes, lanes, n_bins=sketch.n_bins,
                              ring_len=concurrency or 1, device=dev)
         carry, ys = vtime_stream(
-            tables, variant, torch.as_tensor(lanes, device=dev), carry,
+            tables, variant, lanes, carry,
             n_requests=n, patches=patches, salts=salts,
             plans=_group_plans(vt, groups, c_total, coarsen),
             arrivals=None if closed else torch.as_tensor(times, device=dev),
@@ -367,14 +346,9 @@ def segment_growth_plan(
 
 
 def _segment_pack(vt: VirtualTimeFabric, segs):
-    """One group for ALL segments: stages from the profile, lane count per
-    layer = max over segments (lane_quantum-rounded) so every segment shares
-    one compiled kernel shape.  Returns (group for segment 0, per-segment
-    per-layer (C, B) dup arrays)."""
-    zskip = segs[0][0].policy != "baseline"
-    stages, _ = _pack_group(
-        vt.spec, vt._cyc[zskip], False, segs[0], lane_quantum=vt.lane_quantum
-    )
+    """Every segment's lane width per layer (the most replicas over the
+    segments, rounded up to ``lane_quantum``: the reference's one compiled
+    shape for all segments) and per-segment per-layer (C, B) dup arrays."""
     n_layers = len(vt.spec.layers)
     dups = [
         [
@@ -384,17 +358,8 @@ def _segment_pack(vt: VirtualTimeFabric, segs):
         for seg in segs
     ]  # (S)(L)(C, B)
     q = max(1, int(vt.lane_quantum))
-    frees0 = []
-    for li in range(n_layers):
-        d_max = max(int(d[li].max()) for d in dups)
-        d_lanes = -(-d_max // q) * q
-        frees0.append(
-            np.where(np.arange(d_lanes) < dups[0][li][:, :, None], 0.0, np.inf)
-        )
-    g = _GroupPack(
-        np.arange(len(segs[0])), False, zskip, stages, tuple(frees0), None
-    )
-    return g, dups
+    lane_widths = [-(-max(int(d[li].max()) for d in dups) // q) * q for li in range(n_layers)]
+    return lane_widths, dups
 
 
 def _apply_boundary(frees, dups_old, dups_new, arrays_added, t_free):
@@ -498,7 +463,7 @@ def run_trace_segments(
             if (a.policy != "baseline") != zskip:
                 raise ValueError("all segment allocations must share zero-skipping")
 
-    g, dups = _segment_pack(vt, segs)
+    lane_widths, dups = _segment_pack(vt, segs)
     n_layers = len(vt.spec.layers)
     widths = np.asarray(
         [vt.spec.layers[li].arrays_per_block for li in range(n_layers)],
@@ -533,7 +498,7 @@ def run_trace_segments(
     )
 
     return _segments(
-        vt, segs, g, dups, added, stalls, bounds, times, starts, ends,
+        vt, segs, lane_widths, dups, added, stalls, bounds, times, starts, ends,
         reports, seed, sketch, coarsen, stream, percentiles,
     )
 
@@ -553,7 +518,7 @@ def _materialized_result(vt, times, completions, sketch, percentiles, reports):
 
 
 def _segments(
-    vt, segs, g, dups, added, stalls, bounds, times, starts, ends, reports,
+    vt, segs, lane_widths, dups, added, stalls, bounds, times, starts, ends, reports,
     seed, sketch, coarsen, stream, percentiles,
 ):
     """``run_trace_segments``' launches: one streaming VT launch per
@@ -570,13 +535,9 @@ def _segments(
     plans[..., 0] = 1
     if coarsen is not None and stream:
         for li in range(n_layers):
-            plans[:, li] = chunk_plan(patches[li], g.frees[li].shape[-1], coarsen)
-    lanes_t = torch.as_tensor(slots, device=dev)
+            plans[:, li] = chunk_plan(patches[li], lane_widths[li], coarsen)
     carry = stream_state(slots, per_seg[0], n_bins=sketch.n_bins, device=dev)
-    idx = None
-    if not stream:
-        dims = [(vt._cyc[True][i].shape[0], p) for i, p in enumerate(patches)]
-        idx = service_indices(seed, dims, times.size, dev)
+    idx = None if stream else service_indices(seed, vt.dims, times.size, dev)
     comps = []
     times_t = torch.as_tensor(times, device=dev)
     for s in range(len(segs)):
@@ -588,9 +549,8 @@ def _segments(
         if hi == lo:
             continue
         carry, ys = vtime_stream(
-            tables, variant, lanes_t, carry, n_requests=hi - lo, patches=patches,
-            salts=None if idx is not None else salts,
-            idx=None if idx is None else [ix[lo:hi] for ix in idx],
+            tables, variant, slots, carry, n_requests=hi - lo, patches=patches,
+            salts=None if idx is not None else salts, idx=idx,
             plans=plans, r0=lo, arrivals=times_t[lo:hi].expand(c_total, hi - lo),
             emit=not stream, sketch=(sketch.bins_per_octave, sketch.min_exp),
         )

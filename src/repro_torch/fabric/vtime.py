@@ -45,6 +45,7 @@ over the exact latencies.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -54,7 +55,7 @@ from ..core.cim.network import NetworkSpec
 from ..core.cim.profile import NetworkProfile
 from ..core.cim.simulate import CLOCK_HZ, Allocation, _layer_patch_cycles
 from ..kernels import service_draw as _draw
-from ..kernels.vtime_scan import vtime_scan
+from ..kernels.vtime_scan import VTTables, to_device, vt_tables, vtime_scan
 from .arrivals import ArrivalProcess, ClosedLoop, PoissonOpen, arrival_times
 from .metrics import LatencyStats, latency_stats, percentile_kernel, steady_throughput
 from .telemetry import get_telemetry, spanned
@@ -64,11 +65,13 @@ __all__ = [
     "chunk_plan",
     "dispatch_step",
     "hash_service_indices",
+    "lanes_of",
     "pool_dispatch",
     "pool_dispatch_stream",
     "sample_service_indices",
     "service_indices",
     "variant_table",
+    "VTInputs",
     "VTResult",
     "VirtualTimeFabric",
     "provision_latency_aware",
@@ -554,40 +557,48 @@ def variant_table(cycles: torch.Tensor, layerwise: bool) -> torch.Tensor:
     return out
 
 
+def lanes_of(blocks, dups, layerwise) -> np.ndarray:
+    """(C, sum_l B_l) servers per pool, layer by layer, from (C, L, B)
+    duplicates (B: at least every layer's B_l): a block-wise config's
+    replicas, or a layer-wise one's (``layerwise``) duplicates of block 0
+    on each layer's pool 0 (its other pools get none)."""
+    dups = np.asarray(dups, dtype=np.int64)
+    pool = np.arange(dups.shape[2])
+    d = np.where(np.asarray(layerwise, dtype=bool)[:, None, None] & (pool > 0), 0, dups)
+    return d[:, pool[None, :] < np.asarray(blocks)[:, None]]
+
+
+def _alloc_dups(spec: NetworkSpec, allocs) -> tuple:
+    """(C, L, B) duplicates of allocations (a layer-wise one's on every
+    block) and their (C,) layer-wise flags."""
+    blocks = [l.n_blocks for l in spec.layers]
+    dups = np.zeros((len(allocs), len(blocks), max(blocks)), dtype=np.int64)
+    for c, a in enumerate(allocs):
+        for i, b in enumerate(blocks):
+            dups[c, i, :b] = a.layer_dups[i] if a.layer_dups is not None else a.block_dups[i]
+    return dups, np.asarray([a.layer_dups is not None for a in allocs])
+
+
 def pool_lanes(spec: NetworkSpec, alloc: Allocation) -> np.ndarray:
-    """(sum_l B_l,) servers per pool, layer by layer: a block-wise
-    allocation's replicas, or a layer-wise one's duplicates on each layer's
-    pool 0 (its other pools get none)."""
-    parts = []
-    for i, layer in enumerate(spec.layers):
-        if alloc.layer_dups is not None:
-            d = np.zeros(layer.n_blocks, dtype=np.int64)
-            d[0] = int(alloc.layer_dups[i])
-        else:
-            d = np.asarray(alloc.block_dups[i], dtype=np.int64)
-        parts.append(d)
-    return np.concatenate(parts)
+    """(sum_l B_l,) servers per pool of one allocation (``lanes_of``)."""
+    return lanes_of([l.n_blocks for l in spec.layers], *_alloc_dups(spec, [alloc]))[0]
 
 
 @spanned("vt.upload")
-def upload_indices(idx, device: torch.device) -> list[torch.Tensor]:
-    """Per-layer (N, P_l) sample indices as int32 on ``device``: one host
+def upload_indices(idx, device: torch.device) -> torch.Tensor:
+    """Per-layer (N, P_l) sample indices as VT's flat int32 buffer on
+    ``device``: layer after layer (``service_draw``'s layout), one host
     buffer, pinned for a card, and one copy."""
     tel = get_telemetry()
     with tel.span("vt.pack_indices", host=True):
-        flat = torch.from_numpy(np.concatenate([np.asarray(i).ravel() for i in idx]).astype(np.int32))
-        if device.type == "cuda":
-            flat = flat.pin_memory()
+        flat = np.concatenate([np.asarray(i).ravel() for i in idx]).astype(np.int32, copy=False)
     tel.count("vt.upload_bytes", flat.nbytes)
-    if device.type == "cuda":
-        flat = flat.to(device, non_blocking=True)
-    parts = torch.split(flat, [int(np.asarray(i).size) for i in idx])
-    return [p.view(np.asarray(i).shape) for p, i in zip(parts, idx)]
+    return to_device(device, flat)[0]
 
 
-def service_indices(seed: int, dims, n_requests: int, device: torch.device) -> list[torch.Tensor]:
+def service_indices(seed: int, dims, n_requests: int, device: torch.device) -> torch.Tensor:
     """``upload_indices(sample_service_indices(default_rng(seed), dims, n),
-    device)``, the same int32 numbers: on a CUDA device drawn there
+    device)``, the same flat int32 buffer: on a CUDA device drawn there
     (``kernels.service_draw``: the layers whose S is a power of two or 1 by
     the kernel, the others by numpy from their start state and copied with
     the launch's input), on any other by the host.
@@ -601,22 +612,24 @@ def service_indices(seed: int, dims, n_requests: int, device: torch.device) -> l
     tel = get_telemetry()
     with tel.span("vt.draw"):
         plan = _draw.draw_plan(seed, dims, n_requests)
-        host = None
-        if plan.host.size:
-            with tel.span("vt.upload"):
-                with tel.span("vt.pack_indices", host=True):
-                    pinned = torch.from_numpy(plan.host).pin_memory()
-                tel.count("vt.upload_bytes", pinned.nbytes)
-                host = pinned.to(device, non_blocking=True)
+        host = upload_indices([plan.host], device) if plan.host.size else None
         flat = _draw.service_draw(plan, host, torch.empty(plan.total, dtype=torch.int32, device=device))
     if tel.enabled:
         tel.count("vt.indices", plan.total)
         tel.count("vt.indices_device", plan.total - plan.host.size)
-    parts = torch.split(flat, [n * p for n, p in plan.shapes])
-    return [part.view(shape) for part, shape in zip(parts, plan.shapes)]
+    return flat
 
 
 # ----------------------------------------------------------------- results
+class VTInputs(NamedTuple):
+    """VT's input for a batch of allocations (``VirtualTimeFabric.vt_inputs``)."""
+
+    tables: VTTables  # the (dataflow, zero-skip) variants the batch holds
+    variant: np.ndarray  # (C,) int32: each allocation's
+    lanes: np.ndarray  # (C, sum_l B_l) servers per pool (pool_lanes)
+    dims: tuple  # (S_l, P_l) per layer: the draw's
+
+
 @dataclass(frozen=True)
 class VTResult:
     """Structure-of-arrays fabric outcome for C (allocation, trace) pairs."""
@@ -668,8 +681,8 @@ class VirtualTimeFabric:
     the host, grouped by (layerwise, zero-skipping) as the reference groups
     its jit calls (``lane_quantum`` pads their lanes, which changes no
     result).  Cycle tables are read from the profile once into float64
-    numpy and, for VT, into one device table per variant, kept for the
-    instance's life.
+    numpy and, for VT, packed on the device for each set of variants a
+    batch holds (``vt_inputs``), kept for the instance's life.
     """
 
     def __init__(
@@ -691,7 +704,9 @@ class VirtualTimeFabric:
         self._cyc = {
             z: _layer_patch_cycles(live_prof or prof, z) for z in (False, True)
         }
-        self._tables: dict[tuple, list[torch.Tensor]] = {}
+        # the draw's (S_l, P_l) per layer: the profile's, whatever the dataflow or zero-skipping
+        self.dims = tuple((int(c.shape[0]), int(l.patches_per_image)) for c, l in zip(self._cyc[True], spec.layers))
+        self._tables: dict[tuple, VTTables] = {}
 
     # ------------------------------------------------------------- internals
     def _groups(self, allocs, placements=None) -> list[_GroupPack]:
@@ -725,27 +740,30 @@ class VirtualTimeFabric:
                 )
         return out
 
-    def _variant_tables(self, keys: tuple) -> list[torch.Tensor]:
-        """Per layer (V, S_l, B_l) float64 on the device, variant v of the
-        (layerwise, zskip) pair ``keys[v]``."""
+    def _variant_tables(self, keys: tuple) -> VTTables:
+        """VT's tables on the device, variant v of the (layerwise, zskip)
+        pair ``keys[v]``."""
         hit = self._tables.get(keys)
         if hit is None:
-            hit = [
-                torch.stack(
-                    [variant_table(torch.from_numpy(self._cyc[z][i]), lw) for lw, z in keys]
-                ).to(self.device)
-                for i in range(len(self.spec.layers))
-            ]
-            self._tables[keys] = hit
+            hit = self._tables[keys] = vt_tables(
+                [torch.stack([variant_table(torch.from_numpy(self._cyc[z][i]), lw) for lw, z in keys])
+                 for i in range(len(self.spec.layers))], self.device)
         return hit
 
-    def _run_torch(self, allocs, placements, times, concurrency, idx, collect_stats):
-        dev = self.device
+    def vt_inputs(self, allocs) -> VTInputs:
+        """VT's input for a batch of allocations: the packed tables of the
+        (dataflow, zero-skip) variants it holds, each allocation's variant
+        and servers per pool (host arrays), and the draw's dims."""
         with get_telemetry().span("vt.configs", host=True):
             kind = [(a.layer_dups is not None, a.policy != "baseline") for a in allocs]
             keys = tuple(sorted(set(kind)))
             variant = np.asarray([keys.index(k) for k in kind], dtype=np.int32)
-            lanes = np.stack([pool_lanes(self.spec, a) for a in allocs]).astype(np.int32)
+            lanes = lanes_of([l.n_blocks for l in self.spec.layers], *_alloc_dups(self.spec, allocs))
+        return VTInputs(self._variant_tables(keys), variant, lanes, self.dims)
+
+    def _run_torch(self, allocs, placements, times, concurrency, idx, collect_stats):
+        dev = self.device
+        inp = self.vt_inputs(allocs)
         xfer = None
         if placements is not None:
             xfer = np.stack(
@@ -753,10 +771,11 @@ class VirtualTimeFabric:
             )
             xfer = torch.as_tensor(xfer, device=dev)
         t_arr, comp, busy, wait = vtime_scan(
-            self._variant_tables(keys),
+            inp.tables,
             idx,
-            torch.as_tensor(variant, device=dev),
-            torch.as_tensor(lanes, device=dev),
+            [p for _, p in inp.dims],
+            inp.variant,
+            inp.lanes,
             n_requests=times.shape[1],
             arrivals=None if concurrency is not None else torch.as_tensor(times, device=dev),
             concurrency=concurrency,
@@ -828,16 +847,11 @@ class VirtualTimeFabric:
                     raise ValueError("all arrival traces in a batch need the same length")
                 times = np.stack(tlist).astype(np.float64)
 
-        # one draw shared by every config: sampling dims depend only on the
-        # profile (S_l, ppi_l), not on dataflow or zero-skipping
-        dims = [
-            (self._cyc[True][i].shape[0], l.patches_per_image)
-            for i, l in enumerate(self.spec.layers)
-        ]
+        # one draw shared by every config
         if engine == "torch":
-            idx = service_indices(seed, dims, n, self.device)
+            idx = service_indices(seed, self.dims, n, self.device)
         else:
-            idx = sample_service_indices(np.random.default_rng(seed), dims, n)
+            idx = sample_service_indices(np.random.default_rng(seed), self.dims, n)
 
         C = len(allocs)
         L = len(self.spec.layers)

@@ -12,7 +12,7 @@ cluster per pair.
 The problem, for config c: layer l has B_l pools, pool p holding
 ``lanes[c, off_l + p]`` servers (0 for a pool that is not used).  Request r
 brings P_l jobs to every pool of layer l, job j with service time
-``tables[l][variant[c], idx[l][r, j], p]``; pools are FIFO over sorted server
+``table_l[variant[c], idx_l[r, j], p]``; pools are FIFO over sorted server
 free-times (``fabric.vtime.dispatch_step``), a layer completes at its last
 job's end (at least its ready time), and the next layer starts then, after
 the stage transfer ``xfer[c, l]`` when given.  Requests arrive at
@@ -53,6 +53,16 @@ and writes back only its own pools' lanes.  ``vtime_stream_ref`` is its
 plain version.  The reference's ``window`` blocks its scan and changes no
 bit; the launch takes every request in order and has no such argument.
 
+This module alone knows the layout the kernel reads.  ``vt_tables`` packs
+the per-layer (V, S_l, B_l) tables once, checked, into one flat float64
+buffer with each (layer, variant)'s offset (``VTTables``; callers keep it);
+the indices are the draw's flat int32 buffer (``fabric.vtime.service_indices``:
+each layer's (N, P_l) after the last), read in place from each layer's
+offset in ``meta``; ``variant`` and ``lanes`` are host arrays, checked
+there and uploaded with ``meta`` in one copy (``to_device``), and
+``kernel_plan`` reads the lanes' host copy.  ``_prepare`` checks what the
+two entries share, reading one flag back from the device.
+
 ``vtime_scan`` launches the kernel on CUDA tensors (``kernel_plan`` makes
 its host-side choices) and runs the plain PyTorch version ``vtime_scan_ref``
 on CPU tensors.  The plain version is the same recurrence batched over the
@@ -64,6 +74,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -75,6 +86,7 @@ from . import _build
 __all__ = [
     "MAX_LANES",
     "StreamState",
+    "VTTables",
     "chain_weights",
     "critical_path",
     "kernel_plan",
@@ -84,10 +96,12 @@ __all__ = [
     "stream_dense",
     "stream_flat",
     "stream_state",
+    "to_device",
     "vtime_scan",
     "vtime_scan_ref",
     "vtime_stream",
     "vtime_stream_ref",
+    "vt_tables",
 ]
 
 _F64 = torch.float64
@@ -381,98 +395,190 @@ def _limits(device, stream: bool, stats: bool) -> dict:
     return dict(warps=warps, clusters=clusters)
 
 
-class _Problem(NamedTuple):
-    """Checked inputs on one device."""
+class VTTables(NamedTuple):
+    """Per-layer (V, S_l, B_l) float64 service tables as both entries read
+    them (``vt_tables``): one flat buffer, each (layer, variant)'s offset
+    into it and the shapes, checked once when built."""
 
-    tables: list  # per layer (V, S_l, B_l) float64
-    idx: list  # per layer (N, P_l) int32
+    flat: torch.Tensor  # every layer's table, flat
+    tbl_off: torch.Tensor  # (L, V) int64 offsets into flat, on its device
+    variants: int  # V
+    samples: tuple  # S_l
+    blocks: tuple  # B_l
+
+    def layer(self, l: int) -> torch.Tensor:
+        """Layer l's (V, S_l, B_l) table: a view of ``flat``."""
+        o = self.variants * sum(s * b for s, b in zip(self.samples[:l], self.blocks[:l]))
+        shape = (self.variants, self.samples[l], self.blocks[l])
+        return self.flat[o : o + math.prod(shape)].view(shape)
+
+
+def vt_tables(tables, device=None) -> VTTables:
+    """Per-layer (V, S_l, B_l) service tables of one V packed for VT on
+    ``device`` (None: the first table's).  Service times are cycles: a
+    negative or NaN one raises (VT's insert relies on >= 0; the check reads
+    one flag back), as does any other shape."""
+    tables = list(tables)
+    if not all(isinstance(t, torch.Tensor) for t in tables):
+        raise TypeError("vtime_scan takes torch tensors")
+    L = len(tables)
+    if not 1 <= L <= MAX_LAYERS:
+        raise ValueError(f"vtime_scan: {L} layer tables (1 to {MAX_LAYERS})")
+    if any(t.dim() != 3 or t.shape[0] != tables[0].shape[0] or min(t.shape) < 1 for t in tables):
+        raise ValueError(f"tables must be (V, S_l, B_l) with one V, got {[tuple(t.shape) for t in tables]}")
+    if any(t.device != tables[0].device for t in tables):
+        raise ValueError("vtime_scan: every input must lie on one device")
+    blocks = tuple(int(t.shape[2]) for t in tables)
+    if sum(blocks) > MAX_POOLS:
+        raise ValueError(f"vtime_scan: {sum(blocks)} pools, at most {MAX_POOLS}")
+    dev = tables[0].device if device is None else torch.device(device)
+    flat = torch.cat([t.to(_F64).reshape(-1) for t in tables]).to(dev)
+    if not bool((flat >= 0).all()):
+        raise ValueError("service times must be >= 0 (and not NaN)")
+    V = int(tables[0].shape[0])
+    sizes = np.asarray([t.numel() for t in tables], dtype=np.int64)
+    off = (np.cumsum(sizes) - sizes)[:, None] + np.arange(V)[None, :] * (sizes // V)[:, None]
+    return VTTables(flat, torch.as_tensor(off, device=dev), V, tuple(int(t.shape[1]) for t in tables), blocks)
+
+
+def to_device(device: torch.device, *arrays) -> list[torch.Tensor]:
+    """Host arrays on ``device`` in one copy (from pinned memory, not
+    waited for, on a card): one byte buffer holding each array from a
+    multiple of 8 bytes, viewed back as its dtype and shape."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    offs = np.cumsum([0] + [-(-a.nbytes // 8) * 8 for a in arrays])
+    pin = device.type == "cuda"
+    # at least 8 bytes: an empty tensor's stride is 0, and no view of it is taken
+    buf = torch.empty(max(8, int(offs[-1])), dtype=torch.uint8, pin_memory=pin)
+    host = buf.numpy()
+    for a, o in zip(arrays, offs):
+        host[o : o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    t = buf.to(device, non_blocking=True) if pin else buf.to(device)
+    return [t[o : o + a.nbytes].view(torch.from_numpy(np.empty(0, a.dtype)).dtype).view(a.shape)
+            for a, o in zip(arrays, offs)]
+
+
+class _Problem(NamedTuple):
+    """Checked inputs of either entry, on the tables' device."""
+
+    tables: VTTables
+    idx: torch.Tensor | None  # the flat int32 indices, layer-major (None: hashed)
+    patches: tuple  # P_l
+    io: tuple  # per layer, the offset into idx of the launch's first request
     variant: torch.Tensor  # (C,) int32
-    lanes: torch.Tensor  # (C, Ptot) int32
+    lanes: torch.Tensor  # (C, pools) int32
+    host_lanes: np.ndarray  # (C, pools) int32, the lanes' host copy
+    meta: torch.Tensor  # (L, 5) int64: B_l, P_l, first pool, io_l, S_l
     arrivals: torch.Tensor | None  # (C, N) float64, open loop
     xfer: torch.Tensor | None  # (C, L) float64
     n_requests: int
     concurrency: int  # 0: open loop
 
+    @property
+    def device(self) -> torch.device:
+        return self.tables.flat.device
 
-def _prepare(tables, idx, variant, lanes, n_requests, arrivals, concurrency, xfer) -> _Problem:
-    tables, idx = list(tables), list(idx)
-    tensors = [*tables, *idx, variant, lanes] + [t for t in (arrivals, xfer) if t is not None]
+    def layer_idx(self, l: int) -> torch.Tensor:
+        """Layer l's (N, P_l) indices of the launch's requests: a view of ``idx``."""
+        N, P = self.n_requests, self.patches[l]
+        return self.idx[self.io[l] : self.io[l] + N * P].view(N, P)
+
+
+def _prepare(tables, idx, patches, variant, lanes, n_requests, arrivals, concurrency, xfer, *, carry=(),
+             r0: int = 0, stream: bool = False) -> _Problem:
+    """The inputs both entries share, checked.  ``tables`` from
+    ``vt_tables``; ``idx`` the flat int32 indices, layer by layer, P_l =
+    ``patches[l]`` a request: N requests for VT, any from request ``r0`` + N
+    on for the streaming entry (``stream``; None there: hashed), whose
+    ``carry`` tensors must lie on the tables' device too; ``variant`` (C,)
+    and ``lanes`` (C, pools) host arrays, checked on the host and uploaded
+    with the launch's ``meta`` in one copy.  The indices' range is checked
+    on the device, one flag read back."""
+    name = "vtime_stream" if stream else "vtime_scan"
+    if not isinstance(tables, VTTables):
+        raise TypeError(f"{name} takes its tables packed by vt_tables")
+    tensors = [t for t in (arrivals, xfer, *carry) if t is not None] + ([idx] if idx is not None or not stream else [])
     if not all(isinstance(t, torch.Tensor) for t in tensors):
-        raise TypeError("vtime_scan takes torch tensors")
-    dev = variant.device
+        raise TypeError(f"{name} takes torch tensors")
+    dev = tables.flat.device
     if any(t.device != dev for t in tensors):
-        raise ValueError("vtime_scan: every input must lie on one device")
-    L = len(tables)
-    if L < 1 or L > MAX_LAYERS or len(idx) != L:
-        raise ValueError(f"vtime_scan: {L} layer tables and {len(idx)} index tables (1 to {MAX_LAYERS})")
-    N = int(n_requests)
-    tables = [t.to(_F64).contiguous() for t in tables]
-    V = tables[0].shape[0]
-    if any(t.dim() != 3 or t.shape[0] != V or min(t.shape) < 1 for t in tables):
-        raise ValueError(f"tables must be (V, S_l, B_l) with one V, got {[tuple(t.shape) for t in tables]}")
-    idx = [i.to(torch.int32).contiguous() for i in idx]
-    if any(i.dim() != 2 or i.shape[0] != N for i in idx):
-        raise ValueError(f"idx must be (N={N}, P_l) per layer, got {[tuple(i.shape) for i in idx]}")
-    variant = variant.reshape(-1).to(torch.int32).contiguous()
-    C = variant.shape[0]
-    n_pools = sum(t.shape[2] for t in tables)
-    lanes = lanes.to(torch.int32).contiguous()
-    if tuple(lanes.shape) != (C, n_pools):
+        raise ValueError(f"{name}: every input must lie on one device")
+    L, N = len(tables.blocks), int(n_requests)
+    P = np.asarray([int(x) for x in patches], dtype=np.int64)
+    if P.shape != (L,) or P.min() < int(stream):
+        raise ValueError(f"{name}: patches must be {L} counts of at least {int(stream)}, got {P.tolist()}")
+    rows, first = N, 0
+    if idx is not None:
+        per = int(P.sum())
+        rows, first = (idx.numel() // per if per else N), int(r0)
+        if idx.dim() != 1 or rows * per != idx.numel() or (rows < first + N if stream else rows != N):
+            raise ValueError(f"idx must be flat, {'>= ' if stream else ''}{first + N} requests of {per} indices, "
+                             f"got {tuple(idx.shape)}")
+        idx = idx.to(torch.int32).contiguous()
+    io = rows * (np.cumsum(P) - P) + first * P
+    variant = np.asarray(variant, dtype=np.int64).reshape(-1)
+    C, n_pools = variant.shape[0], sum(tables.blocks)
+    lanes = np.asarray(lanes, dtype=np.int64)
+    if lanes.shape != (C, n_pools):
         raise ValueError(f"lanes {tuple(lanes.shape)} != (C={C}, pools={n_pools})")
+    if C and (variant.min() < 0 or variant.max() >= tables.variants):
+        raise ValueError(f"variant out of range for {tables.variants} variants")
+    if lanes.size and (lanes.min() < 0 or lanes.max() > MAX_LANES):
+        raise ValueError(f"lanes must lie in [0, {MAX_LANES}]")
     if (arrivals is None) == (concurrency is None):
         raise ValueError("give arrivals (open loop) or concurrency (closed loop), not both")
     if arrivals is not None:
-        arrivals = arrivals.to(_F64).contiguous()
-        if tuple(arrivals.shape) != (C, N):
-            raise ValueError(f"arrivals {tuple(arrivals.shape)} != ({C}, {N})")
+        arrivals = arrivals.to(_F64)
+        if arrivals.dim() != 2 or arrivals.shape[0] != C or (arrivals.shape[1] < N if stream
+                                                            else arrivals.shape[1] != N):
+            raise ValueError(f"arrivals {tuple(arrivals.shape)} must be ({C}, {'>= ' if stream else ''}{N})")
+        arrivals = arrivals[:, :N].contiguous()
     elif int(concurrency) < 1:
         raise ValueError(f"concurrency must be >= 1, got {concurrency}")
     if xfer is not None:
         xfer = xfer.to(_F64).contiguous()
         if tuple(xfer.shape) != (C, L):
             raise ValueError(f"xfer {tuple(xfer.shape)} != ({C}, {L})")
-    if n_pools > MAX_POOLS:
-        raise ValueError(f"vtime_scan: {n_pools} pools, at most {MAX_POOLS}")
-    # the indices, loop bounds and values the kernel trusts, read back in one
-    # transfer; service times are cycles: >= 0, which VT's insert relies on
-    checks = [((variant >= 0) & (variant < V)).all(), ((lanes >= 0) & (lanes <= MAX_LANES)).all(),
-              torch.stack([(t >= 0).all() for t in tables]).all()]
-    checks += [((i >= 0) & (i < t.shape[1])).all() for i, t in zip(idx, tables)]
-    ok = torch.stack(checks).tolist() if C else [True] * len(checks)
-    if not ok[0]:
-        raise ValueError(f"variant out of range for {V} variants")
-    if not ok[1]:
-        raise ValueError(f"lanes must lie in [0, {MAX_LANES}]")
-    if not ok[2]:
-        raise ValueError("service times must be >= 0 (and not NaN)")
-    if not all(ok[3:]):
-        raise ValueError("a sample index is out of range of its layer's table")
-    return _Problem(tables, idx, variant, lanes, arrivals, xfer, N,
-                    0 if concurrency is None else int(concurrency))
+    if idx is not None and C:
+        runs = []  # (first, end, S): the launch's indices, layers of one S back to back in one run
+        for l, S in enumerate(tables.samples):
+            lo, hi = int(io[l]), int(io[l] + N * P[l])
+            if runs and runs[-1][1] == lo and runs[-1][2] == S:
+                runs[-1][1] = hi
+            elif hi > lo:
+                runs.append([lo, hi, S])
+        checks = [((idx[a:b] >= 0) & (idx[a:b] < S)).all() for a, b, S in runs]
+        if checks and not bool(torch.stack(checks).all()):
+            raise ValueError("a sample index is out of range of its layer's table")
+    blocks = np.asarray(tables.blocks, dtype=np.int64)
+    meta = np.stack([blocks, P, np.cumsum(blocks) - blocks, io, np.asarray(tables.samples)], axis=1)
+    meta, small = to_device(dev, meta, np.concatenate([variant, lanes.reshape(-1)]).astype(np.int32))
+    return _Problem(tables, idx, tuple(P.tolist()), tuple(io.tolist()), small[:C], small[C:].view(C, n_pools),
+                    lanes.astype(np.int32), meta, arrivals, xfer, N, 0 if concurrency is None else int(concurrency))
 
 
 def _plain(p: _Problem, collect_stats: bool):
     """The recurrence in torch, batched over the configs, float64."""
-    dev = p.variant.device
-    C, N, L = p.variant.shape[0], p.n_requests, len(p.tables)
+    dev = p.device
+    C, N, L = p.variant.shape[0], p.n_requests, len(p.patches)
     inf = float("inf")
-    D = max(1, int(p.lanes.max())) if C else 1
+    D = max(1, int(p.host_lanes.max())) if p.host_lanes.size else 1
     v = p.variant.long()
     frees, masks, cyc = [], [], []
     off = 0
-    for t in p.tables:
-        B = t.shape[2]
+    for li, B in enumerate(p.tables.blocks):
         d = p.lanes[:, off : off + B].long()
         off += B
         lane = torch.arange(D, device=dev)
         frees.append(torch.where(lane < d[..., None], 0.0, inf).to(_F64))  # (C, B, D)
         masks.append(d > 0)  # pools that have servers
-        cyc.append(t[v])  # (C, S_l, B_l)
+        cyc.append(p.tables.layer(li)[v])  # (C, S_l, B_l)
     t_arr = torch.zeros((C, N), dtype=_F64, device=dev)
     comp = torch.zeros((C, N), dtype=_F64, device=dev)
     busy = torch.zeros((C, L), dtype=_F64, device=dev) if collect_stats else None
     wait = torch.zeros((C, L), dtype=_F64, device=dev) if collect_stats else None
     pad = torch.full((C, 1, 1), inf, dtype=_F64, device=dev)
+    idx = [p.layer_idx(li) for li in range(L)]
     for r in range(N):
         if p.concurrency == 0:
             t = p.arrivals[:, r]
@@ -484,7 +590,7 @@ def _plain(p: _Problem, collect_stats: bool):
         for li in range(L):
             if p.xfer is not None:
                 t = t + p.xfer[:, li]
-            svc = cyc[li][:, p.idx[li][r].long(), :]  # (C, P_l, B_l)
+            svc = cyc[li][:, idx[li][r].long(), :]  # (C, P_l, B_l)
             free = torch.maximum(frees[li], t[:, None, None])
             mask = masks[li]
             ends = []
@@ -507,47 +613,18 @@ def _plain(p: _Problem, collect_stats: bool):
 
 
 class _Packed(NamedTuple):
-    """A checked problem as the kernel reads it: flat device buffers."""
+    """A checked problem and ``kernel_plan``'s choices for it."""
 
     p: _Problem
     plan: KernelPlan
-    tables: torch.Tensor  # every layer's (V, S_l, B_l) table, flat
-    tbl_off: torch.Tensor  # (L, V) int64 offsets into tables
-    meta: torch.Tensor  # (L, 5) int64: B_l, P_l, pool offset, offset into idx, S_l
-    idx: torch.Tensor  # every layer's (N, P_l) indices, flat int32
-    n_pools: int
-
-
-def _meta(tables, patches, n_requests: int):
-    """(tbl_off (L, V), meta (L, 5)) int64 on the host for per-layer (V,
-    S_l, B_l) tables: offsets into the flat tables, and B_l, P_l, the
-    layer's first pool, its offset into the flat (N, P_l) indices, S_l."""
-    V = tables[0].shape[0]
-    blocks = torch.tensor([t.shape[2] for t in tables], dtype=torch.int64)
-    pt = torch.tensor(patches, dtype=torch.int64)
-    sizes = torch.tensor([t.numel() for t in tables], dtype=torch.int64)
-    per_v = torch.tensor([t.shape[1] * t.shape[2] for t in tables], dtype=torch.int64)
-    tbl_off = (torch.cumsum(sizes, 0) - sizes)[:, None] + torch.arange(V)[None, :] * per_v[:, None]
-    idx_sizes = pt * int(n_requests)
-    meta = torch.stack([blocks, pt, torch.cumsum(blocks, 0) - blocks, torch.cumsum(idx_sizes, 0) - idx_sizes,
-                        torch.tensor([t.shape[1] for t in tables], dtype=torch.int64)], dim=1)
-    return tbl_off, meta
 
 
 def _pack(p: _Problem, collect_stats: bool = False) -> _Packed:
-    """The flat buffers and ``kernel_plan``'s choices (on the card, with the
-    build's launch bound and the device's resident clusters)."""
-    dev = p.variant.device
-    blocks = [t.shape[2] for t in p.tables]
-    patches = [i.shape[1] for i in p.idx]
-    lanes = p.lanes.cpu().numpy()
+    """``kernel_plan``'s choices from the lanes' host copy (on the card, with
+    the build's launch bound and the device's resident clusters)."""
     with _telemetry().span("vt.kernel_plan", host=True):
-        plan = kernel_plan(lanes, blocks, patches, **_limits(dev, False, collect_stats))
-    tbl_off, meta = _meta(p.tables, patches, p.n_requests)
-    return _Packed(
-        p, plan, torch.cat([t.reshape(-1) for t in p.tables]), tbl_off.to(dev), meta.to(dev),
-        torch.cat([i.reshape(-1) for i in p.idx]), sum(blocks),
-    )
+        plan = kernel_plan(p.host_lanes, p.tables.blocks, p.patches, **_limits(p.device, False, collect_stats))
+    return _Packed(p, plan)
 
 
 def _split_arg(plan: KernelPlan):
@@ -557,29 +634,29 @@ def _split_arg(plan: KernelPlan):
     return (ctypes.c_int * (MAX_STAGES + 1))(*split, *([0] * (MAX_STAGES + 1 - len(split))))
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _launch(k: _Packed, collect_stats: bool):
     """One launch on packed buffers: allocates the outputs (and the global
     pool state when it does not fit in shared memory) and runs VT as C
     clusters of ``plan.stages`` blocks; a refused launch raises."""
     p, plan = k.p, k.plan
-    dev = p.variant.device
-    C, N, L = p.variant.shape[0], p.n_requests, len(p.tables)
+    dev = p.device
+    C, N, L = p.variant.shape[0], p.n_requests, len(p.patches)
     t_arr = torch.empty((C, N), dtype=_F64, device=dev)
     comp = torch.empty((C, N), dtype=_F64, device=dev)
     busy = torch.empty((C, L), dtype=_F64, device=dev) if collect_stats else None
     wait = torch.empty((C, L), dtype=_F64, device=dev) if collect_stats else None
     gstate = None if plan.smem_state else torch.empty((C * plan.stages, plan.state_stride), dtype=_F64, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = _launcher()(
-            k.tables.data_ptr(), k.tbl_off.data_ptr(), k.meta.data_ptr(), k.idx.data_ptr(),
-            p.variant.data_ptr(), p.lanes.data_ptr(), ptr(p.arrivals), ptr(p.xfer),
-            t_arr.data_ptr(), comp.data_ptr(), ptr(busy), ptr(wait), ptr(gstate), plan.state_stride,
-            C, N, L, p.tables[0].shape[0], k.n_pools, p.concurrency, plan.kmax, plan.chunk, plan.threads,
+            p.tables.flat.data_ptr(), p.tables.tbl_off.data_ptr(), p.meta.data_ptr(), p.idx.data_ptr(),
+            p.variant.data_ptr(), p.lanes.data_ptr(), _ptr(p.arrivals), _ptr(p.xfer),
+            t_arr.data_ptr(), comp.data_ptr(), _ptr(busy), _ptr(wait), _ptr(gstate), plan.state_stride,
+            C, N, L, p.tables.variants, p.lanes.shape[1], p.concurrency, plan.kmax, plan.chunk, plan.threads,
             plan.consumer_warps, int(plan.smem_state), int(collect_stats), plan.stages, _split_arg(plan), stream,
             None,
         )
@@ -590,21 +667,22 @@ def _launch(k: _Packed, collect_stats: bool):
 
 
 def vtime_scan_ref(
-    tables, idx, variant, lanes, *, n_requests, arrivals=None, concurrency=None,
+    tables, idx, patches, variant, lanes, *, n_requests, arrivals=None, concurrency=None,
     xfer=None, collect_stats=False,
 ):
-    """Plain PyTorch version of VT, on the inputs' device: the recurrence
+    """Plain PyTorch version of VT, on the tables' device: the recurrence
     batched over the configs, a Python loop over requests and jobs.
     Arguments and outputs as for ``vtime_scan``."""
-    p = _prepare(tables, idx, variant, lanes, n_requests, arrivals, concurrency, xfer)
+    p = _prepare(tables, idx, patches, variant, lanes, n_requests, arrivals, concurrency, xfer)
     return _plain(p, bool(collect_stats))
 
 
 def vtime_scan(
-    tables,  # per layer (V, S_l, B_l) float64 service tables, one per variant
-    idx,  # per layer (N, P_l) sample indices, int32
-    variant,  # (C,) the table variant of each config
-    lanes,  # (C, sum_l B_l) servers per pool, layer by layer (0: unused pool)
+    tables: VTTables,  # the service tables, one per variant (vt_tables)
+    idx,  # the flat int32 sample indices: each layer's (N, P_l), layer after layer (service_indices)
+    patches,  # P_l, the jobs a request of each layer
+    variant,  # (C,) host array: the table variant of each config
+    lanes,  # (C, sum_l B_l) host array: servers per pool, layer by layer (0: unused pool)
     *,
     n_requests: int,
     arrivals=None,  # (C, N) arrival times in cycles: the open loop
@@ -614,22 +692,22 @@ def vtime_scan(
 ):
     """VT over C configs -> ``(t_arr, comp, busy, wait)``: (C, N) arrivals
     and completions, and with ``collect_stats`` the (C, L) service cycles and
-    queue waits (else None), float64 on the inputs' device.
+    queue waits (else None), float64 on the tables' device.
 
     CUDA tensors launch the kernel on the current stream (no
     synchronisation) and add one to ``vtime_scan.launches``; CPU tensors run
-    ``vtime_scan_ref``.  Inputs are checked first (shapes, index ranges),
-    which reads the flags back from the device in one transfer; a failure to
-    build or launch raises.  Each run, on either device, adds one to the
-    recorder's ``vt.launches`` and its job steps (configs x requests x jobs
-    a request) to ``vt.job_steps``."""
+    ``vtime_scan_ref``.  Inputs are checked first (shapes and ranges on the
+    host, the indices' range on the device, read back in one transfer); a
+    failure to build or launch raises.  Each run, on either device, adds one
+    to the recorder's ``vt.launches`` and its job steps (configs x requests
+    x jobs a request) to ``vt.job_steps``."""
     tel = _telemetry()
     stats = bool(collect_stats)
     with tel.span("vt.prepare"):
-        p = _prepare(tables, idx, variant, lanes, n_requests, arrivals, concurrency, xfer)
-    if p.variant.device.type == "cpu":
+        p = _prepare(tables, idx, patches, variant, lanes, n_requests, arrivals, concurrency, xfer)
+    if p.device.type == "cpu":
         out = _plain(p, stats)
-    elif p.variant.device.type == "cuda":
+    elif p.device.type == "cuda":
         with tel.span("vt.plan"):
             k = _pack(p, stats)
         with tel.span("vt.launch") as attrs:
@@ -639,7 +717,7 @@ def vtime_scan(
                              job_steps=_job_steps(p), stage_weights=list(k.plan.stage_weights))
             out = _launch(k, stats)
     else:
-        raise ValueError(f"no kernel for device {p.variant.device}")
+        raise ValueError(f"no kernel for device {p.device}")
     tel.count("vt.launches")
     if tel.enabled:
         tel.count("vt.job_steps", _job_steps(p))
@@ -648,7 +726,7 @@ def vtime_scan(
 
 def _job_steps(p: _Problem) -> int:
     """Job steps a run of VT takes: every config's requests x jobs a request."""
-    return p.variant.shape[0] * p.n_requests * sum(i.shape[1] for i in p.idx)
+    return p.variant.shape[0] * p.n_requests * sum(p.patches)
 
 
 vtime_scan.launches = 0
@@ -768,109 +846,44 @@ def stream_hash(salt: int, r, n_patches: int, n_samples: int, device="cuda") -> 
 
 
 class _Stream(NamedTuple):
-    """Checked streaming inputs on one device."""
+    """Checked streaming inputs: the ones VT shares and the stream's own."""
 
-    tables: list  # per layer (V, S_l, B_l) float64
-    patches: list  # per layer P_l
+    p: _Problem
     salts: list | None  # per layer uint32 salt (hash mode)
-    idx: list | None  # per layer (N, P_l) int32 (presampled mode)
     plans: np.ndarray  # (C, L, 2) int64 (K, n_bulk)
-    variant: torch.Tensor
-    lanes: torch.Tensor  # (C, Ptot) int32 lane slots
     carry: StreamState
-    arrivals: torch.Tensor | None
-    xfer: torch.Tensor | None
-    n_requests: int
     r0: int
-    concurrency: int  # 0: open loop
     sketch: tuple  # (bins_per_octave, min_exp)
 
 
 def _prepare_stream(tables, variant, lanes, carry, n_requests, patches, salts, idx, plans, r0, arrivals,
                     concurrency, xfer, sketch) -> _Stream:
-    tables = list(tables)
     if (salts is None) == (idx is None):
         raise ValueError("vtime_stream: give salts (hashed indices) or idx (presampled), not both")
-    idx = None if idx is None else list(idx)
-    tensors = [*tables, *(idx or []), variant, lanes, *carry] + [t for t in (arrivals, xfer) if t is not None]
-    if not all(isinstance(t, torch.Tensor) for t in tensors):
-        raise TypeError("vtime_stream takes torch tensors")
-    dev = variant.device
-    if any(t.device != dev for t in tensors):
-        raise ValueError("vtime_stream: every input must lie on one device")
-    L = len(tables)
-    if L < 1 or L > MAX_LAYERS:
-        raise ValueError(f"vtime_stream: {L} layer tables (1 to {MAX_LAYERS})")
-    tables = [t.to(_F64).contiguous() for t in tables]
-    V = tables[0].shape[0]
-    if any(t.dim() != 3 or t.shape[0] != V or min(t.shape) < 1 for t in tables):
-        raise ValueError(f"tables must be (V, S_l, B_l) with one V, got {[tuple(t.shape) for t in tables]}")
-    N = int(n_requests)
-    if idx is not None:
-        idx = [i.to(torch.int32).contiguous() for i in idx]
-        if len(idx) != L or any(i.dim() != 2 or i.shape[0] < N for i in idx):
-            raise ValueError(f"idx must be (>= {N}, P_l) per layer, got {[tuple(i.shape) for i in idx]}")
-        patches = [int(i.shape[1]) for i in idx]
-        idx = [i[:N].contiguous() for i in idx]
-    else:
+    p = _prepare(tables, idx, patches, variant, lanes, n_requests, arrivals, concurrency, xfer, carry=tuple(carry),
+                 r0=int(r0), stream=True)
+    C, L = p.variant.shape[0], len(p.patches)
+    if salts is not None:
         salts = [int(s) & _M32 for s in salts]
         if len(salts) != L:
             raise ValueError(f"{len(salts)} salts for {L} layers")
-    patches = [int(x) for x in patches]
-    if len(patches) != L or min(patches) < 1:
-        raise ValueError(f"patches must be {L} positive counts, got {patches}")
-    variant = variant.reshape(-1).to(torch.int32).contiguous()
-    C = variant.shape[0]
-    n_pools = sum(t.shape[2] for t in tables)
-    if n_pools > MAX_POOLS:
-        raise ValueError(f"vtime_stream: {n_pools} pools, at most {MAX_POOLS}")
-    lanes = lanes.to(torch.int32).contiguous()
-    if tuple(lanes.shape) != (C, n_pools):
-        raise ValueError(f"lanes {tuple(lanes.shape)} != (C={C}, pools={n_pools})")
-    lanes_np = lanes.cpu().numpy()
-    if lanes_np.size and (lanes_np.min() < 0 or lanes_np.max() > MAX_LANES):
-        raise ValueError(f"lanes must lie in [0, {MAX_LANES}]")
     plans = np.ones((C, L, 2), dtype=np.int64) * np.array([1, 0]) if plans is None else \
         np.broadcast_to(np.asarray(plans, dtype=np.int64), (C, L, 2)).copy()
-    P = np.asarray(patches)[None, :]
+    P = np.asarray(p.patches)[None, :]
     if np.any(plans[..., 0] < 1) or np.any(plans[..., 1] < 0) or np.any(plans[..., 0] * plans[..., 1] > P):
         raise ValueError("plans must hold (K >= 1, n_bulk >= 0) with K * n_bulk <= P_l")
     if idx is not None and np.any(plans[..., 1] > 0):
         raise ValueError("presampled indices take exact plans only")
-    _, _, stride = _layout(lanes_np)
+    _, _, stride = _layout(p.host_lanes)
     st, ring, counts, moments, horizon = (t.to(_F64).contiguous() for t in carry)
     if st.dim() != 2 or st.shape[0] != C or st.shape[1] < stride:
         raise ValueError(f"state {tuple(st.shape)} must be ({C}, >= {stride})")
-    conc = 0 if concurrency is None else int(concurrency)
-    if (arrivals is None) == (concurrency is None):
-        raise ValueError("give arrivals (open loop) or concurrency (closed loop), not both")
-    if arrivals is not None:
-        arrivals = arrivals.to(_F64).contiguous()
-        if arrivals.dim() != 2 or arrivals.shape[0] != C or arrivals.shape[1] < N:
-            raise ValueError(f"arrivals {tuple(arrivals.shape)} must be ({C}, >= {N})")
-        arrivals = arrivals[:, :N].contiguous()
-    elif conc < 1:
-        raise ValueError(f"concurrency must be >= 1, got {concurrency}")
+    conc = p.concurrency
     if ring.dim() != 2 or ring.shape[0] != C or ring.shape[1] < max(1, conc):
         raise ValueError(f"ring {tuple(ring.shape)} must be ({C}, >= {max(1, conc)})")
     if counts.dim() != 2 or counts.shape[0] != C or moments.shape != (C, 5) or horizon.shape != (C,):
         raise ValueError("counts (C, n_bins), moments (C, 5) and horizon (C,) expected")
-    if xfer is not None:
-        xfer = xfer.to(_F64).contiguous()
-        if tuple(xfer.shape) != (C, L):
-            raise ValueError(f"xfer {tuple(xfer.shape)} != ({C}, {L})")
-    checks = [((variant >= 0) & (variant < V)).all(), torch.stack([(t >= 0).all() for t in tables]).all()]
-    if idx is not None:
-        checks += [((i >= 0) & (i < t.shape[1])).all() for i, t in zip(idx, tables)]
-    ok = torch.stack(checks).tolist() if C else [True] * len(checks)
-    if not ok[0]:
-        raise ValueError(f"variant out of range for {V} variants")
-    if not ok[1]:
-        raise ValueError("service times must be >= 0 (and not NaN)")
-    if not all(ok[2:]):
-        raise ValueError("a sample index is out of range of its layer's table")
-    return _Stream(tables, patches, None if idx is not None else salts, idx, plans, variant, lanes,
-                   StreamState(st, ring, counts, moments, horizon), arrivals, xfer, N, int(r0), conc,
+    return _Stream(p, salts, plans, StreamState(st, ring, counts, moments, horizon), int(r0),
                    (int(sketch[0]), int(sketch[1])))
 
 
@@ -886,26 +899,28 @@ def _chunk_jobs(svc: torch.Tensor, k: int, nb: int) -> torch.Tensor:
     return torch.cat([acc, svc[:, nb * k :]], dim=1)
 
 
-def _stream_plain(p: _Stream, emit: bool):
+def _stream_plain(s: _Stream, emit: bool):
     """The streaming recurrence in torch, batched over the configs (those
     that share a layer's plan together), float64."""
-    dev = p.variant.device
-    C, N, L = p.variant.shape[0], p.n_requests, len(p.tables)
+    p = s.p
+    dev = p.device
+    C, N, L = p.variant.shape[0], p.n_requests, len(p.patches)
     inf = float("inf")
-    blocks = [t.shape[2] for t in p.tables]
-    lanes_np = p.lanes.cpu().numpy().astype(np.int64)
-    dense = stream_dense(p.carry.state, lanes_np, blocks)
+    blocks = list(p.tables.blocks)
+    lanes_np = p.host_lanes.astype(np.int64)
+    dense = stream_dense(s.carry.state, lanes_np, blocks)
     masks, q = [], 0
     for b in blocks:
         masks.append(p.lanes[:, q : q + b] > 0)
         q += b
     v = p.variant.long()
-    cyc = [t[v] for t in p.tables]  # (C, S_l, B_l)
-    ring = p.carry.ring.clone()
-    counts = p.carry.counts.clone()
-    n, mn, mx, mean, m2 = (p.carry.moments[:, k].clone() for k in range(5))
-    hor = p.carry.horizon.clone()
-    F, min_exp = p.sketch
+    cyc = [p.tables.layer(li)[v] for li in range(L)]  # (C, S_l, B_l)
+    idx = None if p.idx is None else [p.layer_idx(li) for li in range(L)]
+    ring = s.carry.ring.clone()
+    counts = s.carry.counts.clone()
+    n, mn, mx, mean, m2 = (s.carry.moments[:, k].clone() for k in range(5))
+    hor = s.carry.horizon.clone()
+    F, min_exp = s.sketch
     n_bins = counts.shape[1]
     t_arr = torch.zeros((C, N), dtype=_F64, device=dev) if emit else None
     comp = torch.zeros((C, N), dtype=_F64, device=dev) if emit else None
@@ -913,11 +928,11 @@ def _stream_plain(p: _Stream, emit: bool):
     for li in range(L):
         keys = {}
         for c in range(C):
-            keys.setdefault(tuple(int(x) for x in p.plans[c, li]), []).append(c)
+            keys.setdefault(tuple(int(x) for x in s.plans[c, li]), []).append(c)
         groups.append([(k, nb, torch.as_tensor(cs, device=dev)) for (k, nb), cs in keys.items()])
     rows_c = torch.arange(C, device=dev)
     for i in range(N):
-        r = p.r0 + i
+        r = s.r0 + i
         if p.concurrency == 0:
             t = p.arrivals[:, i]
         else:
@@ -926,21 +941,21 @@ def _stream_plain(p: _Stream, emit: bool):
         for li in range(L):
             if p.xfer is not None:
                 t = t + p.xfer[:, li]
-            if p.idx is not None:
-                rows = p.idx[li][i].long()
+            if idx is not None:
+                rows = idx[li][i].long()
             else:
-                rows = stream_hash(p.salts[li], r, p.patches[li], p.tables[li].shape[1], dev)
+                rows = stream_hash(s.salts[li], r, p.patches[li], p.tables.samples[li], dev)
             svc = cyc[li][:, rows, :]  # (C, P_l, B_l)
             done = t.clone()
             for k, nb, cs in groups[li]:
-                s = _chunk_jobs(svc[cs], k, nb)
+                jobs = _chunk_jobs(svc[cs], k, nb)
                 tc = t[cs]
                 free = torch.maximum(dense[li][cs], tc[:, None, None])
                 mask = masks[li][cs]
                 acc = tc
                 pad = torch.full_like(free[..., :1], inf)
-                for j in range(s.shape[1]):
-                    end = free[..., 0] + s[:, j, :]
+                for j in range(jobs.shape[1]):
+                    end = free[..., 0] + jobs[:, j, :]
                     up = torch.cat([free[..., 1:], pad], dim=-1)
                     free = torch.minimum(torch.maximum(free, end[..., None]), up)
                     acc = torch.maximum(acc, torch.where(mask, end, -inf).amax(dim=-1))
@@ -966,51 +981,43 @@ def _stream_plain(p: _Stream, emit: bool):
             t_arr[:, i] = t0
             comp[:, i] = t
     state = stream_flat(dense, lanes_np, blocks)
-    if state.shape[1] < p.carry.state.shape[1]:
-        state = torch.cat([state, p.carry.state[:, state.shape[1]:]], dim=1)
+    if state.shape[1] < s.carry.state.shape[1]:
+        state = torch.cat([state, s.carry.state[:, state.shape[1]:]], dim=1)
     out = StreamState(state, ring, counts, torch.stack([n, mn, mx, mean, m2], dim=1), hor)
     return out, ((t_arr, comp) if emit else None)
 
 
-def _stream_plan(p: _Stream) -> KernelPlan:
+def _stream_plan(s: _Stream) -> KernelPlan:
     """``kernel_plan`` for a streaming launch: each layer weighs its
     macro-jobs and exact tail (the plans), and the carry's lanes stay
     where ``stream_state`` put them (a stage's pools are one slice of it)."""
-    blocks = [t.shape[2] for t in p.tables]
-    jobs = p.plans[..., 1] + np.asarray(p.patches)[None, :] - p.plans[..., 1] * p.plans[..., 0]
-    return kernel_plan(p.lanes.cpu().numpy(), blocks, p.patches, jobs=jobs, stream=True,
-                       **_limits(p.variant.device, True, False))
+    p = s.p
+    jobs = s.plans[..., 1] + np.asarray(p.patches)[None, :] - s.plans[..., 1] * s.plans[..., 0]
+    return kernel_plan(p.host_lanes, p.tables.blocks, p.patches, jobs=jobs, stream=True,
+                       **_limits(p.device, True, False))
 
 
-def _stream_launch(p: _Stream, emit: bool):
+def _stream_launch(s: _Stream, emit: bool):
     """One streaming launch as C clusters of the plan's stages; a refused
     launch raises."""
-    dev = p.variant.device
-    C, N, L = p.variant.shape[0], p.n_requests, len(p.tables)
-    V = p.tables[0].shape[0]
-    plan = _stream_plan(p)
-    tbl_off, meta = _meta(p.tables, p.patches, N)
-    tables = torch.cat([t.reshape(-1) for t in p.tables])
-    idx = None if p.idx is None else torch.cat([i.reshape(-1) for i in p.idx])
-    salts = None if p.salts is None else torch.as_tensor(
-        np.asarray(p.salts, dtype=np.uint32).view(np.int32), device=dev)
-    plans = torch.as_tensor(p.plans.astype(np.int32), device=dev)
-    st, ring, counts, moments, horizon = (t.clone() for t in p.carry)
+    p = s.p
+    dev = p.device
+    C, N, L = p.variant.shape[0], p.n_requests, len(p.patches)
+    plan = _stream_plan(s)
+    salts = np.asarray(s.salts or [], dtype=np.uint32).view(np.int32)
+    salts, plans = to_device(dev, salts, s.plans.astype(np.int32))
+    st, ring, counts, moments, horizon = (t.clone() for t in s.carry)
     t_arr = torch.empty((C, N), dtype=_F64, device=dev) if emit else None
     comp = torch.empty((C, N), dtype=_F64, device=dev) if emit else None
-    tbl_off, meta = tbl_off.to(dev), meta.to(dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = _stream_launcher()(
-            tables.data_ptr(), tbl_off.data_ptr(), meta.data_ptr(), ptr(salts), ptr(idx), plans.data_ptr(),
-            p.variant.data_ptr(), p.lanes.data_ptr(), ptr(p.arrivals), ptr(p.xfer), st.data_ptr(), st.shape[1],
-            ring.data_ptr(), ring.shape[1], counts.data_ptr(), counts.shape[1], p.sketch[0], p.sketch[1],
-            moments.data_ptr(), horizon.data_ptr(), ptr(t_arr), ptr(comp), p.r0,
-            C, N, L, V, p.lanes.shape[1], p.concurrency, plan.kmax, plan.chunk, plan.threads,
+            p.tables.flat.data_ptr(), p.tables.tbl_off.data_ptr(), p.meta.data_ptr(),
+            None if s.salts is None else salts.data_ptr(), _ptr(p.idx), plans.data_ptr(),
+            p.variant.data_ptr(), p.lanes.data_ptr(), _ptr(p.arrivals), _ptr(p.xfer), st.data_ptr(), st.shape[1],
+            ring.data_ptr(), ring.shape[1], counts.data_ptr(), counts.shape[1], s.sketch[0], s.sketch[1],
+            moments.data_ptr(), horizon.data_ptr(), _ptr(t_arr), _ptr(comp), s.r0,
+            C, N, L, p.tables.variants, p.lanes.shape[1], p.concurrency, plan.kmax, plan.chunk, plan.threads,
             plan.consumer_warps, int(plan.smem_state), plan.state_stride, plan.stages, _split_arg(plan), stream,
             None,
         )
@@ -1020,26 +1027,26 @@ def _stream_launch(p: _Stream, emit: bool):
     return StreamState(st, ring, counts, moments, horizon), ((t_arr, comp) if emit else None)
 
 
-def vtime_stream_ref(tables, variant, lanes, carry, *, n_requests, patches=None, salts=None, idx=None,
+def vtime_stream_ref(tables, variant, lanes, carry, *, n_requests, patches, salts=None, idx=None,
                      plans=None, r0=0, arrivals=None, concurrency=None, xfer=None, emit=False, sketch=(32, 0)):
-    """Plain PyTorch version of the streaming entry, on the inputs' device:
+    """Plain PyTorch version of the streaming entry, on the tables' device:
     the recurrence batched over the configs, a Python loop over requests
     and jobs.  Arguments and outputs as for ``vtime_stream``."""
-    p = _prepare_stream(tables, variant, lanes, carry, n_requests, patches, salts, idx, plans, r0, arrivals,
+    s = _prepare_stream(tables, variant, lanes, carry, n_requests, patches, salts, idx, plans, r0, arrivals,
                         concurrency, xfer, sketch)
-    return _stream_plain(p, bool(emit))
+    return _stream_plain(s, bool(emit))
 
 
 def vtime_stream(
-    tables,  # per layer (V, S_l, B_l) float64 service tables, one per variant
-    variant,  # (C,) the table variant of each config
-    lanes,  # (C, sum_l B_l) lane slots per pool (0: unused pool)
+    tables: VTTables,  # the service tables, one per variant (vt_tables)
+    variant,  # (C,) host array: the table variant of each config
+    lanes,  # (C, sum_l B_l) host array: lane slots per pool (0: unused pool)
     carry: StreamState,  # lane state, ring, sketch, horizon (stream_state for a fresh one)
     *,
     n_requests: int,  # requests of this segment
-    patches=None,  # per layer P_l (hash mode)
+    patches,  # per layer P_l, the jobs a request
     salts=None,  # per layer hash salts: indices hashed from (salt, r0 + i, patch)
-    idx=None,  # or per layer (N, P_l) presampled indices
+    idx=None,  # or the flat presampled indices of requests 0, 1, ... (as for vtime_scan): this segment's from r0 on
     plans=None,  # (C, L, 2) or (L, 2) macro-job plans (K, n_bulk); None: exact
     r0: int = 0,  # global id of the segment's first request
     arrivals=None,  # (C, N) arrival times: the open loop
@@ -1049,7 +1056,7 @@ def vtime_stream(
     sketch: tuple = (32, 0),  # (bins_per_octave, min_exp) of the sketch
 ):
     """One segment of the streaming replay over C configs ->
-    ``(carry', (t_arr, comp) or None)``, float64 on the inputs' device.
+    ``(carry', (t_arr, comp) or None)``, float64 on the tables' device.
 
     Every request runs VT's recurrence against the carried lanes; its
     latency goes into the sketch (bucket count, n, min, max, Welford mean
@@ -1062,13 +1069,13 @@ def vtime_stream(
     CUDA tensors launch the kernel on the current stream (no
     synchronisation) and add one to ``vtime_stream.launches``; CPU tensors
     run ``vtime_stream_ref``.  A failure to build or launch raises."""
-    p = _prepare_stream(tables, variant, lanes, carry, n_requests, patches, salts, idx, plans, r0, arrivals,
+    s = _prepare_stream(tables, variant, lanes, carry, n_requests, patches, salts, idx, plans, r0, arrivals,
                         concurrency, xfer, sketch)
-    if p.variant.device.type == "cpu":
-        return _stream_plain(p, bool(emit))
-    if p.variant.device.type != "cuda":
-        raise ValueError(f"no kernel for device {p.variant.device}")
-    return _stream_launch(p, bool(emit))
+    if s.p.device.type == "cpu":
+        return _stream_plain(s, bool(emit))
+    if s.p.device.type != "cuda":
+        raise ValueError(f"no kernel for device {s.p.device}")
+    return _stream_launch(s, bool(emit))
 
 
 vtime_stream.launches = 0

@@ -34,6 +34,7 @@ from repro_torch.kernels.vtime_scan import (
     stream_dense,
     stream_hash,
     stream_state,
+    vt_tables,
     vtime_stream,
     vtime_stream_ref,
 )
@@ -140,11 +141,10 @@ def test_vtime_stream_ref_matches_reference_kernel(ref, setup, coarsen, loop):
     tc = None if coarsen is None else TF.CoarsenConfig(tail_lanes=coarsen)
     plans = TFL._group_plans(tvt, tvt._groups(ta), len(ta), tc)
     carry = stream_state(lanes, lanes, n_bins=cfg.n_bins, ring_len=conc or 1, device="cpu")
-    lanes_t = torch.as_tensor(lanes)
     ys_all = []
     for r0, n in ((0, 6), (6, 5)):
         arr = None if conc else torch.as_tensor(np.broadcast_to(times[r0 : r0 + n], (2, n)).copy())
-        carry, ys = vtime_stream_ref(tables, variant, lanes_t, carry, n_requests=n, patches=patches,
+        carry, ys = vtime_stream_ref(tables, variant, lanes, carry, n_requests=n, patches=patches,
                                      salts=tsalts, plans=plans, r0=r0, arrivals=arr, concurrency=conc,
                                      emit=True)
         ys_all.append(ys)
@@ -170,9 +170,10 @@ def test_vtime_stream_ref_matches_reference_kernel(ref, setup, coarsen, loop):
 
 
 def test_vtime_stream_checks_inputs():
-    tables = [torch.ones((1, 4, 2), dtype=torch.float64)]
-    var, lanes = torch.zeros(2, dtype=torch.int32), torch.ones((2, 2), dtype=torch.int32)
-    carry = stream_state(lanes.numpy(), lanes.numpy(), n_bins=8, ring_len=2, device="cpu")
+    one = torch.ones((1, 4, 2), dtype=torch.float64)
+    tables = vt_tables([one])
+    var, lanes = np.zeros(2, dtype=np.int32), np.ones((2, 2), dtype=np.int32)
+    carry = stream_state(lanes, lanes, n_bins=8, ring_len=2, device="cpu")
     kw = dict(n_requests=3, patches=[5])
     with pytest.raises(ValueError, match="salts"):
         vtime_stream(tables, var, lanes, carry, concurrency=2, **kw)
@@ -180,8 +181,14 @@ def test_vtime_stream_checks_inputs():
         vtime_stream(tables, var, lanes, carry, salts=[1], concurrency=2, plans=[[[3, 2]]], **kw)
     with pytest.raises(ValueError, match="ring"):
         vtime_stream(tables, var, lanes, carry, salts=[1], concurrency=3, **kw)
-    with pytest.raises(ValueError, match=">= 0"):
-        vtime_stream([-tables[0]], var, lanes, carry, salts=[1], concurrency=2, **kw)
+    for bad in (-one, one * float("nan")):  # checked once, where the tables are packed
+        with pytest.raises(ValueError, match=">= 0"):
+            vt_tables([bad])
+    idx = torch.zeros(4 * 5, dtype=torch.int32)  # requests 0 to 3
+    with pytest.raises(ValueError, match="idx"):
+        vtime_stream(tables, var, lanes, carry, idx=idx, r0=2, concurrency=2, **kw)
+    with pytest.raises(ValueError, match="out of range"):
+        vtime_stream(tables, var, lanes, carry, idx=idx + 4, r0=1, concurrency=2, **kw)
     out, ys = vtime_stream(tables, var, lanes, carry, salts=[1], concurrency=1, emit=True, **kw)
     # one server a pool, 5 jobs of 1 cycle each, one request at a time
     np.testing.assert_array_equal(ys[1].numpy(), [[5.0, 10.0, 15.0]] * 2)
@@ -397,13 +404,13 @@ def test_vtime_stream_equals_plain_on_card(mode, max_lanes):
     rng = np.random.default_rng(max_lanes)
     L, V, C, N = 4, 2, 5, 7
     shapes = [(int(rng.integers(2, 40)), int(rng.integers(1, 12)), int(rng.integers(1, 40))) for _ in range(L)]
-    tables = [torch.as_tensor(np.floor(rng.random((V, s, b)) * 300.0), device=dev) for s, b, _ in shapes]
+    tables = vt_tables([torch.as_tensor(np.floor(rng.random((V, s, b)) * 300.0), device=dev) for s, b, _ in shapes])
     patches = [p for _, _, p in shapes]
     n_pools = sum(b for _, b, _ in shapes)
     lanes = rng.integers(0, max_lanes + 1, (C, n_pools))
     servers = np.minimum(lanes, rng.integers(1, max_lanes + 1, (C, n_pools)))  # a pool keeps a server
     lanes[0, 0] = servers[0, 0] = max_lanes
-    var = torch.as_tensor(rng.integers(0, V, C), dtype=torch.int32, device=dev)
+    var = rng.integers(0, V, C)
     conc = 3 if mode == "hash_closed" else None
     plans = None
     if mode == "coarsen":
@@ -412,19 +419,19 @@ def test_vtime_stream_equals_plain_on_card(mode, max_lanes):
     xfer = torch.as_tensor(rng.random((C, L)) * 50.0, device=dev)
     carry = stream_state(lanes, servers, n_bins=64, ring_len=conc or 1, device=dev)
     carry_h = carry
-    idx = [torch.as_tensor(rng.integers(0, s, (2 * N, p)), dtype=torch.int32, device=dev) for s, _, p in shapes]
+    idx = torch.as_tensor(np.concatenate([rng.integers(0, s, 2 * N * p) for s, _, p in shapes]).astype(np.int32),
+                          device=dev)
     arr = torch.as_tensor(np.cumsum(rng.exponential(300.0, (C, 2 * N)), axis=1), device=dev)
-    lanes_t = torch.as_tensor(lanes, device=dev)
     for r0 in (0, N):
         kw = dict(n_requests=N, patches=patches, plans=plans, r0=r0, xfer=xfer, emit=True, sketch=(8, 2),
                   concurrency=conc, arrivals=None if conc else arr[:, r0:])
         if mode == "presampled":
-            kw.update(idx=[i[r0:] for i in idx])
+            kw.update(idx=idx)
         else:
             kw.update(salts=[int(x) for x in rng.integers(0, 2**32, L)])
         before = vtime_stream.launches
-        carry, ys = vtime_stream(tables, var, lanes_t, carry, **kw)
-        carry_h, ys_h = vtime_stream_ref(tables, var, lanes_t, carry_h, **kw)
+        carry, ys = vtime_stream(tables, var, lanes, carry, **kw)
+        carry_h, ys_h = vtime_stream_ref(tables, var, lanes, carry_h, **kw)
         torch.cuda.synchronize()
         assert vtime_stream.launches == before + 1
         for g, w in zip((*carry, *ys), (*carry_h, *ys_h)):
@@ -493,26 +500,26 @@ def test_stream_segments_across_stage_counts_on_card(mode, order, force_stages):
     rng = np.random.default_rng(11)
     L, V, C, N = 4, 2, 5, 9
     shapes = [(int(rng.integers(2, 40)), int(rng.integers(1, 12)), int(rng.integers(4, 40))) for _ in range(L)]
-    tables = [torch.as_tensor(np.floor(rng.random((V, s, b)) * 300.0), device=dev) for s, b, _ in shapes]
+    tables = vt_tables([torch.as_tensor(np.floor(rng.random((V, s, b)) * 300.0), device=dev) for s, b, _ in shapes])
     patches = [p for _, _, p in shapes]
     n_pools = sum(b for _, b, _ in shapes)
     lanes = rng.integers(0, 60, (C, n_pools))
     lanes[:, 0] = 40
-    var = torch.as_tensor(rng.integers(0, V, C), dtype=torch.int32, device=dev)
+    var = rng.integers(0, V, C)
     conc = 3 if mode == "hash_closed" else None
     plans = None
     if mode == "coarsen":
         plans = np.array([[chunk_plan(p, 2, TF.CoarsenConfig(tail_lanes=1)) for p in patches] for _ in range(C)])
-    idx = [torch.as_tensor(rng.integers(0, s, (2 * N, p)), dtype=torch.int32, device=dev) for s, _, p in shapes]
+    idx = torch.as_tensor(np.concatenate([rng.integers(0, s, 2 * N * p) for s, _, p in shapes]).astype(np.int32),
+                          device=dev)
     arr = torch.as_tensor(np.cumsum(rng.exponential(300.0, (C, 2 * N)), axis=1), device=dev)
-    lanes_t = torch.as_tensor(lanes, device=dev)
     salts = [int(x) for x in rng.integers(0, 2**32, L)]
 
     def segment(carry, r0, n):
         kw = dict(n_requests=n, patches=patches, plans=plans, r0=r0, emit=True, concurrency=conc,
                   arrivals=None if conc else arr[:, r0:])
-        kw.update(idx=[i[r0:] for i in idx]) if mode == "presampled" else kw.update(salts=salts)
-        return vtime_stream(tables, var, lanes_t, carry, **kw)
+        kw.update(idx=idx) if mode == "presampled" else kw.update(salts=salts)
+        return vtime_stream(tables, var, lanes, carry, **kw)
 
     fresh = stream_state(lanes, lanes, n_bins=64, ring_len=conc or 1, device=dev)
     force_stages(2)
@@ -539,12 +546,11 @@ def test_stream_wide_macro_jobs_on_card(stages, force_stages):
     rng = np.random.default_rng(17)
     V, C, N = 2, 3, 3
     shapes = [(50, 3, 3100), (20, 4, 12)]
-    tables = [torch.as_tensor(np.floor(rng.random((V, s, b)) * 300.0), device=dev) for s, b, _ in shapes]
+    tables = vt_tables([torch.as_tensor(np.floor(rng.random((V, s, b)) * 300.0), device=dev) for s, b, _ in shapes])
     patches = [p for _, _, p in shapes]
     lanes = rng.integers(1, 40, (C, sum(b for _, b, _ in shapes)))
     plans = np.array([[(1500, 2), (1, 0)], [(2500, 1), (3, 4)], [(1100, 2), (1, 0)]])
-    var = torch.as_tensor(rng.integers(0, V, C), dtype=torch.int32, device=dev)
-    lanes_t = torch.as_tensor(lanes, device=dev)
+    var = rng.integers(0, V, C)
     salts = [int(x) for x in rng.integers(0, 2**32, len(shapes))]
     arr = torch.as_tensor(np.cumsum(rng.exponential(3e5, (C, N)), axis=1), device=dev)
     force_stages(stages)
@@ -553,8 +559,8 @@ def test_stream_wide_macro_jobs_on_card(stages, force_stages):
         kw = dict(n_requests=N, patches=patches, salts=salts, plans=plans, emit=True, concurrency=conc,
                   arrivals=None if conc else arr)
         before = vtime_stream.launches
-        got, ys = vtime_stream(tables, var, lanes_t, carry, **kw)
-        want, ys_h = vtime_stream_ref(tables, var, lanes_t, carry, **kw)
+        got, ys = vtime_stream(tables, var, lanes, carry, **kw)
+        want, ys_h = vtime_stream_ref(tables, var, lanes, carry, **kw)
         torch.cuda.synchronize()
         assert vtime_stream.launches == before + 1
         for name, g, w in zip(got._fields, got, want):

@@ -226,7 +226,7 @@ def _imports(path: pathlib.Path) -> set[str]:
 
 
 def test_port_sources_import_neither_jax_nor_reference():
-    scripts = [ROOT / "chip_smoke.py", ROOT / "chip_decode_rope.py", ROOT / "chip_vt_variants.py"]
+    scripts = [ROOT / "chip_smoke.py", ROOT / "chip_vt_variants.py"]
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + scripts
     names = {str(f.relative_to(ROOT / "src")) for f in files[:-len(scripts)]}
     for module in (

@@ -28,7 +28,7 @@ import repro_torch as T
 import repro_torch.fabric as TF
 from repro_torch.core.cim.profile import LayerProfile, NetworkProfile
 from repro_torch.fabric.vtime import dispatch_step
-from repro_torch.kernels.vtime_scan import kernel_plan, vtime_scan, vtime_scan_ref
+from repro_torch.kernels.vtime_scan import kernel_plan, vt_tables, vtime_scan, vtime_scan_ref
 
 CLOCK_HZ = 1e8
 
@@ -536,26 +536,138 @@ def test_chain_weights():
 
 
 def test_vtime_scan_checks_inputs():
-    tables = [torch.ones((1, 4, 2), dtype=torch.float64)]
-    idx = [torch.zeros((3, 5), dtype=torch.int32)]
-    var, lanes = torch.zeros(2, dtype=torch.int32), torch.ones((2, 2), dtype=torch.int32)
+    one = torch.ones((1, 4, 2), dtype=torch.float64)
+    tables = vt_tables([one])
+    idx = torch.zeros(3 * 5, dtype=torch.int32)
+    var, lanes = np.zeros(2, dtype=np.int32), np.ones((2, 2), dtype=np.int32)
     with pytest.raises(ValueError, match="not both"):
-        vtime_scan(tables, idx, var, lanes, n_requests=3)
+        vtime_scan(tables, idx, [5], var, lanes, n_requests=3)
     with pytest.raises(ValueError, match="lanes"):
-        vtime_scan(tables, idx, var, lanes[:, :1], n_requests=3, concurrency=2)
+        vtime_scan(tables, idx, [5], var, lanes[:, :1], n_requests=3, concurrency=2)
     with pytest.raises(ValueError, match="out of range"):
-        vtime_scan(tables, [idx[0] + 4], var, lanes, n_requests=3, concurrency=2)
+        vtime_scan(tables, idx + 4, [5], var, lanes, n_requests=3, concurrency=2)
     with pytest.raises(ValueError, match="variant"):
-        vtime_scan(tables, idx, var + 1, lanes, n_requests=3, concurrency=2)
-    with pytest.raises(ValueError, match=">= 0"):
-        vtime_scan([-tables[0]], idx, var, lanes, n_requests=3, concurrency=2)
+        vtime_scan(tables, idx, [5], var + 1, lanes, n_requests=3, concurrency=2)
+    for bad in (-one, one * float("nan")):  # checked once, where the tables are packed
+        with pytest.raises(ValueError, match=">= 0"):
+            vt_tables([bad])
     with pytest.raises(ValueError, match="lanes"):
-        vtime_scan(tables, idx, var, lanes * 70_000, n_requests=3, concurrency=2)
-    t_arr, comp, busy, wait = vtime_scan(tables, idx, var, lanes, n_requests=3, concurrency=1)
+        vtime_scan(tables, idx, [5], var, lanes * 70_000, n_requests=3, concurrency=2)
+    with pytest.raises(ValueError, match="idx"):
+        vtime_scan(tables, idx[:10], [5], var, lanes, n_requests=3, concurrency=2)
+    with pytest.raises(ValueError, match="patches"):
+        vtime_scan(tables, idx, [5, 5], var, lanes, n_requests=3, concurrency=2)
+    with pytest.raises(TypeError, match="vt_tables"):
+        vtime_scan([one], idx, [5], var, lanes, n_requests=3, concurrency=2)
+    t_arr, comp, busy, wait = vtime_scan(tables, idx, [5], var, lanes, n_requests=3, concurrency=1)
     # one server a pool, 5 jobs of 1 cycle each, one request at a time
     np.testing.assert_array_equal(comp.numpy(), [[5.0, 10.0, 15.0]] * 2)
     np.testing.assert_array_equal(t_arr.numpy(), [[0.0, 5.0, 10.0]] * 2)
     assert busy is None and wait is None
+
+
+# ------------------------------------------- the layout the launches read
+def _per_call_layout(tables, idx, n_requests):
+    """The buffers the launches read as they were built on every call before
+    the tables were packed once: per-layer tables and (n_requests, P_l)
+    indices concatenated, the tables' (L, V) offsets and the (L, 5) meta."""
+    V = tables[0].shape[0]
+    blocks = torch.tensor([t.shape[2] for t in tables], dtype=torch.int64)
+    pt = torch.tensor([i.shape[1] for i in idx], dtype=torch.int64)
+    sizes = torch.tensor([t.numel() for t in tables], dtype=torch.int64)
+    per_v = torch.tensor([t.shape[1] * t.shape[2] for t in tables], dtype=torch.int64)
+    tbl_off = (torch.cumsum(sizes, 0) - sizes)[:, None] + torch.arange(V)[None, :] * per_v[:, None]
+    idx_sizes = pt * int(n_requests)
+    meta = torch.stack([blocks, pt, torch.cumsum(blocks, 0) - blocks, torch.cumsum(idx_sizes, 0) - idx_sizes,
+                        torch.tensor([t.shape[1] for t in tables], dtype=torch.int64)], dim=1)
+    return torch.cat([t.reshape(-1) for t in tables]), tbl_off, meta, torch.cat([i.reshape(-1) for i in idx])
+
+
+def _shaped(net: str, n: int):
+    """A VT problem of ``net``'s shapes: random integer (4, S_l, B_l) tables
+    at S_l = min(128, P_l), (n, P_l) indices and the five policies' lanes."""
+    lanes, blocks, patches = _policy_problem(net)
+    rng = np.random.default_rng(0)
+    samples = [min(128, p) for p in patches]
+    tables = [torch.as_tensor(np.floor(rng.random((4, s, b)) * 400.0)) for s, b in zip(samples, blocks)]
+    idx = [torch.as_tensor(rng.integers(0, s, (n, p)), dtype=torch.int32) for s, p in zip(samples, patches)]
+    return tables, idx, patches, rng.integers(0, 4, len(lanes)), lanes
+
+
+def _same_bytes(a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and a.numpy().tobytes() == b.numpy().tobytes()
+
+
+@pytest.mark.parametrize("net", ["vgg11", "resnet18", "vit_b16"])
+def test_launch_reads_the_per_call_buffers(net):
+    """What VT's launch reads is byte for byte what the per-call
+    concatenation built: the packed tables and their offsets, the draw's
+    flat indices as they come, the meta, and the variant and lanes as
+    int32."""
+    from repro_torch.kernels import vtime_scan as vtk
+
+    n = 3
+    tables, idx, patches, var, lanes = _shaped(net, n)
+    p = vtk._prepare(vt_tables(tables), _flat(idx, "cpu"), patches, var, lanes, n, None, 2, None)
+    for got, want in zip((p.tables.flat, p.tables.tbl_off, p.meta, p.idx), _per_call_layout(tables, idx, n)):
+        assert _same_bytes(got, want)
+    assert _same_bytes(p.variant, torch.as_tensor(var, dtype=torch.int32))
+    assert _same_bytes(p.lanes, torch.as_tensor(lanes, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("mode", ["presampled", "hashed"])
+def test_stream_launch_reads_the_per_call_buffers(mode):
+    """A streaming segment of requests 2 to 5 of 7 on VGG11's shapes.  With
+    presampled indices the launch takes the whole flat buffer and meta's
+    index offsets start at request r0 = 2, so every row the kernel reads
+    (``idx + io_l + r * P_l``, r from 0) is the row of the segment's own
+    concatenation; the tables, their offsets and meta's other columns are
+    the per-call concatenation's byte for byte (with hashed indices all of
+    meta)."""
+    from repro_torch.kernels import vtime_scan as vtk
+
+    r0, n = 2, 4
+    tables, idx, patches, var, lanes = _shaped("vgg11", 7)
+    carry = vtk.stream_state(lanes, lanes, n_bins=8, device="cpu")
+    presampled = mode == "presampled"
+    salts, flat_idx = (None, _flat(idx, "cpu")) if presampled else (list(range(len(patches))), None)
+    s = vtk._prepare_stream(vt_tables(tables), var, lanes, carry, n, patches, salts, flat_idx, None, r0,
+                            torch.zeros((len(lanes), n), dtype=torch.float64), None, None, (32, 0))
+    flat, tbl_off, meta, seg_idx = _per_call_layout(tables, [i[r0 : r0 + n] for i in idx], n)
+    p = s.p
+    assert _same_bytes(p.tables.flat, flat) and _same_bytes(p.tables.tbl_off, tbl_off)
+    if not presampled:
+        assert p.idx is None and _same_bytes(p.meta, meta)
+        return
+    cols = [0, 1, 2, 4]
+    assert _same_bytes(p.meta[:, cols].contiguous(), meta[:, cols].contiguous())
+    for l, P in enumerate(patches):
+        a, b = int(p.meta[l, 3]), int(meta[l, 3])
+        assert _same_bytes(p.idx[a : a + n * P], seg_idx[b : b + n * P])
+
+
+@pytest.mark.parametrize("net", ["vgg11", "resnet18", "vit_b16"])
+def test_kernel_plan_reads_the_lanes_host_copy(net, monkeypatch):
+    """``kernel_plan`` gets, for both entries, the lanes the launch reads as
+    the int32 host array a readback of them gave, with the same blocks and
+    patches, and returns the plan it returns for those."""
+    from repro_torch.kernels import vtime_scan as vtk
+
+    tables, idx, patches, var, lanes = _shaped(net, 2)
+    seen, real = [], vtk.kernel_plan
+    monkeypatch.setattr(vtk, "kernel_plan", lambda *a, **kw: seen.append((a, kw)) or real(*a, **kw))
+    plans = [vtk._pack(vtk._prepare(vt_tables(tables), _flat(idx, "cpu"), patches, var, lanes, 2, None, 2, None)).plan]
+    carry = vtk.stream_state(lanes, lanes, n_bins=8, ring_len=2, device="cpu")
+    plans.append(vtk._stream_plan(vtk._prepare_stream(vt_tables(tables), var, lanes, carry, 2, patches,
+                                                      [1] * len(patches), None, None, 0, None, 2, None, (32, 0))))
+    readback = torch.as_tensor(lanes, dtype=torch.int32).numpy()
+    blocks = [t.shape[2] for t in tables]
+    assert len(seen) == 2
+    for (args, kw), plan in zip(seen, plans):
+        assert args[0].dtype == np.int32 and np.array_equal(args[0], readback)
+        assert list(args[1]) == blocks and list(args[2]) == patches
+        assert plan == real(readback, blocks, patches, **kw)
+    np.testing.assert_array_equal(seen[1][1]["jobs"], np.broadcast_to(patches, lanes.shape[:1] + (len(patches),)))
 
 
 # ------------------------------------------------------------ on the card
@@ -576,6 +688,11 @@ def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     return torch.device("cuda")
+
+
+def _flat(idx, device):
+    """Per-layer (N, P_l) indices as VT's flat int32 buffer on ``device``."""
+    return torch.as_tensor(np.concatenate([np.asarray(i).ravel() for i in idx]).astype(np.int32), device=device)
 
 
 @pytest.fixture
@@ -659,18 +776,19 @@ def test_vt_equals_plain_on_card(max_lanes, stages, force_stages):
     rng = np.random.default_rng(max_lanes)
     L, V, C, N = 8, 3, 7, 9
     shapes = [(int(rng.integers(1, 40)), int(rng.integers(1, 20)), int(rng.integers(0, 30))) for _ in range(L)]
-    tables = [torch.as_tensor(rng.random((V, s, b)) * 100.0, device=dev) for s, b, _ in shapes]
-    idx = [torch.as_tensor(rng.integers(0, s, (N, p)), dtype=torch.int32, device=dev) for s, _, p in shapes]
+    tables = vt_tables([torch.as_tensor(rng.random((V, s, b)) * 100.0, device=dev) for s, b, _ in shapes])
+    idx = _flat([rng.integers(0, s, (N, p)) for s, _, p in shapes], dev)
+    patches = [p for _, _, p in shapes]
     n_pools = sum(b for _, b, _ in shapes)
-    lanes_np = rng.integers(0, max_lanes + 1, (C, n_pools))
-    lanes_np[0, 0] = max_lanes
-    lanes = torch.as_tensor(lanes_np, dtype=torch.int32, device=dev)
-    var = torch.as_tensor(rng.integers(0, V, C), dtype=torch.int32, device=dev)
+    lanes = rng.integers(0, max_lanes + 1, (C, n_pools))
+    lanes[0, 0] = max_lanes
+    var = rng.integers(0, V, C)
     xfer = torch.as_tensor(rng.random((C, L)) * 50.0, device=dev)
     arr = torch.as_tensor(np.cumsum(rng.exponential(300.0, (C, N)), axis=1), device=dev)
     force_stages(stages)
     for kw in (dict(arrivals=arr), dict(concurrency=3, xfer=xfer)):
-        p = vtk._prepare(tables, idx, var, lanes, N, kw.get("arrivals"), kw.get("concurrency"), kw.get("xfer"))
+        p = vtk._prepare(tables, idx, patches, var, lanes, N, kw.get("arrivals"), kw.get("concurrency"),
+                         kw.get("xfer"))
         packed = vtk._pack(p, True)
         assert packed.plan.stages == stages
         if max_lanes > 512:
@@ -678,7 +796,7 @@ def test_vt_equals_plain_on_card(max_lanes, stages, force_stages):
         if max_lanes > 4096:
             assert not packed.plan.smem_state
         got = vtk._launch(packed, True)
-        want = vtime_scan_ref(tables, idx, var, lanes, n_requests=N, collect_stats=True, **kw)
+        want = vtime_scan_ref(tables, idx, patches, var, lanes, n_requests=N, collect_stats=True, **kw)
         torch.cuda.synchronize()
         for g, w in zip(got[:2], want[:2]):
             assert torch.equal(g, w)
@@ -700,20 +818,20 @@ def test_vt_multi_chunk_layers_on_card(closed, stages, force_stages):
     rng = np.random.default_rng(5)
     V, C, N = 2, 3, 6
     shapes = [(30, 6, 700), (12, 3, 20), (20, 9, 400)]
-    tables = [torch.as_tensor(rng.random((V, s, b)) * 100.0, device=dev) for s, b, _ in shapes]
-    idx = [torch.as_tensor(rng.integers(0, s, (N, p)), dtype=torch.int32, device=dev) for s, _, p in shapes]
-    lanes_np = rng.integers(0, 3, (C, 18))
-    lanes_np[:, 0], lanes_np[:, 9] = 300, 40
-    lanes = torch.as_tensor(lanes_np, dtype=torch.int32, device=dev)
-    var = torch.as_tensor(rng.integers(0, V, C), dtype=torch.int32, device=dev)
+    tables = vt_tables([torch.as_tensor(rng.random((V, s, b)) * 100.0, device=dev) for s, b, _ in shapes])
+    idx = _flat([rng.integers(0, s, (N, p)) for s, _, p in shapes], dev)
+    patches = [p for _, _, p in shapes]
+    lanes = rng.integers(0, 3, (C, 18))
+    lanes[:, 0], lanes[:, 9] = 300, 40
+    var = rng.integers(0, V, C)
     kw = dict(concurrency=2) if closed else dict(
         arrivals=torch.as_tensor(np.cumsum(rng.exponential(3e4, (C, N)), axis=1), device=dev))
-    p = vtk._prepare(tables, idx, var, lanes, N, kw.get("arrivals"), kw.get("concurrency"), None)
+    p = vtk._prepare(tables, idx, patches, var, lanes, N, kw.get("arrivals"), kw.get("concurrency"), None)
     force_stages(stages)
     packed = vtk._pack(p, True)
     assert packed.plan.chunk < 6 * 700 and packed.plan.chunk < 9 * 400
     got = vtk._launch(packed, True)
-    want = vtime_scan_ref(tables, idx, var, lanes, n_requests=N, collect_stats=True, **kw)
+    want = vtime_scan_ref(tables, idx, patches, var, lanes, n_requests=N, collect_stats=True, **kw)
     torch.cuda.synchronize()
     for g, w in zip(got[:2], want[:2]):
         assert torch.equal(g, w)
@@ -731,10 +849,10 @@ def test_refused_launch_raises(force_stages):
 
     rng = np.random.default_rng(0)
     L, N = 9, 4
-    tables = [torch.as_tensor(rng.random((1, 8, 2)) * 100.0, device=dev) for _ in range(L)]
-    idx = [torch.as_tensor(rng.integers(0, 8, (N, 5)), dtype=torch.int32, device=dev) for _ in range(L)]
-    lanes = torch.full((3, 2 * L), 2, dtype=torch.int32, device=dev)
-    p = vtk._prepare(tables, idx, torch.zeros(3, dtype=torch.int32, device=dev), lanes, N, None, 2, None)
+    tables = vt_tables([torch.as_tensor(rng.random((1, 8, 2)) * 100.0, device=dev) for _ in range(L)])
+    idx = _flat([rng.integers(0, 8, (N, 5)) for _ in range(L)], dev)
+    lanes, var = np.full((3, 2 * L), 2), np.zeros(3, dtype=np.int32)
+    p = vtk._prepare(tables, idx, [5] * L, var, lanes, N, None, 2, None)
     force_stages(8)
     packed = vtk._pack(p)
     before = vtime_scan.launches
@@ -744,8 +862,7 @@ def test_refused_launch_raises(force_stages):
             vtk._launch(packed._replace(plan=plan), False)
     assert vtime_scan.launches == before
     got = vtk._launch(packed, False)  # the card is still usable
-    want = vtime_scan_ref(tables, idx, torch.zeros(3, dtype=torch.int32, device=dev), lanes, n_requests=N,
-                          concurrency=2)
+    want = vtime_scan_ref(tables, idx, [5] * L, var, lanes, n_requests=N, concurrency=2)
     torch.cuda.synchronize()
     assert torch.equal(got[1], want[1])
 
