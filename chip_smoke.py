@@ -1887,13 +1887,25 @@ def vt_line(gpu, label, n, cold_s=None, warm_s=None):
           f"{n['serial_ms']:.4f} ms (alone at {n['kernel_ms'] / n['serial_ms']:.2f}x it){extra}")
 
 
+def spread_cycles(rng, shape, mean=200.0, cv=0.1):
+    """Integer service cycles at the benchmark cells' spread: a standard
+    deviation of ``cv`` of the mean (their profiles' samples read 0.10 to
+    0.12 of it), at least 1 cycle."""
+    import numpy as np
+
+    return np.maximum(1.0, np.rint(rng.normal(mean, cv * mean, shape)))
+
+
 def vt_lane_costs(gpu, dev, clock_hz):
     """VT's cost by path on synthetic problems (random integer cycles, one
     config, 100 Poisson requests, one stage): cycles a job for one pool of
-    d servers and 1,024 jobs a request (a thread runs d <= 8, a warp more,
-    in registers up to 1,024: 512 is the widest of the KMAX 16 build, 686
-    F8's widest pool, in the KMAX 32 build), and cycles a (request, layer)
-    for 20 layers of one one-job pool."""
+    d servers and 1,024 jobs a request (a thread runs d <= 8, a warp more:
+    one by one up to 32, in merged epochs from 33 to 512, the widest of the
+    KMAX 16 build, one by one again above, 686 F8's widest pool, in the KMAX
+    32 build), with service times of 20 to 400 cycles and again at the
+    cells' spread (``spread_cycles``; ``JOB_CYCLES`` for pools of more than
+    8 servers comes from this row), and cycles a (request, layer) for 20
+    layers of one one-job pool."""
     import numpy as np
     import torch
 
@@ -1901,8 +1913,9 @@ def vt_lane_costs(gpu, dev, clock_hz):
 
     rng = np.random.default_rng(7)
 
-    def ms_of(L, P, d, n=100):
-        tables = vtk.vt_tables([torch.as_tensor(rng.integers(20, 400, (1, 128, 1)).astype(np.float64), device=dev)
+    def ms_of(L, P, d, n=100, spread=False):
+        tables = vtk.vt_tables([torch.as_tensor((spread_cycles(rng, (1, 128, 1)) if spread else
+                                                 rng.integers(20, 400, (1, 128, 1))).astype(np.float64), device=dev)
                                 for _ in range(L)])
         idx = torch.as_tensor(np.concatenate([rng.integers(0, 128, n * P) for _ in range(L)]).astype(np.int32),
                               device=dev)
@@ -1916,11 +1929,13 @@ def vt_lane_costs(gpu, dev, clock_hz):
         return ms * 1e-3 * clock_hz / n
 
     per_job = {d: ms_of(1, 1024, d) / 1024 for d in (1, 2, 4, 8, 32, 64, 128, 256, 512, 686)}
+    at_spread = {d: ms_of(1, 1024, d, spread=True) / 1024 for d in (32, 64, 128, 256, 512, 686, 1024)}
     per_layer = ms_of(20, 1, 1) / 20
     print(f"{gpu}: VT cycles a job by servers in the pool (one 1,024-job pool, one stage; a thread runs <= 8, a "
           f"warp more): " + ", ".join(f"{d}: {c:.1f}" for d, c in per_job.items())
+          + "; at the cells' spread: " + ", ".join(f"{d}: {c:.1f}" for d, c in at_spread.items())
           + f"; a (request, layer) of one job costs {per_layer:.0f} cycles (staging, barrier, completion)")
-    return per_job, per_layer
+    return per_job, at_spread, per_layer
 
 
 def draw_numbers(gpu, dev, seed=3_000_000_019, reps=20):

@@ -67,7 +67,11 @@
 //     keeping lanes 0 and 1: a job's chain is an add and a min, and lane 1
 //     comes back from its owner by a shuffle (the KMAX 32 build keeps lanes
 //     0..kRep on every thread instead, which takes that shuffle off the
-//     chain);
+//     chain); a pool of 33 to 512 servers, in a layer of at least 8
+//     epochs' jobs a request, takes its jobs an epoch of up to 128 at a
+//     time instead, when no end of the epoch falls among the lanes it
+//     pops: the warp computes the epoch's ends at once and merges them,
+//     sorted, into the lanes the epoch leaves (see merge_epoch);
 //   * the kernel is built for the widest pool of a launch (KMAX 1, 4, 16 or
 //     32 lanes a thread), so narrower launches keep fewer registers;
 //   * each stage's pool state (a power of two of lanes a pool, at least 32
@@ -144,6 +148,7 @@ struct Args {
   double* comp;              // (C, N), or null (streaming without emit)
   double* busy;              // (C, L), STATS only
   double* wait;              // (C, L), STATS only
+  unsigned long long* deep;  // VT: (1) jobs that epochs cut short by a deep insert sent one by one, or null
   double* state;             // scan: (C * S, state_stride) scratch rows; streaming: (C, carry_stride) carry
   double* ring;              // streaming: (C, ring_len) closed-loop completions, in and out
   double* counts;            // streaming: (C, n_bins) sketch bucket counts, in and out
@@ -461,16 +466,328 @@ __device__ double run_mem(double* st, const double* sv, int nj, int B, double t,
   return mx;
 }
 
-// One chunk of a layer's jobs over its pools, by the consumer threads: the
-// layer's pools of at most 8 servers a thread each, the wider ones a warp
-// each (lists built once a block, so that no warp takes two pools while
-// another idles).  Folds each pool's largest end into mx and, with STATS,
-// the service and wait sums into bs / ws.
+// ------------------------------------------------------------ merged epochs
+// A warp pool of 33 to 512 servers (kMergeTop; every build but KMAX 1)
+// takes its jobs an epoch of up to `me` at a time (at most 128, three
+// quarters of its servers: merge_shape), its lanes f_0 <= ... <= f_{d-1}
+// sorted in the pool state.  Job i of the epoch pops f_i and ends at e_i =
+// f_i + s_i as long as no earlier end of the epoch is below f_i: then the
+// jobs one by one pop f_0, f_1, ... in turn.  Thread w holds jobs w, w +
+// 32, ...: the warp computes every end at once, and one vote finds whether
+// any end is below the last pop f_{me-1}; if one is (a deep insert), a
+// prefix-min scan of the ends finds the first job whose pop an earlier end
+// undercuts, and the epoch ends before it (the pops it does not take go
+// back in among its ends).  The new lanes are the sorted union of the
+// lanes the epoch leaves and its ends: the multiset the jobs
+// one by one leave, so the same array, bit for bit.  The ends are sorted
+// descending by a bitonic network and merged with the lanes the epoch
+// leaves (ascending, +inf above them) by a bitonic merge, in registers, 32
+// lanes a register, then written back: a job costs a share of the epoch's
+// shuffles, not a pass over every lane.  A chunk's last jobs take an epoch
+// of their own, when they are at least half of one.  An epoch cut to less
+// than half its jobs (a deep insert) sends the next jobs one by one through
+// the lanes in registers (run_warp): me of them, and twice as many after
+// each further such epoch, up to 16 me; so do a chunk's last jobs short of
+// half an epoch (run_merged).  A layer of fewer than kMinEpochs epochs' jobs
+// a request runs them one by one (run_pools): an epoch's code is long (its
+// networks unrolled, a copy for each shape), and launches whose blocks go
+// through pools of many widths with few jobs each lost by it (513 configs
+// of 16 to 512 jobs a layer and pools of 1 to 256 servers: 2.2x the time
+// of one by one at 0 epochs, 1.7x at 4, 1.1x at 8; chip_vt_variants.py).
+// chip_vt_variants.py times kMerge false: every job one by one.
+constexpr bool kMerge = true;
+constexpr int kMergeTop = 512;  // the widest pool that merges epochs
+constexpr int kMinEpochs = 8;   // epochs' jobs a layer needs a request to merge them
+
+// the builds whose warp pools merge epochs (the KMAX 1 build holds no pool
+// wider than 32)
+__host__ __device__ constexpr bool merge_build(int kmax) { return kMerge && kmax > 1; }
+
+__host__ __device__ constexpr bool merge_pool(int d, int kmax) {
+  return merge_build(kmax) && d > 32 && d <= kMergeTop;
+}
+
+// a pool of d servers: nb registers of ends (an epoch of me <= 32 nb jobs)
+// and t registers in all, which hold the d - me lanes the epoch leaves and
+// then the ends
+struct MergeShape {
+  int nb, me, t;
+};
+__device__ __forceinline__ MergeShape merge_shape(int d) {
+  const int nb = d >= 171 ? 4 : d >= 86 ? 2 : 1;
+  const int me = min(32 * nb, 3 * d / 4);
+  return {nb, me, pow2_ceil(nb + (d - me + 31) / 32)};
+}
+
+// a <- the lower of the two, b <- the higher
+__device__ __forceinline__ void cx(double& a, double& b) {
+  const bool sw = b < a;
+  const double lo = sw ? b : a;
+  b = sw ? a : b;
+  a = lo;
+}
+
+// thread w's value after a compare-exchange with lane w ^ dd: the lower of
+// the two when `low`, else the higher
+__device__ __forceinline__ double cx_lane(double x, int dd, bool low) {
+  const double y = __shfl_xor_sync(0xffffffffu, x, dd);
+  return (y < x) == low ? y : x;
+}
+
+__host__ __device__ constexpr int ilog2(int x) { return x <= 1 ? 0 : 1 + ilog2(x / 2); }
+
+// the 32 NB values e[k] of threads w (value 32 k + w) sorted descending
+// (the loops count exponents, so that they unroll and every index is a
+// register)
+template <int NB>
+__device__ __forceinline__ void bitonic_sort_desc(double (&e)[NB], int w) {
+#pragma unroll
+  for (int ls = 1; ls <= ilog2(32 * NB); ++ls) {
+#pragma unroll
+    for (int ld = ls - 1; ld >= 0; --ld) {
+      const int size = 1 << ls, dd = 1 << ld;
+#pragma unroll
+      for (int k = 0; k < NB; ++k) {
+        // the block of `size` values this one is in ascends (the last one
+        // descends, and so the whole)
+        const bool up = size >= 32 ? ((32 * k) & size) != 0 : (w & size) != 0;
+        if (dd >= 32) {
+          const int r = dd / 32;
+          if (!(k & r)) {
+            if (up) cx(e[k], e[k | r]);
+            else cx(e[k | r], e[k]);
+          }
+        } else {
+          e[k] = cx_lane(e[k], dd, ((w & dd) == 0) == up);
+        }
+      }
+    }
+  }
+}
+
+// a bitonic sequence of the 32 T values g[k] of threads w merged ascending
+template <int T>
+__device__ __forceinline__ void bitonic_merge_asc(double (&g)[T], int w) {
+#pragma unroll
+  for (int ld = ilog2(16 * T); ld >= 0; --ld) {
+    const int dd = 1 << ld;
+#pragma unroll
+    for (int k = 0; k < T; ++k) {
+      if (dd >= 32) {
+        if (!(k & (dd / 32))) cx(g[k], g[k | (dd / 32)]);
+      } else {
+        g[k] = cx_lane(g[k], dd, (w & dd) == 0);
+      }
+    }
+  }
+}
+
+// what an epoch took: its jobs (at least 1), and this thread's largest end
+// and, with STATS, service and wait sums
+struct EpochOut {
+  double mx, bs, ws;
+  int jobs;
+};
+
+// One epoch of up to min(me, left) jobs, job i's service time sv[i * B],
+// on a pool's d sorted lanes st, already clamped to t, by lane w of its
+// warp (a call of its own, so that its registers do not crowd run_warp's).
+// It pops lanes 0..me-1 in any case: those of jobs it does not take go back
+// in with its ends.
+template <int NB, int T, bool STATS>
+__device__ __noinline__ EpochOut merge_epoch(double* st, const double* sv, int B, double t, int d, int me, int left,
+                                             int w) {
+  constexpr unsigned kFull = 0xffffffffu;
+  double q[NB], s[NB], e[NB], g[T];
+  const double last = st[me - 1];
+  int n = min(me, left);
+#pragma unroll
+  for (int k = 0; k < NB; ++k) {
+    const int v = 32 * k + w;
+    q[k] = v < me ? st[v] : 0.0;
+    s[k] = v < n ? sv[(size_t)v * B] : 0.0;
+  }
+  // the lanes the epoch leaves, ascending, then +inf
+#pragma unroll
+  for (int k = 0; k < T - NB; ++k) {
+    const int u = 32 * k + w;
+    g[k] = u < d - me ? st[me + u] : CUDART_INF;
+  }
+  bool deep = false;
+#pragma unroll
+  for (int k = 0; k < NB; ++k) {
+    const int v = 32 * k + w;
+    e[k] = v < n ? __dadd_rn(q[k], s[k]) : CUDART_INF;
+    deep |= e[k] < last;
+  }
+  if (__any_sync(kFull, deep)) {
+    // the first job whose pop is above an earlier end: the ends' prefix
+    // minimum, a row of 32 at a time (shuffles up), carried across rows
+    double carry = CUDART_INF;
+#pragma unroll
+    for (int k = 0; k < NB; ++k) {
+      double x = e[k];
+#pragma unroll
+      for (int o = 1; o < 32; o *= 2) {
+        const double y = __shfl_up_sync(kFull, x, o);
+        if (w >= o) x = dmin(x, y);
+      }
+      double before = __shfl_up_sync(kFull, x, 1);
+      before = dmin(w == 0 ? CUDART_INF : before, carry);
+      const unsigned cut = __ballot_sync(kFull, 32 * k + w < n && before < q[k]);
+      if (cut) n = min(n, 32 * k + __ffs(cut) - 1);
+      carry = dmin(carry, __shfl_sync(kFull, x, 31));
+    }
+  }
+  // the pops the epoch does not take stay lanes: they go in with the ends
+#pragma unroll
+  for (int k = 0; k < NB; ++k)
+    if (32 * k + w >= n && 32 * k + w < me) e[k] = q[k];
+  EpochOut out{-CUDART_INF, 0.0, 0.0, n};
+#pragma unroll
+  for (int k = 0; k < NB; ++k) {
+    if (32 * k + w < n) {
+      out.mx = dmax(out.mx, e[k]);
+      if (STATS) {
+        out.bs = __dadd_rn(out.bs, s[k]);
+        out.ws = __dadd_rn(out.ws, __dsub_rn(q[k], t));
+      }
+    }
+  }
+  bitonic_sort_desc<NB>(e, w);
+#pragma unroll
+  for (int k = 0; k < NB; ++k) g[T - NB + k] = e[k];
+  bitonic_merge_asc<T>(g, w);
+  __syncwarp();  // every thread has read the lanes before any is written
+#pragma unroll
+  for (int k = 0; k < T; ++k)
+    if (32 * k + w < d) st[32 * k + w] = g[k];
+  __syncwarp();
+  return out;
+}
+
+// an epoch of the pool's shape (merge_shape); the KMAX 4 build holds pools
+// of at most 128 servers
+template <int KMAX, bool STATS>
+__device__ __forceinline__ EpochOut merge_epoch_of(MergeShape m, double* st, const double* sv, int B, double t, int d,
+                                                   int left, int w) {
+  if (m.nb == 1)
+    return m.t == 2 ? merge_epoch<1, 2, STATS>(st, sv, B, t, d, m.me, left, w)
+                    : merge_epoch<1, 4, STATS>(st, sv, B, t, d, m.me, left, w);
+  if constexpr (KMAX == 4) {
+    return merge_epoch<2, 4, STATS>(st, sv, B, t, d, m.me, left, w);
+  } else {
+    if (m.nb == 2)
+      return m.t == 4 ? merge_epoch<2, 4, STATS>(st, sv, B, t, d, m.me, left, w)
+                      : merge_epoch<2, 8, STATS>(st, sv, B, t, d, m.me, left, w);
+    return m.t == 8 ? merge_epoch<4, 8, STATS>(st, sv, B, t, d, m.me, left, w)
+                    : merge_epoch<4, 16, STATS>(st, sv, B, t, d, m.me, left, w);
+  }
+}
+
+// A warp pool's jobs one by one, its lanes in registers, K a thread (1 to
+// KMAX, pow2(servers) / 32), or in the state memory above 1,024 servers
+template <int KMAX, bool STATS>
+__device__ __forceinline__ double run_warp_of(double* st, const double* sv, int nj, int B, double t, int d, int w,
+                                              double& bs, double& ws) {
+  const int k = pow2_ceil(d) / 32;
+  if constexpr (KMAX == 1) {
+    return run_warp<1, KMAX, STATS>(st, sv, nj, B, t, w, bs, ws);
+  } else if constexpr (KMAX == 4) {
+    return k <= 1   ? run_warp<1, KMAX, STATS>(st, sv, nj, B, t, w, bs, ws)
+           : k == 2 ? run_warp<2, KMAX, STATS>(st, sv, nj, B, t, w, bs, ws)
+                    : run_warp<4, KMAX, STATS>(st, sv, nj, B, t, w, bs, ws);
+  } else if constexpr (KMAX == 16) {
+    return k <= 1   ? run_warp<1, KMAX, STATS>(st, sv, nj, B, t, w, bs, ws)
+           : k == 2 ? run_warp<2, KMAX, STATS>(st, sv, nj, B, t, w, bs, ws)
+           : k == 4 ? run_warp<4, KMAX, STATS>(st, sv, nj, B, t, w, bs, ws)
+           : k == 8 ? run_warp<8, KMAX, STATS>(st, sv, nj, B, t, w, bs, ws)
+                    : run_warp<16, KMAX, STATS>(st, sv, nj, B, t, w, bs, ws);
+  } else {
+    // the host gives a launch with a pool wider than 512 the KMAX 32 build
+    return d > kRegLanes ? run_mem<STATS>(st, sv, nj, B, t, pool_cap(d), w, bs, ws)
+           : k <= 1      ? run_warp<1, KMAX, STATS>(st, sv, nj, B, t, w, bs, ws)
+           : k == 2      ? run_warp<2, KMAX, STATS>(st, sv, nj, B, t, w, bs, ws)
+           : k == 4      ? run_warp<4, KMAX, STATS>(st, sv, nj, B, t, w, bs, ws)
+           : k == 8      ? run_warp<8, KMAX, STATS>(st, sv, nj, B, t, w, bs, ws)
+           : k == 16     ? run_warp<16, KMAX, STATS>(st, sv, nj, B, t, w, bs, ws)
+                         : run_warp<32, KMAX, STATS>(st, sv, nj, B, t, w, bs, ws);
+  }
+}
+
+// what a merging pool's chunk took: this thread's largest end and, with
+// STATS, service and wait sums, and the jobs short epochs sent one by one
+struct MergedOut {
+  double mx, bs, ws;
+  unsigned deep;
+};
+
+// A merging pool's chunk of nj jobs (merge_pool) by lane w of its warp: its
+// lanes clamped to t, then epochs while half an epoch's jobs are left;
+// after an epoch that takes less than half the jobs it could, the next me
+// jobs one by one (twice as many after each further such epoch, up to 16
+// me), as the chunk's last jobs short of half an epoch.  An epoch costs
+// what 0.3 to 0.6 of its jobs one by one would (the narrower the pool, the
+// more: chip_vt_variants.py).  A call of its own, so that the merging does not
+// crowd the other pools' registers.
+template <int KMAX, bool STATS>
+__device__ __noinline__ MergedOut run_merged(double* st, const double* sv, int nj, int B, double t, int d, int w) {
+  const MergeShape ms = merge_shape(d);
+  // every lane clamped to t, a row of 32 at a time up to the first row
+  // whose top is >= t
+  for (int r = 0; r < d; r += 32) {
+    const int u = r + w;
+    const double x = u < d ? st[u] : CUDART_INF;
+    if (x < t) st[u] = t;
+    if (__shfl_sync(0xffffffffu, x, 31) >= t) break;
+  }
+  __syncwarp();
+  MergedOut out{-CUDART_INF, 0.0, 0.0, 0u};
+  int back = 0, cuts = 0;  // jobs to run one by one before the next epoch; short epochs in a row
+  for (int j = 0; j < nj;) {
+    while (back == 0 && 2 * (nj - j) >= ms.me) {
+      const EpochOut o = merge_epoch_of<KMAX, STATS>(ms, st, sv + (size_t)j * B, B, t, d, nj - j, w);
+      out.mx = dmax(out.mx, o.mx);
+      if (STATS) {
+        out.bs = __dadd_rn(out.bs, o.bs);
+        out.ws = __dadd_rn(out.ws, o.ws);
+      }
+      if (2 * o.jobs < min(ms.me, nj - j)) {
+        back = ms.me << min(cuts++, 4);
+        out.deep += min(back, nj - j - o.jobs);
+      } else {
+        cuts = 0;
+      }
+      j += o.jobs;
+    }
+    const int n = min(nj - j, back > 0 ? back : ms.me);
+    back = 0;
+    if (n > 0) {
+      double b2 = 0.0, w2 = 0.0;
+      out.mx = dmax(out.mx, run_warp_of<KMAX, STATS>(st, sv + (size_t)j * B, n, B, t, d, w, b2, w2));
+      if (STATS) {
+        out.bs = __dadd_rn(out.bs, b2);
+        out.ws = __dadd_rn(out.ws, w2);
+      }
+      __syncwarp();  // its lanes are written before an epoch reads them
+      j += n;
+    }
+  }
+  return out;
+}
+
+// One chunk of nj of a layer's pj jobs a request over its pools, by the
+// consumer threads: the layer's pools of at most 8 servers a thread each,
+// the wider ones a warp each (lists built once a block, so that no warp
+// takes two pools while another idles).  Folds each pool's largest end into mx (per thread: the
+// layer's completion reduces it over the warp), the jobs that merging
+// pools' short epochs sent one by one into `deep` and, with STATS, the
+// service and wait sums into bs / ws.
 template <int KMAX, bool STATS>
 __device__ __forceinline__ void run_pools(double* state, const int* s_off, const int* s_lanes, const int* list,
-                                          int n_small, int n_wide, int po, int B, const double* sv, int nj, double t,
-                                          int tid, int nc, int warp, int lane, int consumer_warps, double& mx,
-                                          double& bs, double& ws) {
+                                          int n_small, int n_wide, int po, int B, const double* sv, int nj, int pj,
+                                          double t, int tid, int nc, int warp, int lane, int consumer_warps, double& mx,
+                                          double& bs, double& ws, unsigned& deep) {
   for (int i = tid; i < n_small; i += nc) {
     const int p = list[i];
     const int d = s_lanes[po + p];
@@ -490,28 +807,18 @@ __device__ __forceinline__ void run_pools(double* state, const int* s_off, const
     const int d = s_lanes[po + p];
     double* st = state + s_off[po + p];
     double b2 = 0.0, w2 = 0.0, m;
-    const int k = pow2_ceil(d) / 32;  // lanes a thread: 1 to KMAX
-    if constexpr (KMAX == 1) {
-      m = run_warp<1, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2);
-    } else if constexpr (KMAX == 4) {
-      m = k <= 1   ? run_warp<1, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-          : k == 2 ? run_warp<2, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-                   : run_warp<4, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2);
-    } else if constexpr (KMAX == 16) {
-      m = k <= 1   ? run_warp<1, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-          : k == 2 ? run_warp<2, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-          : k == 4 ? run_warp<4, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-          : k == 8 ? run_warp<8, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-                   : run_warp<16, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2);
+    if constexpr (merge_build(KMAX)) {
+      if (merge_pool(d, KMAX) && pj >= kMinEpochs * merge_shape(d).me) {
+        const MergedOut o = run_merged<KMAX, STATS>(st, sv + p, nj, B, t, d, lane);
+        m = o.mx;
+        b2 = o.bs;
+        w2 = o.ws;
+        deep += o.deep;
+      } else {
+        m = run_warp_of<KMAX, STATS>(st, sv + p, nj, B, t, d, lane, b2, w2);
+      }
     } else {
-      // the host gives a launch with a pool wider than 512 the KMAX 32 build
-      m = d > kRegLanes ? run_mem<STATS>(st, sv + p, nj, B, t, pool_cap(d), lane, b2, w2)
-          : k <= 1      ? run_warp<1, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-          : k == 2      ? run_warp<2, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-          : k == 4      ? run_warp<4, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-          : k == 8      ? run_warp<8, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-          : k == 16     ? run_warp<16, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2)
-                        : run_warp<32, KMAX, STATS>(st, sv + p, nj, B, t, lane, b2, w2);
+      m = run_warp_of<KMAX, STATS>(st, sv + p, nj, B, t, d, lane, b2, w2);
     }
     mx = dmax(mx, m);
     if (STATS) {
@@ -793,6 +1100,7 @@ __device__ __forceinline__ void vt_stage(const Args& a) {
   } else {
     const bool first = s == 0, final = s == S - 1;
     double t = 0.0, t_prev = 0.0, mx = -CUDART_INF, bs = 0.0, ws = 0.0;
+    unsigned deep = 0;  // this warp's jobs that short epochs sent one by one
     if (STREAM && final && tid == 0) {  // the sketch's moments and horizon, kept by thread 0 of the last stage
       for (int i = 0; i < 5; ++i) s_mom[i] = a.moments[(size_t)c * 5 + i];
       s_mom[5] = a.horizon[c];
@@ -830,8 +1138,8 @@ __device__ __forceinline__ void vt_stage(const Args& a) {
         for (int j0 = 0; j0 < Pj; j0 += per, ++k) {
           wait_for<false, false>(&s_ready[k % kBufs], k + 1);
           run_pools<KMAX, STATS>(state, s_off, s_lanes, s_list + po, s_nsmall[l], s_nwide[l], po, B,
-                                 sbuf + (size_t)(k % kBufs) * a.chunk, min(per, Pj - j0), t, tid, nc, warp, lane,
-                                 cw, mx, bs, ws);
+                                 sbuf + (size_t)(k % kBufs) * a.chunk, min(per, Pj - j0), Pj, t, tid, nc, warp, lane,
+                                 cw, mx, bs, ws, deep);
           __syncwarp();
           if (lane == 0) st_release<false>(&s_wdone[warp], k + 1);
         }
@@ -922,6 +1230,7 @@ __device__ __forceinline__ void vt_stage(const Args& a) {
       for (int i = 0; i < 5; ++i) a.moments[(size_t)c * 5 + i] = s_mom[i];
       a.horizon[c] = s_mom[5];
     }
+    if (a.deep && lane == 0 && deep) atomicAdd(a.deep, (unsigned long long)deep);
     if (STREAM && a.smem_state) {
       bar_named(1, nc);
       for (int i = tid; i < span; i += nc) gst[i] = state[i];
@@ -1057,7 +1366,9 @@ size_t smem_of(const Args& a, bool stream, int threads) {
 // it fits), else the state is in `gstate` (C * stages x state_stride
 // doubles).  `threads` is a multiple of 32, at most build_threads(kmax,
 // stats, stream), of which the first 32 * `consumer_warps` run the pools
-// and at least one warp stages.  With `clusters` not null nothing is
+// and at least one warp stages.  `deep`, one uint64 or null, has the
+// launch's jobs that epochs cut short by a deep insert sent one by one
+// added to it (run_merged).  With `clusters` not null nothing is
 // launched: *clusters gets how many such clusters the device holds at once
 // (cudaOccupancyMaxActiveClusters).  The caller has checked every index
 // (variant < V, sample index < S_l), lanes <= 65536, service times >= 0 and
@@ -1066,7 +1377,8 @@ size_t smem_of(const Args& a, bool stream, int threads) {
 // returns its error.
 extern "C" int vtime_scan_launch(const void* tables, const void* tbl_off, const void* meta, const void* idx,
                                  const void* variant, const void* lanes, const void* arrivals, const void* xfer,
-                                 void* t_arr, void* comp, void* busy, void* wait, void* gstate, long long state_stride,
+                                 void* t_arr, void* comp, void* busy, void* wait, void* gstate, void* deep,
+                                 long long state_stride,
                                  int C, int N, int L, int V, int Ptot, int conc, int kmax, int chunk, int threads,
                                  int consumer_warps, int smem_state, int stats, int stages, const int* split,
                                  void* stream, int* clusters) {
@@ -1083,6 +1395,7 @@ extern "C" int vtime_scan_launch(const void* tables, const void* tbl_off, const 
   a.comp = static_cast<double*>(comp);
   a.busy = static_cast<double*>(busy);
   a.wait = static_cast<double*>(wait);
+  a.deep = static_cast<unsigned long long*>(deep);
   a.state = static_cast<double*>(gstate);
   a.state_stride = state_stride;
   a.N = N;

@@ -66,7 +66,7 @@ from ..fabric.telemetry import get_telemetry, spanned
 from ..fabric.vtime import lanes_of, service_indices, variant_table
 from ..kernels.bitplane_profile import bitplane_cycle_bank
 from ..kernels.fused_alloc_eval import fused_alloc_eval
-from ..kernels.vtime_scan import VTTables, vt_tables, vtime_scan
+from ..kernels.vtime_scan import VTTables, count_deep_inserts, vt_tables, vtime_scan
 from .engine import flat_unit_map
 from ..distrib.sharding import shard_map_batch
 from .sweep import (
@@ -608,6 +608,7 @@ class FusedPipeline:
         tel = get_telemetry()
         with tel.span("vt.wait"):
             comp, t_arr = comp.cpu().numpy(), t_arr.cpu().numpy()
+            count_deep_inserts()
         with tel.span("vt.percentiles", host=True):
             return np.percentile(comp - t_arr, qs, axis=1).T
 

@@ -55,7 +55,7 @@ from ..core.cim.network import NetworkSpec
 from ..core.cim.profile import NetworkProfile
 from ..core.cim.simulate import CLOCK_HZ, Allocation, _layer_patch_cycles
 from ..kernels import service_draw as _draw
-from ..kernels.vtime_scan import VTTables, to_device, vt_tables, vtime_scan
+from ..kernels.vtime_scan import VTTables, count_deep_inserts, to_device, vt_tables, vtime_scan
 from .arrivals import ArrivalProcess, ClosedLoop, PoissonOpen, arrival_times
 from .metrics import LatencyStats, latency_stats, percentile_kernel, steady_throughput
 from .telemetry import get_telemetry, spanned
@@ -783,7 +783,9 @@ class VirtualTimeFabric:
             collect_stats=collect_stats,
         )
         with get_telemetry().span("vt.wait"):
-            return tuple(None if x is None else x.cpu().numpy() for x in (t_arr, comp, busy, wait))
+            out = tuple(None if x is None else x.cpu().numpy() for x in (t_arr, comp, busy, wait))
+            count_deep_inserts()
+            return out
 
     # ------------------------------------------------------------------ run
     @spanned("vt.run_batch")

@@ -88,6 +88,7 @@ __all__ = [
     "StreamState",
     "VTTables",
     "chain_weights",
+    "count_deep_inserts",
     "critical_path",
     "kernel_plan",
     "pool_caps",
@@ -121,10 +122,13 @@ LOADER_WARPS = 2  # warps of a VT block that stage service times
 STREAM_LOADER_WARPS = 4  # of a streaming block, which also hash and fold macro-jobs
 # cycles a job by a pool's lane capacity (pool_caps), and a (request, layer)
 # of one job, as chip_smoke.py's vt_lane_costs measured them on the H100
-# (PERF.md); they weigh the layers when kernel_plan splits them into stages
-# (only their ratios matter)
-JOB_CYCLES = {0: 0.0, 1: 14.0, 2: 31.0, 4: 42.0, 8: 65.0, 32: 84.0, 64: 77.0, 128: 84.0, 256: 121.0, 512: 192.0,
-              1024: 343.0}
+# (PERF.md; a warp pool of 33 to 512 servers merges epochs of jobs: caps 64
+# to 512, at the cells' spread; a layer of fewer than 8 epochs' jobs a
+# request runs them one by one but is weighed as merged, up to 3.7x light);
+# they weigh the layers when kernel_plan splits them into stages (only
+# their ratios matter)
+JOB_CYCLES = {0: 0.0, 1: 14.0, 2: 31.0, 4: 42.0, 8: 65.0, 32: 85.0, 64: 45.0, 128: 43.0, 256: 40.0, 512: 52.0,
+              1024: 345.0}
 LAYER_CYCLES = 1720.0
 
 
@@ -139,7 +143,7 @@ def _telemetry():
 @functools.cache
 def _launcher():
     fn = _build.load("vtime_scan").vtime_scan_launch
-    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong] + [ctypes.c_int] * 13
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_longlong] + [ctypes.c_int] * 13
                    + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     return fn
@@ -361,7 +365,7 @@ def _clusters(device: int, stream: bool, stats: bool, plan: KernelPlan) -> int:
         rc = _stream_launcher()(*([None] * 11), plan.state_stride, None, 1, None, 1, 1, 0, *([None] * 4), 0,
                                 1, 1, S, 1, 1, 0, *shape, plan.state_stride, S, split, None, ctypes.byref(out))
     else:
-        rc = _launcher()(*([None] * 13), plan.state_stride, 1, 1, S, 1, 1, 0, *shape, int(stats), S, split, None,
+        rc = _launcher()(*([None] * 14), plan.state_stride, 1, 1, S, 1, 1, 0, *shape, int(stats), S, split, None,
                          ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f"vtime_scan: occupancy query failed: CUDA error {rc}")
@@ -638,10 +642,12 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(k: _Packed, collect_stats: bool):
+def _launch(k: _Packed, collect_stats: bool, deep: torch.Tensor | None = None):
     """One launch on packed buffers: allocates the outputs (and the global
     pool state when it does not fit in shared memory) and runs VT as C
-    clusters of ``plan.stages`` blocks; a refused launch raises."""
+    clusters of ``plan.stages`` blocks; a refused launch raises.  ``deep``,
+    a (1,) int64 tensor on the card, has the launch's jobs that short
+    epochs sent one by one added."""
     p, plan = k.p, k.plan
     dev = p.device
     C, N, L = p.variant.shape[0], p.n_requests, len(p.patches)
@@ -655,7 +661,7 @@ def _launch(k: _Packed, collect_stats: bool):
         rc = _launcher()(
             p.tables.flat.data_ptr(), p.tables.tbl_off.data_ptr(), p.meta.data_ptr(), p.idx.data_ptr(),
             p.variant.data_ptr(), p.lanes.data_ptr(), _ptr(p.arrivals), _ptr(p.xfer),
-            t_arr.data_ptr(), comp.data_ptr(), _ptr(busy), _ptr(wait), _ptr(gstate), plan.state_stride,
+            t_arr.data_ptr(), comp.data_ptr(), _ptr(busy), _ptr(wait), _ptr(gstate), _ptr(deep), plan.state_stride,
             C, N, L, p.tables.variants, p.lanes.shape[1], p.concurrency, plan.kmax, plan.chunk, plan.threads,
             plan.consumer_warps, int(plan.smem_state), int(collect_stats), plan.stages, _split_arg(plan), stream,
             None,
@@ -700,7 +706,10 @@ def vtime_scan(
     host, the indices' range on the device, read back in one transfer); a
     failure to build or launch raises.  Each run, on either device, adds one
     to the recorder's ``vt.launches`` and its job steps (configs x requests
-    x jobs a request) to ``vt.job_steps``."""
+    x jobs a request) to ``vt.job_steps``; a recorded launch on the card
+    also counts the jobs that epochs cut short by a deep insert sent one by
+    one (the kernel's run_merged), for ``count_deep_inserts`` to read
+    back."""
     tel = _telemetry()
     stats = bool(collect_stats)
     with tel.span("vt.prepare"):
@@ -715,7 +724,10 @@ def vtime_scan(
                 attrs.update(configs=p.variant.shape[0], requests=p.n_requests, stages=k.plan.stages,
                              kmax=k.plan.kmax, threads=k.plan.threads, smem_state=bool(k.plan.smem_state),
                              job_steps=_job_steps(p), stage_weights=list(k.plan.stage_weights))
-            out = _launch(k, stats)
+            deep = torch.zeros(1, dtype=torch.int64, device=p.device) if tel.enabled else None
+            out = _launch(k, stats, deep)
+            if deep is not None:
+                _DEEP.append(deep)
     else:
         raise ValueError(f"no kernel for device {p.device}")
     tel.count("vt.launches")
@@ -730,6 +742,20 @@ def _job_steps(p: _Problem) -> int:
 
 
 vtime_scan.launches = 0
+_DEEP: list = []  # the deep-insert counters of recorded launches, not yet read back
+
+
+def count_deep_inserts() -> None:
+    """Add to the recorder's ``vt.deep_inserts`` the jobs that the launches
+    recorded since the last call ran one by one after an epoch that a deep
+    insert (an end below a later pop) cut to less than half its jobs (only
+    a recording ``vtime_scan`` on the card counts them).  Called where the
+    launches' outputs are read back, so the counters' copy waits for
+    nothing more."""
+    if _DEEP:
+        n = sum(int(d.item()) for d in _DEEP)
+        _DEEP.clear()
+        _telemetry().count("vt.deep_inserts", n)
 
 
 # ------------------------------------------------------------- streaming entry

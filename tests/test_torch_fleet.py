@@ -355,7 +355,9 @@ def test_stream_critical_path_with_plans(conc, seed):
 
 def test_stream_plan_weighs_macro_jobs(setup):
     """A streaming launch's plan weighs each layer by its jobs under the
-    plans: coarsening VGG11's first layer moves the stage boundaries."""
+    plans: coarsening VGG11's first layer to 8 macro-jobs takes its stage's
+    weight from 1,024 jobs' to 8 jobs' (its one wide pool on a warp), and
+    that stage then no longer bounds the plan."""
     from repro_torch.kernels import vtime_scan as vtk
 
     rspec, rprof, tspec, tprof, ra, ta, cap, rvt, tvt = setup
@@ -367,7 +369,10 @@ def test_stream_plan_weighs_macro_jobs(setup):
     jobs = np.broadcast_to(np.array(patches), lanes.shape[:1] + (len(patches),)).copy()
     jobs[:, 0] = 8
     coarse = vtk.kernel_plan(lanes, blocks, patches, jobs=jobs, stream=True)
-    assert coarse.split != exact.split and coarse.loader_warps == 4
+    w0 = vtk.job_cycles(vtk.pool_caps(lanes[:, : blocks[0]]).max())
+    assert exact.stage_weights[0] == 1024 * w0 + vtk.LAYER_CYCLES == max(exact.stage_weights)
+    assert coarse.split[1] == 1 and coarse.stage_weights[0] == 8 * w0 + vtk.LAYER_CYCLES
+    assert max(coarse.stage_weights) < max(exact.stage_weights) and coarse.loader_warps == 4
 
 
 # ------------------------------------------------------------ on the card

@@ -108,6 +108,175 @@ def test_dispatch_step_inf_lanes_never_selected():
     np.testing.assert_array_equal(free, [5.0, np.inf, np.inf])
 
 
+# ---------------------------------------------- VT's merged epochs, on the host
+_LANE = np.arange(32)
+
+
+def _cx_lane(x, dd, low):
+    """``cx_lane``: lane w's value after a compare-exchange with lane w ^ dd."""
+    y = x[_LANE ^ dd]
+    return np.where((y < x) == low, y, x)
+
+
+def _sort_desc(e):
+    """``bitonic_sort_desc`` on (NB, 32) values, value 32 k + w at e[k, w]."""
+    nb, size = e.shape[0], 2
+    while size <= 32 * nb:
+        dd = size // 2
+        while dd:
+            for k in range(nb):
+                up = ((32 * k) & size) != 0 if size >= 32 else (_LANE & size) != 0
+                if dd >= 32:
+                    r = dd // 32
+                    if not k & r:
+                        lo, hi = np.minimum(e[k], e[k | r]), np.maximum(e[k], e[k | r])
+                        e[k], e[k | r] = (lo, hi) if up else (hi, lo)
+                else:
+                    e[k] = _cx_lane(e[k], dd, ((_LANE & dd) == 0) == up)
+            dd //= 2
+        size *= 2
+    return e
+
+
+def _merge_asc(g):
+    """``bitonic_merge_asc`` on (T, 32) values."""
+    dd = 16 * g.shape[0]
+    while dd:
+        for k in range(g.shape[0]):
+            if dd >= 32:
+                r = dd // 32
+                if not k & r:
+                    g[k], g[k | r] = np.minimum(g[k], g[k | r]), np.maximum(g[k], g[k | r])
+            else:
+                g[k] = _cx_lane(g[k], dd, (_LANE & dd) == 0)
+        dd //= 2
+    return g
+
+
+def _merge_shape(d):
+    """``merge_shape``: registers of ends, the epoch's jobs, registers in all."""
+    nb = 4 if d >= 171 else 2 if d >= 86 else 1
+    me = min(32 * nb, 3 * d // 4)
+    return nb, me, 1 << (nb + (d - me + 31) // 32 - 1).bit_length()
+
+
+def _merge_epoch(st, d, me, nb, T, svc):
+    """``merge_epoch`` on the jobs ``svc`` left in the chunk: the jobs it
+    takes (up to ``me``, before the first whose pop an earlier end
+    undercuts) and their ends.  The lanes are written back as the warp
+    writes them: the epoch's values (its ends, the pops it does not take,
+    +inf) sorted descending by the bitonic network below the (T - nb, 32)
+    lanes it leaves (+inf above them), the T registers then merged
+    ascending by the bitonic merge."""
+    v = 32 * np.arange(nb)[:, None] + _LANE
+    n = min(me, len(svc))
+    q = np.where(v < me, st[np.minimum(v, d - 1)], 0.0)
+    e = np.where(v < n, q + svc[np.minimum(v, len(svc) - 1)], np.inf)
+    if (e < st[me - 1]).any():
+        flat = e.ravel()
+        before = np.concatenate([[np.inf], np.minimum.accumulate(flat)[:-1]])
+        cut = np.flatnonzero((np.arange(32 * nb) < n) & (before < q.ravel()))
+        n = int(cut[0]) if cut.size else n
+    ends = list(e.ravel()[:n])
+    e = np.where(v < n, e, np.where(v < me, q, np.inf))  # the pops not taken go back in
+    u = 32 * np.arange(T - nb)[:, None] + _LANE
+    g = np.where(u < d - me, st[np.minimum(me + u, d - 1)], np.inf)
+    st[:] = _merge_asc(np.concatenate([g, _sort_desc(e)])).ravel()[:d]
+    return n, ends
+
+
+def _merged_chunk(st, d, t, svc):
+    """A host transcription of a merging pool's chunk in ``run_pools``
+    (``csrc/vtime_scan.cu``): its d sorted lanes ``st`` clamped to ``t``,
+    then epochs (``_merge_epoch``: the ends sorted by the bitonic network
+    and merged by the bitonic merge, as the warp does) while half an
+    epoch's jobs are left; after an epoch of less than half the jobs it
+    could take, the next me jobs (twice as many after each further one, up
+    to 16 me) and the chunk's last jobs short of half an epoch one by one
+    (``dispatch_step``).  Returns (the ends in job order,
+    their largest, the jobs short epochs sent one by one)."""
+    nb, me, T = _merge_shape(d)
+    st[:] = np.maximum(st, t)
+    ends, deep, j, nj, back, cuts = [], 0, 0, len(svc), 0, 0
+    while j < nj:
+        while back == 0 and 2 * (nj - j) >= me:
+            n, e = _merge_epoch(st, d, me, nb, T, svc[j:])
+            ends += e
+            if 2 * n < min(me, nj - j):
+                j += n
+                back = me << min(cuts, 4)
+                cuts += 1
+                deep += min(back, nj - j)
+            else:
+                j += n
+                cuts = 0
+        n = min(nj - j, back or me)
+        back = 0
+        for s in svc[j : j + n]:
+            free, end = dispatch_step(np, st, s)
+            st[:] = free
+            ends.append(end)
+        j += n
+    return ends, max(ends, default=-np.inf), deep
+
+
+def _spread_services(kind, rng, n):
+    """Service times: narrow (the cells' spread: ends near the top), wide,
+    or ties and zeros (ends below the last pop)."""
+    if kind == "narrow":
+        return np.maximum(1.0, np.rint(rng.normal(200.0, 20.0, n)))
+    if kind == "wide":
+        return rng.integers(20, 400, n).astype(np.float64)
+    return rng.choice([0.0, 0.0, 5.0, 200.0, 200.0, 200.0], n)
+
+
+def test_bitonic_networks_sort():
+    """The transcribed networks sort: 32 NB values descending (ties, +inf
+    among them), and a bitonic sequence of 32 T (ascending, then
+    descending) ascending."""
+    rng = np.random.default_rng(5)
+    for nb in (1, 2, 4):
+        for _ in range(20):
+            e = rng.choice([0.0, 1.0, 2.5, 7.0, np.inf], (nb, 32)) if nb == 2 else rng.normal(0, 1, (nb, 32))
+            want = np.sort(e.ravel())[::-1]
+            np.testing.assert_array_equal(_sort_desc(e.copy()).ravel(), want)
+    for T in (2, 4, 8, 16):
+        for _ in range(20):
+            a = int(rng.integers(0, 32 * T + 1))
+            x = np.concatenate([np.sort(rng.integers(0, 50, a)), np.sort(rng.integers(0, 50, 32 * T - a))[::-1]])
+            np.testing.assert_array_equal(_merge_asc(x.astype(np.float64).reshape(T, 32)).ravel(), np.sort(x))
+
+
+@pytest.mark.parametrize("kind", ["narrow", "wide", "ties-zeros"])
+@pytest.mark.parametrize("d", [33, 44, 47, 64, 65, 127, 128, 163, 217, 256, 300, 512])
+def test_merged_epochs_transcription_matches_dispatch_step(d, kind):
+    """VT's merged epochs, transcribed to the host (``_merged_chunk``):
+    every job's end and, after each chunk, the pool's sorted lanes are
+    ``dispatch_step``'s one job at a time, over requests of chunks of one
+    to several epochs whose free-times are first clamped to the request's
+    ready time; the ties and zeros cut epochs short and send jobs one by
+    one."""
+    rng = np.random.default_rng(d)
+    st, ref = np.zeros(d), np.zeros(d)
+    t, deep = 0.0, 0
+    for r in range(4):
+        t = max(t, float(ref.min())) + float(rng.integers(0, 3)) * 150.0 * (r % 2)
+        ref = np.maximum(ref, t)
+        for nj in (int(rng.integers(1, 40)), 3 * d + 5, 7):
+            svc = _spread_services(kind, rng, nj)
+            ends, mx, n = _merged_chunk(st, d, t, svc)
+            want = []
+            for s in svc:
+                ref, e = dispatch_step(np, ref, s)
+                want.append(e)
+            np.testing.assert_array_equal(ends, want)
+            assert mx == max(want)
+            deep += n
+            np.testing.assert_array_equal(st, ref)
+        t = float(ref.max())
+    assert deep > 0 or kind != "ties-zeros"
+
+
 # -------------------------------------------------------- exact equivalence
 CASES = ("mixed_poisson", "per_config_traces", "closed", "fractional", "placements")
 
@@ -387,6 +556,18 @@ def _vit_b16_work():
         m.setattr(vtk, "stage_splits", lambda work, most: seen.append(list(work)) or one_pass(work, most))
         kernel_plan(*_policy_problem("vit_b16"))
     return seen[0]
+
+
+def test_vit_b16_plan_unchanged():
+    """ViT-B/16's plan for its five policies' lanes (pools of at most 3
+    servers: only the thread pools' ``JOB_CYCLES`` weigh it) is the one
+    ``kernel_plan`` gave before the warp pools' entries were measured again:
+    8 stages, the same split and stage weights."""
+    lanes, blocks, patches = _policy_problem("vit_b16")
+    assert lanes.max() <= 8
+    plan = kernel_plan(lanes, blocks, patches)
+    assert (plan.stages, plan.split, plan.stage_weights, plan.kmax) == (
+        8, (0, 6, 12, 18, 24, 30, 36, 42, 49), (46776.0,) * 6 + (48932.0, 54572.0), 1)
 
 
 @pytest.mark.parametrize("kind", ["random", "few-values", "equal", "vit_b16"])
@@ -943,3 +1124,100 @@ def test_wide_pools_on_card(mult):
     assert vtime_scan.launches == before + 1
     want = TF.FabricSim(spec, prof, alloc, seed=0).run(proc)
     np.testing.assert_array_equal(res.completions[0], want.completions)
+
+
+def _merge_problem(d, kind, dev):
+    """Two layers, a pool of d servers in each beside small ones (the
+    second's wider by 7, or narrower by 7 where wider would pass 512 and
+    so take the KMAX 32 build; beside a pool of 217 where d is wider than
+    512, so that the KMAX 32 build merges one), 2 variants; P_0 a few
+    chunks' worth of jobs, enough for the pools to merge epochs."""
+    rng = np.random.default_rng(d + 100 * len(kind))
+    blocks, patches, N, C = [2, 3], [2100 if d > 32 else 2 * d + 37, 90], 5, 3
+    tables = vt_tables([torch.as_tensor(_spread_services(kind, rng, 2 * 64 * b).reshape(2, 64, b), device=dev)
+                        for b in blocks])
+    idx = [rng.integers(0, 64, (N, p)) for p in patches]
+    d2 = d - 7 if d <= 512 < d + 7 else d + 7
+    lanes = np.array([[d, 3, 1, d2, 5], [d, 0, 2, 9 if d <= 512 else 217, 2], [5, 2, 1, d, 3]])
+    return tables, idx, patches, np.array([0, 1, 1]), lanes, N, C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["narrow", "wide", "ties-zeros"])
+@pytest.mark.parametrize("d", [9, 31, 32, 33, 47, 64, 65, 100, 163, 217, 400, 512, 1024])
+def test_merged_pools_equal_plain_on_card(d, kind):
+    """VT bit for bit (max abs diff 0) against its plain version on pools of
+    9 to 1,024 servers (33 to 512 merge epochs; every shape of merge_epoch
+    runs: 33 to 85, 86 to 128, 129 to 170, 171 to 256 and 257 to 512
+    servers), service tables of narrow
+    spread (ends near the top), wide spread, and ties and zeros (ends below
+    an epoch's last pop): open and closed loop, with and without stats; and
+    the streaming entry over two launches that carry the lanes against its
+    plain version."""
+    dev = _card()
+    from repro_torch.kernels import vtime_scan as vtk
+
+    tables, idx, patches, var, lanes, N, C = _merge_problem(d, kind, dev)
+    host = vt_tables([tables.layer(l).cpu() for l in range(2)])
+    flat, hflat = _flat(idx, dev), _flat(idx, "cpu")
+    rng = np.random.default_rng(d)
+    arr = np.cumsum(rng.exponential(40.0 * patches[0], (C, N)), axis=1)
+    for kw in (dict(arrivals=arr), dict(concurrency=2)):
+        a = kw.get("arrivals")
+        want = vtime_scan_ref(host, hflat, patches, var, lanes, n_requests=N, collect_stats=True,
+                              arrivals=None if a is None else torch.as_tensor(a), concurrency=kw.get("concurrency"))
+        for stats in (False, True):
+            got = vtime_scan(tables, flat, patches, var, lanes, n_requests=N, collect_stats=stats,
+                             arrivals=None if a is None else torch.as_tensor(a, device=dev),
+                             concurrency=kw.get("concurrency"))
+            for g, w in zip(got[:2], want[:2]):
+                assert float((g.cpu() - w).abs().max()) == 0.0
+            if stats:
+                for g, w in zip(got[2:], want[2:]):
+                    torch.testing.assert_close(g.cpu(), w, rtol=1e-12, atol=1e-9)
+    out = {}
+    for where, tb, ix in (("card", tables, flat), ("host", host, hflat)):
+        carry = vtk.stream_state(lanes, lanes, n_bins=16, ring_len=2, device=dev if where == "card" else "cpu")
+        ys = []
+        for r0, n in ((0, 2), (2, 3)):
+            fn = vtk.vtime_stream if where == "card" else vtk.vtime_stream_ref
+            carry, y = fn(tb, var, lanes, carry, n_requests=n, patches=patches, idx=ix, r0=r0, concurrency=2,
+                          emit=True)
+            ys.append(y)
+        out[where] = (carry, ys)
+    for g, w in zip(out["card"][0], out["host"][0]):  # lanes (+inf: absent), ring, sketch, moments, horizon
+        assert torch.equal(g.cpu(), w)
+    for yg, yw in zip(out["card"][1], out["host"][1]):
+        for g, w in zip(yg, yw):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["narrow", "ties-zeros"])
+def test_deep_inserts_counted_on_card(kind):
+    """``vt.deep_inserts`` counts, while telemetry records, the jobs that
+    epochs cut short by a deep insert sent one by one, as ``_merged_chunk``
+    replays them on the host (one chunk a request); a pool of 32 servers
+    or fewer counts none; not recording, nothing is counted."""
+    dev = _card()
+    from repro_torch.fabric import telemetry as TM
+    from repro_torch.kernels import vtime_scan as vtk
+
+    rng = np.random.default_rng(4)
+    d, P, N = 217, 1100, 4
+    tables = vt_tables([torch.as_tensor(_spread_services(kind, rng, 64).reshape(1, 64, 1), device=dev)])
+    idx = rng.integers(0, 64, (N, P))
+    arr = np.cumsum(rng.exponential(150.0 * P / d, (1, N)), axis=1)
+    svc = tables.layer(0).cpu().numpy()[0, :, 0][idx]
+    st, want = np.zeros(d), 0
+    for r in range(N):
+        want += _merged_chunk(st, d, float(arr[0, r]), svc[r])[2]
+    for lanes, expect in (([[d]], want), ([[32]], 0)):
+        with TM.telemetry_session() as tel:
+            vtime_scan(tables, _flat([idx], dev), [P], [0], np.array(lanes), n_requests=N,
+                       arrivals=torch.as_tensor(arr, device=dev))
+            vtk.count_deep_inserts()
+        assert tel.counters.get("vt.deep_inserts", 0.0) == expect
+    vtime_scan(tables, _flat([idx], dev), [P], [0], np.array([[d]]), n_requests=N,
+               arrivals=torch.as_tensor(arr, device=dev))
+    assert not vtk._DEEP and (want > 0 or kind == "narrow")
